@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of ``dxt_lossless_transform_tpu`` for NVIDIA Hopper (H100).
+
+This slice carries the BC1 DDS production path: the auto-search under the LTU
+estimator, the transform with the winning settings and the 4-byte header, and the
+load path that reads the header back and untransforms. Entry points run on the
+CUDA device by default (``device="cuda"``) and raise
+:class:`~.errors.DeviceUnavailableError` when there is none; ``device="cpu"`` runs
+the plain PyTorch versions of the kernels.
+
+Importing the package builds nothing and imports no ``triton``: the CUDA library is
+compiled by ``nvcc`` at first use (see :mod:`.backend`).
+"""
+
+from .settings import (  # noqa: F401
+    BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, Bc1TransformSettings,
+    YCoCgVariant,
+)

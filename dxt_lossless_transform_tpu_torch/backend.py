@@ -1,0 +1,190 @@
+"""Device selection, the CUDA kernel library, host<->device copies and launch counts.
+
+The four BC1-path kernels live in one CUDA C++ source, ``csrc/bc1_kernels.cu``, with
+plain ``extern "C"`` entry points. At first use, :func:`library` compiles it with one
+``nvcc`` call into a shared library under ``build/cuda/`` at the repository root and
+loads it with :mod:`ctypes`. The file name carries a hash of the source and of the
+flags, and the library is written under a temporary name and renamed into place, so
+that processes building at the same time cannot see a half-written file. Nothing is
+built or loaded when the package is imported.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises :class:`KernelLaunchError` when that
+is not 0 and otherwise adds one to the kernel's count in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from .errors import DeviceUnavailableError
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "bc1_kernels.cu"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
+# -Xptxas=-v prints each kernel's registers, shared memory and spills
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+# C signatures of the entry points, in the order of their arguments.
+_SIGNATURES = {
+    # (in, out, n_blocks, variant, split, stream)
+    "dlt_bc1_transform": (_P, _P, _I, _I, _I, _P),
+    "dlt_bc1_untransform": (_P, _P, _I, _I, _I, _P),
+    # (in, out, n_blocks, candidate code, n_candidates, stream)
+    "dlt_bc1_regions": (_P, _P, _I, _I, _I, _P),
+    # (rows, counts, n_rows, row_len, valid_len, offsets, weights, n_offsets, stream)
+    "dlt_ltu_counts": (_P, _P, _I, _I, _I, _P, _P, _I, _P),
+}
+
+#: Launches per kernel since the last :func:`reset_launch_counts`.
+LAUNCHES = {name: 0 for name in _SIGNATURES}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc failed to build the kernel library."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry point returned a CUDA error code."""
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names the CPU.
+
+    Raises :class:`DeviceUnavailableError` for a CUDA device on a machine without
+    one; there is no silent fall back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise DeviceUnavailableError(
+                "no CUDA device is available; pass device='cpu' to run the plain "
+                "PyTorch versions of the kernels")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise DeviceUnavailableError(f"unsupported device {dev}")
+    return dev
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libdlt_bc1_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise DeviceUnavailableError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build() -> tuple:
+    """Compile the kernel library if it is not built yet.
+
+    Returns ``(path, compiler_output)``; the output is empty when the library was
+    already there."""
+    path = library_path()
+    if path.exists():
+        return path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path, proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at the first call."""
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel entry point ``name`` on ``device``'s current stream; count the
+    launch."""
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise KernelLaunchError(f"{name} failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def require_cuda_tensor(t: torch.Tensor, what: str, dtype: torch.dtype,
+                        align: int = 4) -> None:
+    """Check what a kernel takes: a contiguous CUDA tensor of ``dtype`` whose data
+    pointer is ``align``-byte aligned."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got one on {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+    if t.numel() and t.data_ptr() % align:
+        raise ValueError(f"{what}: data pointer is not {align}-byte aligned")
+
+
+def dispatch(t: torch.Tensor) -> bool:
+    """True to launch the kernel (CUDA tensor), False to take the plain version
+    (CPU tensor); any other device raises."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def upload(data, device: torch.device) -> torch.Tensor:
+    """Host bytes -> uint8 tensor on ``device``, through a pinned buffer for CUDA."""
+    src = np.frombuffer(data, np.uint8)
+    if device.type != "cuda":
+        return torch.from_numpy(src.copy())
+    pinned = torch.empty(src.size, dtype=torch.uint8, pin_memory=True)
+    pinned.numpy()[:] = src
+    out = pinned.to(device, non_blocking=True)
+    # the copy reads ``pinned`` asynchronously: it must finish before ``pinned`` goes
+    torch.cuda.current_stream(device).synchronize()
+    return out
+
+
+def download(t: torch.Tensor) -> bytes:
+    """uint8 tensor -> host bytes, through a pinned buffer for CUDA."""
+    if not t.is_cuda:
+        return t.contiguous().numpy().tobytes()
+    pinned = torch.empty(t.numel(), dtype=torch.uint8, pin_memory=True)
+    pinned.copy_(t.reshape(-1), non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return pinned.numpy().tobytes()

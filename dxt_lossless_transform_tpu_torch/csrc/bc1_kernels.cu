@@ -1,0 +1,320 @@
+// The four kernels of the BC1 DDS auto-transform and load path, for sm_90a.
+//
+// Built by one nvcc call into a shared library with a plain C interface
+// (dxt_lossless_transform_tpu_torch/backend.py) and called through ctypes. Every
+// entry point launches on the stream it is given, allocates nothing (the Python
+// wrapper allocates each output with torch.empty) and returns cudaGetLastError().
+//
+// Byte layouts are the on-disk ones (little-endian, as is the card):
+//   BC1 block b:       u32 colour word c0 | c1 << 16 at 8b, u32 index word at 8b+4
+//   transformed, interleaved: colour words at [0,4n), index words at [4n,8n)
+//   transformed, split:       c0 u16 at [0,2n), c1 u16 at [2n,4n), indices at [4n,8n)
+// n may be any block count (odd, or 1); nothing is padded.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// ---- YCoCg-R on both u16 halves of a c0 | c1 << 16 word at once (SWAR) ----------
+// Guard bits (| 0x0020_0020 before each subtraction, & 0x000F_000F after each
+// >> 1) keep borrows and carries inside each 16-bit half. Same arithmetic as
+// dxt_lossless_transform_tpu/ops/ycocg.py:decorrelate_pair_swar.
+constexpr uint32_t kP5 = 0x001F001Fu;
+constexpr uint32_t kP4 = 0x000F000Fu;
+constexpr uint32_t kPG = 0x00200020u;
+constexpr uint32_t kP1 = 0x00010001u;
+
+template <int V>
+__device__ __forceinline__ uint32_t decorrelate_pair(uint32_t p) {
+  if constexpr (V == 0) {
+    return p;
+  } else {
+    const uint32_t r = (p >> 11) & kP5, g = (p >> 6) & kP5;
+    const uint32_t gl = (p >> 5) & kP1, b = p & kP5;
+    const uint32_t co = ((r | kPG) - b) & kP5;
+    const uint32_t t = (b + ((co >> 1) & kP4)) & kP5;
+    const uint32_t cg = ((g | kPG) - t) & kP5;
+    const uint32_t y = (t + ((cg >> 1) & kP4)) & kP5;
+    if constexpr (V == 1) return (y << 11) | (co << 6) | (gl << 5) | cg;
+    else if constexpr (V == 2) return (gl << 15) | (y << 10) | (co << 5) | cg;
+    else return (y << 11) | (co << 6) | (cg << 1) | gl;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ uint32_t recorrelate_pair(uint32_t p) {
+  if constexpr (V == 0) {
+    return p;
+  } else {
+    uint32_t y, co, gl, cg;
+    if constexpr (V == 1) {
+      y = (p >> 11) & kP5; co = (p >> 6) & kP5; gl = (p >> 5) & kP1; cg = p & kP5;
+    } else if constexpr (V == 2) {
+      gl = (p >> 15) & kP1; y = (p >> 10) & kP5; co = (p >> 5) & kP5; cg = p & kP5;
+    } else {
+      y = (p >> 11) & kP5; co = (p >> 6) & kP5; cg = (p >> 1) & kP5; gl = p & kP1;
+    }
+    const uint32_t t = ((y | kPG) - ((cg >> 1) & kP4)) & kP5;
+    const uint32_t g = (cg + t) & kP5;
+    const uint32_t b = ((t | kPG) - ((co >> 1) & kP4)) & kP5;
+    const uint32_t r = (b + co) & kP5;
+    return (r << 11) | (g << 6) | (gl << 5) | b;
+  }
+}
+
+__device__ __forceinline__ int64_t global_thread() {
+  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+inline unsigned blocks_for(int64_t n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+// ---- dlt_bc1_transform -----------------------------------------------------------
+// Replaces dxt_lossless_transform_tpu/ops/pallas/shuffle.py:157 bc1_transform_tpu
+// (kernel _bc1_t_kernel). Bound by bytes: 8n read, 8n written, ~20 integer
+// operations per block. One thread per block: one 8-byte load, then 2- and 4-byte
+// stores that neighbouring threads make to neighbouring addresses, so each warp
+// writes whole 64- and 128-byte segments. The TPU kernel's transposes and
+// even/odd packing existed for the TPU's (8, 128) tiles and have no counterpart.
+template <int V, bool SPLIT>
+__global__ void __launch_bounds__(kThreads)
+bc1_transform_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out, int64_t n) {
+  const int64_t b = global_thread();
+  if (b >= n) return;
+  const uint2 blk = in[b];
+  const uint32_t d = decorrelate_pair<V>(blk.x);
+  if constexpr (SPLIT) {
+    reinterpret_cast<uint16_t*>(out)[b] = static_cast<uint16_t>(d & 0xFFFFu);
+    reinterpret_cast<uint16_t*>(out + 2 * n)[b] = static_cast<uint16_t>(d >> 16);
+  } else {
+    reinterpret_cast<uint32_t*>(out)[b] = d;
+  }
+  reinterpret_cast<uint32_t*>(out + 4 * n)[b] = blk.y;
+}
+
+// ---- dlt_bc1_untransform -----------------------------------------------------------
+// Replaces dxt_lossless_transform_tpu/ops/pallas/shuffle.py:185 bc1_untransform_tpu
+// (kernel _bc1_u_kernel), the kernel of the load path. Bound by bytes as the
+// transform is; the exact inverse, with one 8-byte store per block.
+template <int V, bool SPLIT>
+__global__ void __launch_bounds__(kThreads)
+bc1_untransform_kernel(const uint8_t* __restrict__ in, uint2* __restrict__ out, int64_t n) {
+  const int64_t b = global_thread();
+  if (b >= n) return;
+  uint32_t d;
+  if constexpr (SPLIT) {
+    d = static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(in)[b])
+        | (static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(in + 2 * n)[b]) << 16);
+  } else {
+    d = reinterpret_cast<const uint32_t*>(in)[b];
+  }
+  out[b] = make_uint2(recorrelate_pair<V>(d),
+                      reinterpret_cast<const uint32_t*>(in + 4 * n)[b]);
+}
+
+template <int V, bool S>
+cudaError_t launch_transform(const void* in, void* out, int64_t n, cudaStream_t st) {
+  bc1_transform_kernel<V, S><<<blocks_for(n), kThreads, 0, st>>>(
+      static_cast<const uint2*>(in), static_cast<uint8_t*>(out), n);
+  return cudaGetLastError();
+}
+
+template <int V, bool S>
+cudaError_t launch_untransform(const void* in, void* out, int64_t n, cudaStream_t st) {
+  bc1_untransform_kernel<V, S><<<blocks_for(n), kThreads, 0, st>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint2*>(out), n);
+  return cudaGetLastError();
+}
+
+// ---- dlt_bc1_regions -----------------------------------------------------------------
+// Replaces dxt_lossless_transform_tpu/ops/pallas/regions.py:60 bc1_region_streams_tpu
+// (kernel _bc1_regions_kernel). Row c of out (u8[C, 4n]) is candidate c's colour
+// region, exactly the bytes its transform writes at [0, 4n):
+//   interleaved: d0 | d1 << 16 as u32 at word b;  split: d0 u16 at b, d1 u16 at n+b.
+// Candidate c is 4 bits of `code`: variant in bits 0-1, split in bit 2.
+// Bound by bytes: 8n read (the index words ride along in the 8-byte load, which
+// costs less than a strided 4-byte load), 4n written per candidate. One thread
+// per block decorrelates its colour word once per variant and writes every row.
+__global__ void __launch_bounds__(kThreads)
+bc1_regions_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out, int64_t n,
+                   uint32_t code, int n_cand) {
+  const int64_t b = global_thread();
+  if (b >= n) return;
+  const uint32_t col = in[b].x;
+  const uint32_t d1 = decorrelate_pair<1>(col);
+  const uint32_t d2 = decorrelate_pair<2>(col);
+  const uint32_t d3 = decorrelate_pair<3>(col);
+  for (int c = 0; c < n_cand; ++c) {
+    const uint32_t cc = code >> (4 * c);
+    const uint32_t v = cc & 3u;
+    const uint32_t d = v == 0 ? col : v == 1 ? d1 : v == 2 ? d2 : d3;
+    uint8_t* row = out + static_cast<int64_t>(c) * 4 * n;
+    if (cc & 4u) {
+      reinterpret_cast<uint16_t*>(row)[b] = static_cast<uint16_t>(d & 0xFFFFu);
+      reinterpret_cast<uint16_t*>(row)[n + b] = static_cast<uint16_t>(d >> 16);
+    } else {
+      reinterpret_cast<uint32_t*>(row)[b] = d;
+    }
+  }
+}
+
+// ---- dlt_ltu_counts ------------------------------------------------------------------
+// Replaces dxt_lossless_transform_tpu/estimate/pallas_ltu.py:302
+// coverage_scores_pallas (_counts_call :262, kernels _make_kernel :177 for u8 rows
+// and _make_kernel_packed :71 for u32 rows; u32 rows reach this kernel as their
+// bytes). For each row c and each position i < valid_len - 3, with
+// gram(i) = bytes i..i+3 as a little-endian u32, position i is worth weight[o] of
+// the FIRST offset o (offsets ascending) with i >= k[o] and gram(i) == gram(i-k[o]),
+// and nothing if there is none. counts[c] = sum over i, exact (u64).
+//
+// Bound: 4 bytes per position read from device memory once, and up to one gram
+// compare per offset per position (fewer where a near offset matches first). The
+// TPU kernel walked a sequential grid with a sliding two-tile window; here blocks
+// run in any order, so each block stages its own 8 KiB tile plus the 4 KiB
+// backward halo and a 3-byte lookahead in shared memory (halo bytes are read by
+// two blocks, mostly from L2). A gram is two shared-memory words and one funnel
+// shift. Each thread sums its positions in u32 (at most 32 positions of weight
+// <= 255), the block sums through a shared atomic, and one 64-bit atomic per block
+// adds to the row: integer sums, so the count is exact in any block order. The
+// TPU kernel summed in f32, exact only below 2**24.
+constexpr int kTile = 8192;                            // positions per block
+constexpr int kHalo = 4096;                            // largest offset
+constexpr int kWinWords = (kHalo + kTile + 4) / 4 + 1; // halo, tile, lookahead
+constexpr int kMaxOffsets = 32;
+
+struct LtuOffsets {
+  int32_t k[kMaxOffsets];
+  uint32_t w[kMaxOffsets];
+  int32_t n;
+};
+
+__device__ __forceinline__ uint32_t gram_at(const uint32_t* win, int p) {
+  return __funnelshift_r(win[p >> 2], win[(p >> 2) + 1], (p & 3) * 8);
+}
+
+__global__ void __launch_bounds__(kThreads)
+ltu_counts_kernel(const uint8_t* __restrict__ rows, int64_t row_len, int64_t valid_len,
+                  LtuOffsets offs, unsigned long long* __restrict__ counts) {
+  __shared__ uint32_t win[kWinWords];
+  __shared__ uint32_t block_sum;
+  const uint8_t* row = rows + static_cast<int64_t>(blockIdx.y) * row_len;
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t win0 = tile0 - kHalo;  // a multiple of 4
+  const bool aligned = (reinterpret_cast<uintptr_t>(row) & 3u) == 0;
+  if (threadIdx.x == 0) block_sum = 0;
+  for (int w = threadIdx.x; w < kWinWords; w += kThreads) {
+    const int64_t g = win0 + 4 * static_cast<int64_t>(w);
+    uint32_t v = 0;
+    if (aligned && g >= 0 && g + 4 <= valid_len) {
+      v = *reinterpret_cast<const uint32_t*>(row + g);
+    } else {
+      for (int j = 0; j < 4; ++j) {
+        if (g + j >= 0 && g + j < valid_len) v |= static_cast<uint32_t>(row[g + j]) << (8 * j);
+      }
+    }
+    win[w] = v;
+  }
+  __syncthreads();
+  const int64_t end = valid_len - 3;  // positions i < end have a whole gram
+  uint32_t local = 0;
+  for (int t = threadIdx.x; t < kTile; t += kThreads) {
+    const int64_t i = tile0 + t;
+    if (i >= end) break;
+    const int lp = kHalo + t;
+    const uint32_t gi = gram_at(win, lp);
+    for (int o = 0; o < offs.n; ++o) {
+      const int k = offs.k[o];
+      if (k > i) break;  // ascending: no later offset reaches back far enough either
+      if (gram_at(win, lp - k) == gi) {
+        local += offs.w[o];
+        break;
+      }
+    }
+  }
+  atomicAdd(&block_sum, local);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_sum != 0) {
+    atomicAdd(&counts[blockIdx.y], static_cast<unsigned long long>(block_sum));
+  }
+}
+
+}  // namespace
+
+// ---- C entry points --------------------------------------------------------------------
+extern "C" {
+
+int dlt_bc1_transform(const void* in, void* out, int64_t n, int64_t variant,
+                      int64_t split, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || variant < 0 || variant > 3) return cudaErrorInvalidValue;
+  switch (variant * 2 + (split ? 1 : 0)) {
+    case 0: return launch_transform<0, false>(in, out, n, st);
+    case 1: return launch_transform<0, true>(in, out, n, st);
+    case 2: return launch_transform<1, false>(in, out, n, st);
+    case 3: return launch_transform<1, true>(in, out, n, st);
+    case 4: return launch_transform<2, false>(in, out, n, st);
+    case 5: return launch_transform<2, true>(in, out, n, st);
+    case 6: return launch_transform<3, false>(in, out, n, st);
+    default: return launch_transform<3, true>(in, out, n, st);
+  }
+}
+
+int dlt_bc1_untransform(const void* in, void* out, int64_t n, int64_t variant,
+                        int64_t split, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || variant < 0 || variant > 3) return cudaErrorInvalidValue;
+  switch (variant * 2 + (split ? 1 : 0)) {
+    case 0: return launch_untransform<0, false>(in, out, n, st);
+    case 1: return launch_untransform<0, true>(in, out, n, st);
+    case 2: return launch_untransform<1, false>(in, out, n, st);
+    case 3: return launch_untransform<1, true>(in, out, n, st);
+    case 4: return launch_untransform<2, false>(in, out, n, st);
+    case 5: return launch_untransform<2, true>(in, out, n, st);
+    case 6: return launch_untransform<3, false>(in, out, n, st);
+    default: return launch_untransform<3, true>(in, out, n, st);
+  }
+}
+
+int dlt_bc1_regions(const void* in, void* out, int64_t n, int64_t code, int64_t n_cand,
+                    void* stream) {
+  if (n <= 0 || n_cand <= 0 || n_cand > 8) return cudaErrorInvalidValue;
+  bc1_regions_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint2*>(in), static_cast<uint8_t*>(out), n,
+      static_cast<uint32_t>(code), static_cast<int>(n_cand));
+  return cudaGetLastError();
+}
+
+int dlt_ltu_counts(const void* rows, void* counts, int64_t n_rows, int64_t row_len,
+                   int64_t valid_len, const void* offsets, const void* weights,
+                   int64_t n_offsets, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_rows <= 0 || n_rows > 65535 || valid_len < 0 || valid_len > row_len ||
+      n_offsets < 0 || n_offsets > kMaxOffsets) {
+    return cudaErrorInvalidValue;
+  }
+  LtuOffsets offs = {};
+  offs.n = static_cast<int32_t>(n_offsets);
+  for (int64_t o = 0; o < n_offsets; ++o) {
+    offs.k[o] = static_cast<const int32_t*>(offsets)[o];
+    offs.w[o] = static_cast<uint32_t>(static_cast<const int32_t*>(weights)[o]);
+    const bool ascending = o == 0 || offs.k[o] > offs.k[o - 1];
+    if (offs.k[o] < 1 || offs.k[o] > kHalo || !ascending || offs.w[o] > 255u) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  cudaError_t rc = cudaMemsetAsync(counts, 0, n_rows * sizeof(unsigned long long), st);
+  if (rc != cudaSuccess) return rc;
+  const int64_t positions = valid_len > 3 ? valid_len - 3 : 1;
+  const dim3 grid(static_cast<unsigned>((positions + kTile - 1) / kTile),
+                  static_cast<unsigned>(n_rows));
+  ltu_counts_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const uint8_t*>(rows), row_len, valid_len, offs,
+      static_cast<unsigned long long*>(counts));
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,42 @@
+"""Typed errors of the ops layer (counterpart of ``dxt_lossless_transform_tpu/errors.py``,
+cut down to what BC1 needs), plus the error for a missing card.
+
+Validation errors subclass :class:`ValueError` and auto-transform errors
+:class:`RuntimeError`, as in the reference package.
+"""
+
+from __future__ import annotations
+
+
+class DltError(Exception):
+    """Base class of every typed error this package raises."""
+
+
+class ValidationError(DltError, ValueError):
+    """Input failed a length/alignment precondition."""
+
+    def __init__(self, fmt: str, length: int, divisor: int = 0, message: str = ""):
+        self.fmt = fmt
+        self.length = length
+        self.divisor = divisor
+        if not message:
+            message = (f"{fmt} data length {length} not divisible by {divisor}"
+                       if divisor else f"{fmt}: invalid input of length {length}")
+        super().__init__(message)
+
+
+class Bc1ValidationError(ValidationError):
+    def __init__(self, length: int, divisor: int = 8, message: str = ""):
+        super().__init__("BC1", length, divisor, message)
+
+
+class AutoTransformError(DltError, RuntimeError):
+    """The candidate search failed, typically because the estimator raised."""
+
+    def __init__(self, fmt: str, message: str):
+        self.fmt = fmt
+        super().__init__(f"{fmt} auto-transform failed: {message}")
+
+
+class DeviceUnavailableError(DltError, RuntimeError):
+    """A CUDA device was asked for (the default) but none is available."""

@@ -1,0 +1,91 @@
+"""LTU coverage-count kernel (``dlt_ltu_counts`` in ``csrc/bc1_kernels.cu``) and its
+plain version.
+
+Replaces ``dxt_lossless_transform_tpu/estimate/pallas_ltu.py:302``
+``coverage_scores_pallas`` (``_counts_call`` :262 with the u8-row kernel
+``_make_kernel`` :177 and the u32-row kernel ``_make_kernel_packed`` :71). Rows come
+as a (C, L) uint8 tensor, or as (C, L/4) int32 words that carry the same bytes; both
+reach the one kernel as bytes.
+
+For each row and each position i < ``valid_len`` - 3, with gram(i) the four bytes at
+i as a little-endian u32, i is worth ``weights[o]`` of the first offset
+``offsets[o]`` (ascending) with i >= k and gram(i) == gram(i - k), and nothing when
+there is none. The count is the sum over i, as an exact int64: the TPU kernel
+summed in f32, which is exact only below 2**24. The entropy term and the score
+are computed outside the kernel (:mod:`.ltu`), as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from .. import backend
+
+MAX_OFFSET = 4096   # the kernel's backward halo
+MAX_OFFSETS = 32    # the kernel's offset table
+MAX_ROWS = 65535    # grid.y
+
+
+def byte_rows(rows: torch.Tensor) -> torch.Tensor:
+    """(C, L) uint8, or (C, L/4) int32 words, -> (C, L) uint8 rows."""
+    if rows.dim() != 2:
+        raise ValueError(f"expected (C, L) rows, got shape {tuple(rows.shape)}")
+    if rows.dtype == torch.int32:
+        return rows.contiguous().view(torch.uint8)
+    if rows.dtype != torch.uint8:
+        raise ValueError(f"expected uint8 or int32 rows, got {rows.dtype}")
+    return rows
+
+
+def _check(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
+           weights: Sequence[int]) -> None:
+    if not 0 <= valid_len <= rows.shape[1]:
+        raise ValueError(f"valid_len {valid_len} outside [0, {rows.shape[1]}]")
+    if len(offsets) != len(weights):
+        raise ValueError("offsets and weights differ in length")
+    if any(k < 1 for k in offsets) or list(offsets) != sorted(set(offsets)):
+        raise ValueError(f"offsets must be positive and ascending, got {offsets}")
+
+
+def ltu_counts_plain(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
+                     weights: Sequence[int]) -> torch.Tensor:
+    m = valid_len - 3
+    if m <= 0:
+        return torch.zeros(rows.shape[0], dtype=torch.int64, device=rows.device)
+    b = rows[:, :valid_len].to(torch.int64)
+    g = b[:, :m] | (b[:, 1:m + 1] << 8) | (b[:, 2:m + 2] << 16) | (b[:, 3:m + 3] << 24)
+    w = torch.zeros(g.shape, dtype=torch.int64, device=rows.device)
+    # descending, so that the nearest matching offset's weight is written last
+    for k, wk in sorted(zip(offsets, weights), reverse=True):
+        if k >= m:
+            continue
+        w[:, k:] = torch.where(g[:, k:] == g[:, :-k], wk, w[:, k:])
+    return w.sum(dim=1)
+
+
+def ltu_counts(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
+               weights: Sequence[int]) -> torch.Tensor:
+    """Weighted 4-gram coverage count of each row, as int64 (C,)."""
+    rows = byte_rows(rows)
+    offsets, weights = [int(k) for k in offsets], [int(w) for w in weights]
+    _check(rows, valid_len, offsets, weights)
+    if not backend.dispatch(rows):
+        return ltu_counts_plain(rows, valid_len, offsets, weights)
+    backend.require_cuda_tensor(rows, "ltu_counts", torch.uint8, align=1)
+    if (len(offsets) > MAX_OFFSETS or (offsets and offsets[-1] > MAX_OFFSET)
+            or any(not 0 <= w <= 255 for w in weights)
+            or rows.shape[0] > MAX_ROWS):
+        raise ValueError(
+            f"the kernel takes at most {MAX_OFFSETS} offsets up to {MAX_OFFSET} with "
+            f"weights 0-255 and at most {MAX_ROWS} rows")
+    counts = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
+    if rows.shape[0]:
+        k_arr = (ctypes.c_int32 * max(len(offsets), 1))(*offsets)
+        w_arr = (ctypes.c_int32 * max(len(weights), 1))(*weights)
+        backend.launch("dlt_ltu_counts", rows.device, rows.data_ptr(),
+                       counts.data_ptr(), rows.shape[0], rows.shape[1], valid_len,
+                       ctypes.addressof(k_arr), ctypes.addressof(w_arr), len(offsets))
+    return counts

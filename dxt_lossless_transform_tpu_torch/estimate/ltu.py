@@ -1,0 +1,79 @@
+"""LTU estimator: sampled-offset 4-gram coverage plus a prefix entropy term.
+
+Counterpart of ``dxt_lossless_transform_tpu/estimate/ltu.py:33-216``. A position is
+covered when its 4-byte gram equals the gram at one of a fixed ladder of backward
+offsets, and is worth more the nearer its nearest match:
+
+    score = 24 * valid_len - sum_i W(min k : gram4[i] == gram4[i - k]) + ENT
+    W(k)  = 24 - round(log2 k)
+    ENT   = 3 * max(0, G[N] - sum_c G[hist_c]) // 8,   N = min(valid_len, 65536)
+
+where hist is the byte histogram of the first N bytes. Every term is an integer and
+the port sums exactly in int64 at every size, like the reference's numpy and C++
+scorers; the JAX device scorer sums in f32 and agrees with them only while the
+weighted total is below 2**24.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Union
+
+import torch
+
+from .. import backend
+from .base import SizeEstimation
+from .cuda_ltu import byte_rows, ltu_counts
+from .gtable import ENTROPY_CAP, G_TABLE
+
+DEFAULT_OFFSETS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256,
+                   512, 1024, 2048, 4096)
+
+WEIGHT_SCALE = 24
+
+
+def offset_weight(k: int) -> int:
+    """Integer value of a position whose nearest match is at offset k."""
+    return WEIGHT_SCALE - (int(round(math.log2(k))) if k > 1 else 0)
+
+
+def entropy_terms(rows: torch.Tensor, valid_len: int) -> torch.Tensor:
+    """Prefix entropy term of each (C, L) uint8 row, as int64 (C,)."""
+    c = rows.shape[0]
+    n = min(valid_len, ENTROPY_CAP)
+    if n <= 1:
+        return torch.zeros(c, dtype=torch.int64, device=rows.device)
+    bins = torch.arange(c, device=rows.device, dtype=torch.int64)[:, None] * 256
+    sample = rows[:, :n].to(torch.int64) + bins
+    hist = torch.bincount(sample.reshape(-1), minlength=256 * c).view(c, 256)
+    g = torch.from_numpy(G_TABLE).to(rows.device)
+    raw = g[n] - g[hist].sum(dim=1)
+    return 3 * raw.clamp(min=0) // 8
+
+
+def coverage_scores(rows: torch.Tensor, valid_len: int,
+                    offsets: Sequence[int] = DEFAULT_OFFSETS) -> torch.Tensor:
+    """Scores of (C, L) uint8 rows (or (C, L/4) int32 words), of which the first
+    ``valid_len`` bytes are real, as exact int64 (C,). Lower is better."""
+    rows = byte_rows(rows)
+    ks = sorted(set(int(k) for k in offsets))
+    counts = ltu_counts(rows, valid_len, ks, [offset_weight(k) for k in ks])
+    return WEIGHT_SCALE * valid_len - counts + entropy_terms(rows, valid_len)
+
+
+class LtuEstimation(SizeEstimation):
+    """Length minus sampled-offset gram-match coverage, plus the entropy term.
+
+    :meth:`estimate_batch_device` scores a region tensor on the device it lies on;
+    :meth:`estimate` copies one buffer to ``device`` first."""
+
+    def __init__(self, offsets=DEFAULT_OFFSETS):
+        self.offsets = tuple(offsets)
+
+    def estimate(self, data, device: Union[str, torch.device] = "cuda") -> int:
+        rows = backend.upload(data, backend.resolve_device(device))[None, :]
+        return int(coverage_scores(rows, rows.shape[1], self.offsets)[0])
+
+    def estimate_batch_device(self, regions: torch.Tensor,
+                              valid_len: int) -> torch.Tensor:
+        return coverage_scores(regions, valid_len, self.offsets)

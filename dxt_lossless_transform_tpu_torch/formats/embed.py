@@ -1,0 +1,82 @@
+"""The 4-byte transform header, written over the container magic.
+
+Counterpart of ``dxt_lossless_transform_tpu/formats/embed.py`` with BC1 packing
+(:94-110). On disk it is one little-endian u32:
+
+    bits 0-3:  transform format tag
+    bits 4-31: format-specific data; for BC1:
+               bits 0-1 header version (0), bit 2 split colour endpoints,
+               bits 3-4 decorrelation variant (0=Variant1, 1=Variant2, 2=Variant3,
+               3=None)
+"""
+
+from __future__ import annotations
+
+import enum
+import struct
+from dataclasses import dataclass
+
+from ..settings import Bc1TransformSettings, YCoCgVariant
+from .errors import CorruptedEmbeddedData, UnknownTransformFormat
+
+TRANSFORM_HEADER_SIZE = 4
+
+
+class TransformFormat(enum.IntEnum):
+    """u4 format tags (``embed/transform_format.rs:10-31``)."""
+
+    BC1 = 0x00
+    BC2 = 0x01
+    BC3 = 0x02
+    BC7 = 0x03
+    BC6H = 0x04
+    RGBA8888 = 0x05
+    BGRA8888 = 0x06
+    BGR888 = 0x07
+    BC4 = 0x08
+    BC5 = 0x09
+
+
+# YCoCgVariant <-> its 2-bit header code (not the enum values)
+_VARIANT_TO_BITS = {
+    YCoCgVariant.VARIANT1: 0,
+    YCoCgVariant.VARIANT2: 1,
+    YCoCgVariant.VARIANT3: 2,
+    YCoCgVariant.NONE: 3,
+}
+_BITS_TO_VARIANT = {v: k for k, v in _VARIANT_TO_BITS.items()}
+
+
+@dataclass(frozen=True)
+class TransformHeader:
+    """A parsed 4-byte transform header."""
+
+    format: TransformFormat
+    data: int  # 28-bit format-specific field
+
+    def to_bytes(self) -> bytes:
+        return struct.pack("<I", (int(self.format) & 0xF)
+                           | ((self.data & 0x0FFFFFFF) << 4))
+
+    @staticmethod
+    def from_bytes(raw: bytes) -> "TransformHeader":
+        if len(raw) < TRANSFORM_HEADER_SIZE:
+            raise UnknownTransformFormat(raw)
+        word = struct.unpack_from("<I", raw)[0]
+        try:
+            fmt = TransformFormat(word & 0xF)
+        except ValueError:
+            raise UnknownTransformFormat(word & 0xF) from None
+        return TransformHeader(fmt, word >> 4)
+
+    @staticmethod
+    def for_bc1(settings: Bc1TransformSettings) -> "TransformHeader":
+        data = ((int(settings.split_colour_endpoints) << 2)
+                | (_VARIANT_TO_BITS[YCoCgVariant(settings.decorrelation_mode)] << 3))
+        return TransformHeader(TransformFormat.BC1, data)
+
+    def bc1_settings(self) -> Bc1TransformSettings:
+        if self.data & 0x3:
+            raise CorruptedEmbeddedData(f"unsupported header version {self.data & 0x3}")
+        return Bc1TransformSettings(_BITS_TO_VARIANT[(self.data >> 3) & 0x3],
+                                    bool((self.data >> 2) & 1))

@@ -1,0 +1,104 @@
+"""Transform dispatch and the DDS handler (counterpart of
+``dxt_lossless_transform_tpu/formats/handlers.py:40-90`` and ``:123-175``, for BC1).
+
+Transform: copy the headers, transform the texture payload (every mip and surface in
+one call), copy trailing bytes, and write the 4-byte transform header over the DDS
+magic. Untransform: read the header, parse the DDS header ignoring the magic,
+restore the magic, and invert the payload.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from ..ops import bc1 as ops_bc1
+from .bundle import LATER_SLICE, TransformBundle
+from .dds import DDS_MAGIC, DdsFormat, parse_dds, parse_dds_ignore_magic
+from .embed import TRANSFORM_HEADER_SIZE, TransformFormat, TransformHeader
+from .errors import (
+    InputTooShort,
+    InputTooShortForStatedTextureSize,
+    InvalidDataAlignment,
+    InvalidInputFileHeader,
+    InvalidRestoredFileHeader,
+    OutputSizeMismatch,
+    UnsupportedTransformFormat,
+)
+
+_ALIGNMENT = {TransformFormat.BC1: 8, TransformFormat.BC2: 16, TransformFormat.BC3: 16,
+              TransformFormat.BC4: 8, TransformFormat.BC5: 16, TransformFormat.BC7: 16,
+              TransformFormat.BC6H: 16,
+              TransformFormat.RGBA8888: 4, TransformFormat.BGRA8888: 4,
+              TransformFormat.BGR888: 3}
+
+_DDS_TO_TRANSFORM = {
+    DdsFormat.BC1: TransformFormat.BC1,
+    DdsFormat.BC2: TransformFormat.BC2,
+    DdsFormat.BC3: TransformFormat.BC3,
+    DdsFormat.BC7: TransformFormat.BC7,
+    DdsFormat.BC6H: TransformFormat.BC6H,
+    DdsFormat.BC4: TransformFormat.BC4,
+    DdsFormat.BC5: TransformFormat.BC5,
+    DdsFormat.RGBA8888: TransformFormat.RGBA8888,
+    DdsFormat.BGRA8888: TransformFormat.BGRA8888,
+    DdsFormat.BGR888: TransformFormat.BGR888,
+}
+
+
+def dispatch_transform(fmt: TransformFormat, payload: bytes, bundle: TransformBundle,
+                       device: Union[str, torch.device] = "cuda"):
+    """Check alignment and run the bundle's builder on ``device``; returns
+    (payload', header)."""
+    div = _ALIGNMENT.get(fmt)
+    if div is not None and len(payload) % div:
+        raise InvalidDataAlignment(len(payload), div)
+    return bundle.dispatch_transform(fmt, payload, device)
+
+
+def dispatch_untransform(header: TransformHeader, payload: bytes,
+                         device: Union[str, torch.device] = "cuda") -> bytes:
+    """Decode the settings from the header and run the untransform."""
+    if header.format != TransformFormat.BC1:
+        raise UnsupportedTransformFormat(header.format, LATER_SLICE)
+    if len(payload) % _ALIGNMENT[header.format]:
+        raise InvalidDataAlignment(len(payload), _ALIGNMENT[header.format])
+    return ops_bc1.untransform(payload, header.bc1_settings(), device)
+
+
+class DdsHandler:
+    """DDS container handler. ``device`` is where both directions run: the
+    bundle's builders transform there and :meth:`untransform` inverts there."""
+
+    def __init__(self, device: Union[str, torch.device] = "cuda"):
+        self.device = device
+
+    def transform_bundle(self, data: bytes, bundle: TransformBundle) -> bytes:
+        info = parse_dds(data)
+        if info is None:
+            raise InvalidInputFileHeader("not a parseable DDS file")
+        fmt = _DDS_TO_TRANSFORM.get(info.format)
+        if fmt is None:
+            raise InvalidInputFileHeader(f"unsupported DDS format {info.format}")
+        start, end = info.data_offset, info.data_offset + info.data_length
+        if len(data) < end:
+            raise InputTooShortForStatedTextureSize(end, len(data))
+        payload, header = dispatch_transform(fmt, data[start:end], bundle, self.device)
+        out = header.to_bytes() + data[TRANSFORM_HEADER_SIZE:start] + payload + data[end:]
+        if len(out) != len(data):
+            raise OutputSizeMismatch(len(data), len(out))
+        return out
+
+    def untransform(self, data: bytes) -> bytes:
+        if len(data) < TRANSFORM_HEADER_SIZE:
+            raise InputTooShort(TRANSFORM_HEADER_SIZE, len(data))
+        header = TransformHeader.from_bytes(data)
+        info = parse_dds_ignore_magic(data)
+        if info is None:
+            raise InvalidRestoredFileHeader("not a parseable (transformed) DDS file")
+        start, end = info.data_offset, info.data_offset + info.data_length
+        if len(data) < end:
+            raise InputTooShortForStatedTextureSize(end, len(data))
+        payload = dispatch_untransform(header, data[start:end], self.device)
+        return DDS_MAGIC.to_bytes(4, "little") + data[4:start] + payload + data[end:]

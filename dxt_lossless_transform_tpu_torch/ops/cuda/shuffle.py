@@ -1,0 +1,94 @@
+"""BC1 transform and untransform kernels (``dlt_bc1_transform``,
+``dlt_bc1_untransform`` in ``csrc/bc1_kernels.cu``) and their plain versions.
+
+They replace ``dxt_lossless_transform_tpu/ops/pallas/shuffle.py:157``
+``bc1_transform_tpu`` and ``:185`` ``bc1_untransform_tpu``. Both directions map a
+uint8 tensor of 8n bytes to another of 8n bytes, laid out as on disk:
+
+- BC1 blocks: colour word ``c0 | c1 << 16`` then index word, per 8-byte block;
+- transformed, interleaved: colour words at ``[0, 4n)``, index words at ``[4n, 8n)``;
+- transformed, split: c0 u16 at ``[0, 2n)``, c1 u16 at ``[2n, 4n)``, indices at
+  ``[4n, 8n)``.
+
+Any n works, odd or 1; nothing is padded.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ... import backend
+from .. import ycocg
+
+
+def _check_blocks(x: torch.Tensor, what: str) -> int:
+    if x.dtype != torch.uint8 or x.dim() != 1 or x.numel() % 8:
+        raise ValueError(f"{what}: expected a 1-D uint8 tensor of 8n bytes, got "
+                         f"{x.dtype} of shape {tuple(x.shape)}")
+    return x.numel() // 8
+
+
+def _check_variant(variant: int) -> int:
+    if int(variant) not in (0, 1, 2, 3):
+        raise ValueError(f"YCoCg variant must be 0-3, got {variant}")
+    return int(variant)
+
+
+def write_colours(dst: torch.Tensor, d: torch.Tensor, split: bool) -> None:
+    """Write int32 colour words ``d`` (n of them) into uint8 ``dst`` (4n bytes) as
+    one u32 stream, or as the c0 u16 stream followed by the c1 u16 stream."""
+    if split:
+        dst.view(torch.int16).view(2, -1).copy_(torch.stack(ycocg.split_pair(d)))
+    else:
+        dst.view(torch.int32).copy_(d)
+
+
+def bc1_transform_plain(x: torch.Tensor, variant: int, split: bool) -> torch.Tensor:
+    n = x.numel() // 8
+    words = x.view(torch.int32).view(n, 2)
+    out = torch.empty_like(x)
+    write_colours(out[:4 * n], ycocg.decorrelate_pair(words[:, 0], variant), split)
+    out[4 * n:].view(torch.int32).copy_(words[:, 1])
+    return out
+
+
+def bc1_untransform_plain(x: torch.Tensor, variant: int, split: bool) -> torch.Tensor:
+    n = x.numel() // 8
+    if split:
+        halves = x[:4 * n].view(torch.int16).view(2, n).to(torch.int32) & 0xFFFF
+        d = ycocg.join_pair(halves[0], halves[1])
+    else:
+        d = x[:4 * n].view(torch.int32)
+    out = torch.empty_like(x)
+    words = out.view(torch.int32).view(n, 2)
+    words[:, 0] = ycocg.recorrelate_pair(d, variant)
+    words[:, 1] = x[4 * n:].view(torch.int32)
+    return out
+
+
+def bc1_transform(x: torch.Tensor, variant: int, split: bool) -> torch.Tensor:
+    """BC1 blocks (uint8[8n]) -> transformed bytes (uint8[8n])."""
+    n = _check_blocks(x, "bc1_transform")
+    variant = _check_variant(variant)
+    if not backend.dispatch(x):
+        return bc1_transform_plain(x, variant, split)
+    backend.require_cuda_tensor(x, "bc1_transform", torch.uint8, align=8)
+    out = torch.empty_like(x)
+    if n:
+        backend.launch("dlt_bc1_transform", x.device, x.data_ptr(), out.data_ptr(),
+                       n, variant, int(bool(split)))
+    return out
+
+
+def bc1_untransform(x: torch.Tensor, variant: int, split: bool) -> torch.Tensor:
+    """Transformed bytes (uint8[8n]) -> BC1 blocks (uint8[8n])."""
+    n = _check_blocks(x, "bc1_untransform")
+    variant = _check_variant(variant)
+    if not backend.dispatch(x):
+        return bc1_untransform_plain(x, variant, split)
+    backend.require_cuda_tensor(x, "bc1_untransform", torch.uint8, align=8)
+    out = torch.empty_like(x)
+    if n:
+        backend.launch("dlt_bc1_untransform", x.device, x.data_ptr(), out.data_ptr(),
+                       n, variant, int(bool(split)))
+    return out

@@ -1,0 +1,107 @@
+"""Deterministic BC1 test data and DDS files.
+
+This package's copy of the BC1 parts of ``dxt_lossless_transform_tpu/utils/testgen.py``
+(:25-48, :88-122, :144-183): the same seeds give the same bytes, which the tests
+check. ``chip_smoke.py`` uses it, since it cannot import the JAX package.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+_DDSD_CAPS = 0x1
+_DDSD_HEIGHT = 0x2
+_DDSD_WIDTH = 0x4
+_DDSD_PIXELFORMAT = 0x1000
+_DDSD_MIPMAPCOUNT = 0x20000
+_DDPF_FOURCC = 0x4
+_DXGI_BC1_UNORM = 71
+
+
+def from_rgb(r, g, b) -> np.ndarray:
+    """Pack 8-bit RGB into RGB565 by truncation."""
+    r = np.asarray(r, np.uint16)
+    g = np.asarray(g, np.uint16)
+    b = np.asarray(b, np.uint16)
+    return (((r & 0xF8) << 8) | ((g & 0xFC) << 3) | (b >> 3)).astype(np.uint16)
+
+
+def bc_blocks(num_blocks: int, block_size: int, seed: int = 0) -> bytes:
+    """Uniform-random block bytes (worst case: incompressible)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, num_blocks * block_size, dtype=np.uint8).tobytes()
+
+
+def bc1_realistic(num_blocks: int, seed: int = 0) -> bytes:
+    """BC1 blocks with texture-like structure: smoothly varying endpoints, correlated
+    RGB channels and a few repeated index patterns."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 8 * np.pi, num_blocks)
+    base_r = (96 + 80 * np.sin(t) + rng.normal(0, 8, num_blocks)).clip(0, 255)
+    base_g = (base_r * 0.8 + rng.normal(0, 6, num_blocks)).clip(0, 255)
+    base_b = (base_r * 0.6 + rng.normal(0, 6, num_blocks)).clip(0, 255)
+    c0 = from_rgb(base_r.astype(np.uint8), base_g.astype(np.uint8), base_b.astype(np.uint8))
+    delta = rng.integers(0, 24, num_blocks)
+    c1 = from_rgb((base_r - delta).clip(0, 255).astype(np.uint8),
+                  (base_g - delta).clip(0, 255).astype(np.uint8),
+                  (base_b - delta).clip(0, 255).astype(np.uint8))
+    patterns = rng.integers(0, 2**32, 8, dtype=np.uint32)
+    idx = patterns[rng.integers(0, 8, num_blocks)]
+    words = np.empty((num_blocks, 2), dtype="<u4")
+    words[:, 0] = c0.astype(np.uint32) | (c1.astype(np.uint32) << 16)
+    words[:, 1] = idx
+    return words.tobytes()
+
+
+def _chain_blocks(width: int, height: int, mipmaps: int) -> int:
+    total, w, h = 0, width, height
+    for _ in range(mipmaps):
+        total += ((w + 3) // 4) * ((h + 3) // 4)
+        w, h = max(w // 2, 1), max(h // 2, 1)
+    return total
+
+
+def _flags(mipmaps: int) -> int:
+    flags = _DDSD_CAPS | _DDSD_HEIGHT | _DDSD_WIDTH | _DDSD_PIXELFORMAT
+    return flags | (_DDSD_MIPMAPCOUNT if mipmaps > 1 else 0)
+
+
+def make_dds(fmt: str, width: int, height: int, mipmaps: int = 1, seed: int = 0,
+             realistic: bool = True, trailing: bytes = b"") -> bytes:
+    """A legacy-header BC1 (DXT1) DDS file whose payload covers the whole mip chain."""
+    if fmt != "BC1":
+        raise ValueError(f"unsupported synthetic format {fmt}: this package makes BC1")
+    n = _chain_blocks(width, height, mipmaps)
+    payload = bc1_realistic(n, seed) if realistic else bc_blocks(n, 8, seed)
+    header = bytearray(128)
+    header[0:4] = b"DDS "
+    struct.pack_into("<7I", header, 4, 124, _flags(mipmaps), height, width, 0, 0, mipmaps)
+    struct.pack_into("<2I", header, 0x4C, 32, _DDPF_FOURCC)
+    header[0x54:0x58] = b"DXT1"
+    struct.pack_into("<I", header, 0x6C, 0x1000)  # caps: DDSCAPS_TEXTURE
+    return bytes(header) + payload + trailing
+
+
+def make_dx10_dds(fmt: str, width: int, height: int, mipmaps: int = 1,
+                  seed: int = 0, trailing: bytes = b"",
+                  payload: bytes = None) -> bytes:
+    """A DX10-header BC1 DDS file (payload at 0x94)."""
+    if fmt != "BC1":
+        raise ValueError(f"unsupported DX10 format {fmt}: this package makes BC1")
+    n = _chain_blocks(width, height, mipmaps)
+    if payload is None:
+        payload = bc1_realistic(n, seed)
+    elif len(payload) != n * 8:
+        raise ValueError(f"payload is {len(payload)} bytes; the stated "
+                         f"{width}x{height}x{mipmaps} chain needs {n * 8}")
+    header = bytearray(0x94)
+    header[0:4] = b"DDS "
+    struct.pack_into("<7I", header, 4, 124, _flags(mipmaps), height, width, 0, 0, mipmaps)
+    struct.pack_into("<2I", header, 0x4C, 32, _DDPF_FOURCC)
+    header[0x54:0x58] = b"DX10"
+    # dxgiFormat, resourceDimension=3 (2D), miscFlag, arraySize, miscFlags2
+    struct.pack_into("<5I", header, 0x80, _DXGI_BC1_UNORM, 3, 0, 1, 0)
+    struct.pack_into("<I", header, 0x6C, 0x1000)
+    return bytes(header) + payload + trailing

@@ -1,0 +1,109 @@
+"""The port's LTU scorer (plain version) against the JAX package's exact integer
+numpy twin, its Pallas kernel in interpret mode and its XLA scorer, and the tables
+that define the score."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dxt_lossless_transform_tpu.estimate import gtable as jax_gtable
+from dxt_lossless_transform_tpu.estimate import ltu as jax_ltu
+from dxt_lossless_transform_tpu.estimate.pallas_ltu import coverage_scores_pallas
+from dxt_lossless_transform_tpu_torch import convert
+from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu, gtable, ltu
+
+
+def _row(size: int, kind: str) -> np.ndarray:
+    rng = np.random.default_rng(size)
+    if kind == "random":
+        return rng.integers(0, 256, size, np.uint8)
+    # structured: a few symbols with runs and periodic repeats, so that every
+    # offset finds matches
+    base = rng.integers(0, 6, size, np.uint8)
+    base[size // 3:size // 2] = 7
+    period = np.tile(np.arange(48, dtype=np.uint8), size // 48 + 1)[:size]
+    return np.where(np.arange(size) % 3 == 0, base, period).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["random", "structured"])
+@pytest.mark.parametrize("size", [0, 1, 3, 4, 5, 4097, 4100, 70000])
+def test_scores_equal_numpy_twin(size, kind):
+    data = _row(size, kind)
+    want = jax_ltu._coverage_score_np(data, jax_ltu.DEFAULT_OFFSETS)
+    got = ltu.coverage_scores(torch.from_numpy(data.copy())[None, :], size)
+    assert int(got[0]) == want
+    # the same bytes in a longer row, with valid_len below the row length
+    padded = np.concatenate([data, _row(37, "random")])[None, :]
+    got = ltu.coverage_scores(torch.from_numpy(padded), size)
+    assert int(got[0]) == want
+
+
+@pytest.mark.parametrize("valid", [32768, 32768 - 999])
+def test_scores_equal_pallas_interpret_and_xla(valid):
+    rows8 = np.stack([_row(32768, "structured"), _row(32768, "random")])
+    rows32 = np.stack([r.view("<u4") for r in rows8])
+    offsets = jax_ltu.DEFAULT_OFFSETS
+    pallas8 = np.asarray(coverage_scores_pallas(jnp.asarray(rows8), jnp.int32(valid),
+                                                offsets, interpret=True))
+    pallas32 = np.asarray(coverage_scores_pallas(jnp.asarray(rows32),
+                                                 jnp.int32(valid), offsets,
+                                                 interpret=True))
+    xla = np.asarray(jax_ltu._coverage_scores(jnp.asarray(rows8), jnp.int32(valid),
+                                              offsets))
+    assert (pallas8 < 2**24).all()  # below 2**24 the f32 scores are exact integers
+    got8 = ltu.coverage_scores(torch.from_numpy(rows8), valid).numpy()
+    got32 = ltu.coverage_scores(torch.from_numpy(rows32.view(np.int32)), valid).numpy()
+    for want in (pallas8, pallas32, xla):
+        np.testing.assert_array_equal(got8, want.astype(np.int64))
+    np.testing.assert_array_equal(got32, got8)
+
+
+def test_tables_equal():
+    np.testing.assert_array_equal(gtable.G_TABLE, jax_gtable.G_TABLE)
+    assert gtable.ENTROPY_CAP == jax_gtable.ENTROPY_CAP
+    assert ltu.DEFAULT_OFFSETS == jax_ltu.DEFAULT_OFFSETS
+    assert ltu.WEIGHT_SCALE == jax_ltu.WEIGHT_SCALE
+    assert all(ltu.offset_weight(k) == jax_ltu.offset_weight(k) for k in range(1, 5000))
+
+
+@pytest.mark.parametrize("size", [0, 2, 1000, 9000])
+def test_estimate_equals_jax_estimator(size):
+    data = _row(size, "structured").tobytes()
+    port = convert.from_reference(jax_ltu.LtuEstimation())
+    assert port.estimate(data, device="cpu") == jax_ltu.LtuEstimation().estimate(data)
+
+
+def test_custom_offsets_follow_the_estimator():
+    data = _row(5000, "structured")
+    offsets = (1, 7, 100, 3000)
+    want = jax_ltu._coverage_score_np(data, offsets)
+    est = convert.from_reference(jax_ltu.LtuEstimation(offsets))
+    assert est.offsets == offsets
+    assert est.estimate(data.tobytes(), device="cpu") == want
+
+
+def test_scores_are_exact_above_2_pow_24():
+    """A weighted total above 2**24 (where f32 sums round) stays exact."""
+    size = 800_000
+    data = np.zeros(size, np.uint8)
+    counts = cuda_ltu.ltu_counts(torch.from_numpy(data)[None, :], size,
+                                 [1], [ltu.offset_weight(1)])
+    assert int(counts[0]) == 24 * (size - 4) > 2**24
+
+
+@pytest.mark.parametrize("bad", [{"valid_len": 10}, {"offsets": [2, 1]},
+                                 {"offsets": [0, 1]}, {"weights": [1]}])
+def test_counts_reject_bad_arguments(bad):
+    args = {"rows": torch.zeros((1, 8), dtype=torch.uint8), "valid_len": 8,
+            "offsets": [1, 2], "weights": [24, 23], **bad}
+    with pytest.raises(ValueError):
+        cuda_ltu.ltu_counts(**args)
+
+
+def test_offset_weight_formula():
+    assert [ltu.offset_weight(k) for k in (1, 2, 3, 4096)] == [
+        24, 23, 24 - int(round(math.log2(3))), 12]

@@ -1,0 +1,196 @@
+"""Properties of the port as a package: what it imports, where its entry points run,
+and that importing it builds nothing."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from dxt_lossless_transform_tpu.estimate.ltu import LtuEstimation as JaxLtu
+from dxt_lossless_transform_tpu.settings import (
+    BC1_COMPREHENSIVE_CANDIDATES, Bc1TransformSettings as JaxSettings, YCoCgVariant,
+)
+from dxt_lossless_transform_tpu_torch import backend, convert, settings
+from dxt_lossless_transform_tpu_torch.api import (
+    Bc1AutoTransformBuilder, Bc1ManualTransformBuilder,
+)
+from dxt_lossless_transform_tpu_torch.errors import DeviceUnavailableError
+from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
+from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
+from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
+from dxt_lossless_transform_tpu_torch.ops import auto, bc1
+from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
+from dxt_lossless_transform_tpu_torch.utils import testgen
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "dxt_lossless_transform_tpu_torch"
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "dxt_lossless_transform_tpu", "zstandard")
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_imports_nothing_of_jax(path):
+    for name in _imported(path):
+        assert name.split(".")[0] not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_scan_covers_the_package():
+    names = {p.relative_to(PACKAGE).as_posix() for p in SOURCES[:-1]}
+    assert {"backend.py", "ops/cuda/shuffle.py", "ops/cuda/regions.py",
+            "estimate/cuda_ltu.py", "formats/handlers.py", "api.py"} <= names
+
+
+def test_import_builds_nothing_and_imports_no_triton():
+    code = (
+        "import subprocess, sys\n"
+        "def boom(*a, **k): raise AssertionError('subprocess at import')\n"
+        "subprocess.run = subprocess.Popen = boom\n"
+        "import dxt_lossless_transform_tpu_torch as p, importlib, pkgutil\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from dxt_lossless_transform_tpu_torch import backend\n"
+        "assert backend._lib is None\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('triton', 'jax', 'zstandard', 'dxt_lossless_transform_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+
+
+DATA = bytes(range(256)) * 4
+DDS = testgen.make_dds("BC1", 16, 16, 1)
+ENTRY_POINTS = {
+    "bc1.transform": lambda: bc1.transform(DATA),
+    "bc1.untransform": lambda: bc1.untransform(DATA),
+    "auto.transform_bc1_auto": lambda: auto.transform_bc1_auto(DATA, LtuEstimation()),
+    "manual builder": lambda: Bc1ManualTransformBuilder().transform(DATA),
+    "auto builder": lambda: Bc1AutoTransformBuilder(LtuEstimation()).transform(DATA),
+    "DdsHandler.transform_bundle": lambda: DdsHandler().transform_bundle(
+        DDS, TransformBundle(bc1=Bc1AutoTransformBuilder(LtuEstimation()))),
+    "DdsHandler.untransform": lambda: DdsHandler().untransform(
+        DdsHandler("cpu").transform_bundle(
+            DDS, TransformBundle(bc1=Bc1ManualTransformBuilder()))),
+    "LtuEstimation.estimate": lambda: LtuEstimation().estimate(DATA),
+}
+
+
+@pytest.mark.parametrize("call", ENTRY_POINTS)
+def test_entry_points_default_to_cuda(call):
+    """Without ``device=`` an entry point asks for the card and raises here."""
+    _no_cuda()
+    with pytest.raises(DeviceUnavailableError):
+        ENTRY_POINTS[call]()
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    backend.reset_launch_counts()
+    x = torch.frombuffer(bytearray(DATA), dtype=torch.uint8)
+    t = shuffle.bc1_transform(x, 1, True)
+    assert torch.equal(shuffle.bc1_untransform(t, 1, True), x)
+    rows = regions.bc1_regions(x, ((1, True), (0, False)))
+    cuda_ltu.ltu_counts(rows, rows.shape[1], [1, 2], [24, 23])
+    assert all(count == 0 for count in backend.LAUNCHES.values())
+
+
+def test_other_devices_raise():
+    x = torch.empty(16, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        shuffle.bc1_transform(x, 0, False)
+    with pytest.raises(DeviceUnavailableError):
+        backend.resolve_device("meta")
+
+
+def test_upload_download_cpu():
+    dev = backend.resolve_device("cpu")
+    assert backend.download(backend.upload(DATA, dev)) == DATA
+
+
+def test_library_path_is_keyed_by_source():
+    path = backend.library_path()
+    assert path.parent == REPO / "build" / "cuda"
+    assert path.name.startswith("libdlt_bc1_kernels_") and path.suffix == ".so"
+
+
+def test_convert_from_reference():
+    assert convert.from_reference(JaxSettings(YCoCgVariant.VARIANT2, False)) == \
+        settings.Bc1TransformSettings(settings.YCoCgVariant.VARIANT2, False)
+    assert convert.from_reference(BC1_COMPREHENSIVE_CANDIDATES) == \
+        settings.BC1_COMPREHENSIVE_CANDIDATES
+    assert convert.from_reference(YCoCgVariant.VARIANT3) is \
+        settings.YCoCgVariant.VARIANT3
+    est = convert.from_reference(JaxLtu((1, 5, 9)))
+    assert isinstance(est, LtuEstimation) and est.offsets == (1, 5, 9)
+    with pytest.raises(TypeError):
+        convert.from_reference(object())
+
+
+def test_settings_match_jax():
+    from dxt_lossless_transform_tpu import settings as jax_settings
+
+    assert convert.from_reference(jax_settings.BC1_FAST_CANDIDATES) == \
+        settings.BC1_FAST_CANDIDATES
+    assert [convert.from_reference(s) for s in JaxSettings.all_combinations()] == \
+        list(settings.Bc1TransformSettings.all_combinations())
+    assert convert.from_reference(JaxSettings()) == settings.Bc1TransformSettings()
+
+
+def _fake_nvcc(tmp_path, body: str) -> Path:
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    nvcc = bindir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(0o755)
+    return bindir
+
+
+def test_build_writes_the_hash_named_library_once(tmp_path, monkeypatch):
+    # a stand-in nvcc that writes its -o argument and logs each call
+    bindir = _fake_nvcc(tmp_path, 'echo call >> "$(dirname "$0")/log"\n'
+                                  'while [ "$1" != "-o" ]; do shift; done\n'
+                                  'echo built > "$2"\n')
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(backend, "BUILD_DIR", tmp_path / "build" / "cuda")
+    path, _ = backend.build()
+    assert path == backend.library_path() and path.read_text() == "built\n"
+    assert [p.name for p in path.parent.iterdir()] == [path.name]  # no temp left
+    assert backend.build() == (path, "")  # already built: nvcc is not called again
+    assert (bindir / "log").read_text() == "call\n"
+
+
+def test_build_failure_raises_and_leaves_nothing(tmp_path, monkeypatch):
+    bindir = _fake_nvcc(tmp_path, "echo 'error: no' >&2\nexit 2\n")
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(backend, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(backend.KernelBuildError, match="error: no"):
+        backend.build()
+    assert list((tmp_path / "build").iterdir()) == []
+
+
+def test_missing_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(backend, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(DeviceUnavailableError, match="nvcc"):
+        backend.build()
