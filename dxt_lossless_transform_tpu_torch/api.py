@@ -1,7 +1,7 @@
-"""BC1 builders (counterpart of ``dxt_lossless_transform_tpu/api.py:26-90``).
+"""BC1 and BC3 builders (counterpart of ``dxt_lossless_transform_tpu/api.py:26-119``).
 
-The auto builder searches for the best settings with a pluggable estimator and hands
-back the untransform recipe as a manual builder; the manual builder transforms with
+An auto builder searches for the best settings with a pluggable estimator and hands
+back the untransform recipe as a manual builder; a manual builder transforms with
 explicit settings. Each call runs on the ``device`` it is given, the CUDA device
 unless the caller names the CPU.
 """
@@ -13,36 +13,42 @@ from typing import Optional, Union
 import torch
 
 from .estimate.base import NoEstimation, SizeEstimation
-from .ops import auto as ops_auto, bc1 as ops_bc1
-from .settings import Bc1TransformSettings, YCoCgVariant
+from .ops import auto as ops_auto, bc1 as ops_bc1, bc3 as ops_bc3
+from .settings import Bc1TransformSettings, Bc3TransformSettings, YCoCgVariant
 
 
-class Bc1ManualTransformBuilder:
-    def __init__(self, settings: Optional[Bc1TransformSettings] = None):
-        self._settings = settings if settings is not None else Bc1TransformSettings()
+class _ManualBuilder:
+    _settings_cls = None  # the format's settings dataclass
+    _ops = None           # the format's ops module (transform, untransform)
+
+    def __init__(self, settings=None):
+        self._settings = settings if settings is not None else type(self)._settings_cls()
+
+    def _with(self, **changes):
+        self._settings = type(self._settings)(**{**self._settings.__dict__, **changes})
+        return self
 
     def decorrelation_mode(self, variant: YCoCgVariant):
-        self._settings = Bc1TransformSettings(YCoCgVariant(variant),
-                                              self._settings.split_colour_endpoints)
-        return self
+        return self._with(decorrelation_mode=YCoCgVariant(variant))
 
     def split_colour_endpoints(self, flag: bool):
-        self._settings = Bc1TransformSettings(self._settings.decorrelation_mode,
-                                              bool(flag))
-        return self
+        return self._with(split_colour_endpoints=bool(flag))
 
-    def get_settings(self) -> Bc1TransformSettings:
+    def get_settings(self):
         return self._settings
 
     def transform(self, data: bytes, device: Union[str, torch.device] = "cuda") -> bytes:
-        return ops_bc1.transform(data, self._settings, device)
+        return type(self)._ops.transform(data, self._settings, device)
 
     def untransform(self, data: bytes,
                     device: Union[str, torch.device] = "cuda") -> bytes:
-        return ops_bc1.untransform(data, self._settings, device)
+        return type(self)._ops.untransform(data, self._settings, device)
 
 
-class Bc1AutoTransformBuilder:
+class _AutoBuilder:
+    _search = None  # the format's auto-search, (data, estimator, use_all, device=)
+    _manual = None  # the format's manual builder class
+
     def __init__(self, estimator: Optional[SizeEstimation] = None):
         self._estimator = estimator if estimator is not None else NoEstimation()
         self._use_all = False
@@ -59,6 +65,29 @@ class Bc1AutoTransformBuilder:
     def transform(self, data: bytes, device: Union[str, torch.device] = "cuda"):
         """Search, transform, and return ``(transformed, manual_builder)``; the manual
         builder is the untransform recipe."""
-        out, settings = ops_auto.transform_bc1_auto(data, self._estimator,
-                                                    self._use_all, device=device)
-        return out, Bc1ManualTransformBuilder(settings)
+        out, settings = type(self)._search(data, self._estimator, self._use_all,
+                                           device=device)
+        return out, type(self)._manual(settings)
+
+
+class Bc1ManualTransformBuilder(_ManualBuilder):
+    _settings_cls = Bc1TransformSettings
+    _ops = ops_bc1
+
+
+class Bc1AutoTransformBuilder(_AutoBuilder):
+    _search = staticmethod(ops_auto.transform_bc1_auto)
+    _manual = Bc1ManualTransformBuilder
+
+
+class Bc3ManualTransformBuilder(_ManualBuilder):
+    _settings_cls = Bc3TransformSettings
+    _ops = ops_bc3
+
+    def split_alpha_endpoints(self, flag: bool):
+        return self._with(split_alpha_endpoints=bool(flag))
+
+
+class Bc3AutoTransformBuilder(_AutoBuilder):
+    _search = staticmethod(ops_auto.transform_bc3_auto)
+    _manual = Bc3ManualTransformBuilder

@@ -1,12 +1,14 @@
 """Device selection, the CUDA kernel library, host<->device copies and launch counts.
 
-The four BC1-path kernels live in one CUDA C++ source, ``csrc/bc1_kernels.cu``, with
-plain ``extern "C"`` entry points. At first use, :func:`library` compiles it with one
-``nvcc`` call into a shared library under ``build/cuda/`` at the repository root and
-loads it with :mod:`ctypes`. The file name carries a hash of the source and of the
-flags, and the library is written under a temporary name and renamed into place, so
-that processes building at the same time cannot see a half-written file. Nothing is
-built or loaded when the package is imported.
+The kernels live in the CUDA C++ sources ``csrc/*.cu`` (``bc1_kernels.cu`` with the
+LTU count kernel, ``bc3_kernels.cu``), which share ``csrc/common.cuh`` and have
+plain ``extern "C"`` entry points. At first use, :func:`library` compiles all of
+them with one ``nvcc`` call into one shared library under ``build/cuda/`` at the
+repository root and loads it with :mod:`ctypes`. The file name carries a hash of
+every source and header and of the flags, and the library is written under a
+temporary name and renamed into place, so that processes building at the same time
+cannot see a half-written file. Nothing is built or loaded when the package is
+imported.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises :class:`KernelLaunchError` when that
@@ -28,7 +30,7 @@ import torch
 
 from .errors import DeviceUnavailableError
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "bc1_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
 # -Xptxas=-v prints each kernel's registers, shared memory and spills
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,8 +45,15 @@ _SIGNATURES = {
     "dlt_bc1_untransform": (_P, _P, _I, _I, _I, _P),
     # (in, out, n_blocks, candidate code, n_candidates, stream)
     "dlt_bc1_regions": (_P, _P, _I, _I, _I, _P),
-    # (rows, counts, n_rows, row_len, valid_len, offsets, weights, n_offsets, stream)
-    "dlt_ltu_counts": (_P, _P, _I, _I, _I, _P, _P, _I, _P),
+    # (rows, counts, n_rows, row_len, valid_len, offsets, weights, n_offsets,
+    #  far_table, stream)
+    "dlt_ltu_counts": (_P, _P, _I, _I, _I, _P, _P, _I, _P, _P),
+    # (in, out, n_blocks, variant, split_alpha, split_colour, stream)
+    "dlt_bc3_transform": (_P, _P, _I, _I, _I, _I, _P),
+    "dlt_bc3_untransform": (_P, _P, _I, _I, _I, _I, _P),
+    # (in, alpha_out, colour_out, n_blocks, alpha code, n_alpha, colour code,
+    #  n_colour, stream)
+    "dlt_bc3_regions": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.
@@ -79,9 +88,16 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
+def sources() -> list:
+    """The ``.cu`` files that the one ``nvcc`` call compiles."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libdlt_bc1_kernels_{digest.hexdigest()[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources() + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"libdlt_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -103,7 +119,7 @@ def build() -> tuple:
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sources())]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

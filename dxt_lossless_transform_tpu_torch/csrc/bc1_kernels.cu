@@ -1,9 +1,10 @@
-// The four kernels of the BC1 DDS auto-transform and load path, for sm_90a.
+// The BC1 kernels and the LTU coverage count, for sm_90a.
 //
-// Built by one nvcc call into a shared library with a plain C interface
-// (dxt_lossless_transform_tpu_torch/backend.py) and called through ctypes. Every
-// entry point launches on the stream it is given, allocates nothing (the Python
-// wrapper allocates each output with torch.empty) and returns cudaGetLastError().
+// Built with bc3_kernels.cu by one nvcc call into one shared library with a plain
+// C interface (dxt_lossless_transform_tpu_torch/backend.py) and called through
+// ctypes. Every entry point launches on the stream it is given, allocates nothing
+// (the Python wrapper allocates each output with torch.empty) and returns
+// cudaGetLastError().
 //
 // Byte layouts are the on-disk ones (little-endian, as is the card):
 //   BC1 block b:       u32 colour word c0 | c1 << 16 at 8b, u32 index word at 8b+4
@@ -11,67 +12,11 @@
 //   transformed, split:       c0 u16 at [0,2n), c1 u16 at [2n,4n), indices at [4n,8n)
 // n may be any block count (odd, or 1); nothing is padded.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include <type_traits>
+
+#include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-// ---- YCoCg-R on both u16 halves of a c0 | c1 << 16 word at once (SWAR) ----------
-// Guard bits (| 0x0020_0020 before each subtraction, & 0x000F_000F after each
-// >> 1) keep borrows and carries inside each 16-bit half. Same arithmetic as
-// dxt_lossless_transform_tpu/ops/ycocg.py:decorrelate_pair_swar.
-constexpr uint32_t kP5 = 0x001F001Fu;
-constexpr uint32_t kP4 = 0x000F000Fu;
-constexpr uint32_t kPG = 0x00200020u;
-constexpr uint32_t kP1 = 0x00010001u;
-
-template <int V>
-__device__ __forceinline__ uint32_t decorrelate_pair(uint32_t p) {
-  if constexpr (V == 0) {
-    return p;
-  } else {
-    const uint32_t r = (p >> 11) & kP5, g = (p >> 6) & kP5;
-    const uint32_t gl = (p >> 5) & kP1, b = p & kP5;
-    const uint32_t co = ((r | kPG) - b) & kP5;
-    const uint32_t t = (b + ((co >> 1) & kP4)) & kP5;
-    const uint32_t cg = ((g | kPG) - t) & kP5;
-    const uint32_t y = (t + ((cg >> 1) & kP4)) & kP5;
-    if constexpr (V == 1) return (y << 11) | (co << 6) | (gl << 5) | cg;
-    else if constexpr (V == 2) return (gl << 15) | (y << 10) | (co << 5) | cg;
-    else return (y << 11) | (co << 6) | (cg << 1) | gl;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ uint32_t recorrelate_pair(uint32_t p) {
-  if constexpr (V == 0) {
-    return p;
-  } else {
-    uint32_t y, co, gl, cg;
-    if constexpr (V == 1) {
-      y = (p >> 11) & kP5; co = (p >> 6) & kP5; gl = (p >> 5) & kP1; cg = p & kP5;
-    } else if constexpr (V == 2) {
-      gl = (p >> 15) & kP1; y = (p >> 10) & kP5; co = (p >> 5) & kP5; cg = p & kP5;
-    } else {
-      y = (p >> 11) & kP5; co = (p >> 6) & kP5; cg = (p >> 1) & kP5; gl = p & kP1;
-    }
-    const uint32_t t = ((y | kPG) - ((cg >> 1) & kP4)) & kP5;
-    const uint32_t g = (cg + t) & kP5;
-    const uint32_t b = ((t | kPG) - ((co >> 1) & kP4)) & kP5;
-    const uint32_t r = (b + co) & kP5;
-    return (r << 11) | (g << 6) | (gl << 5) | b;
-  }
-}
-
-__device__ __forceinline__ int64_t global_thread() {
-  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-}
-
-inline unsigned blocks_for(int64_t n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
-}
 
 // ---- dlt_bc1_transform -----------------------------------------------------------
 // Replaces dxt_lossless_transform_tpu/ops/pallas/shuffle.py:157 bc1_transform_tpu
@@ -138,28 +83,14 @@ cudaError_t launch_untransform(const void* in, void* out, int64_t n, cudaStream_
 // Candidate c is 4 bits of `code`: variant in bits 0-1, split in bit 2.
 // Bound by bytes: 8n read (the index words ride along in the 8-byte load, which
 // costs less than a strided 4-byte load), 4n written per candidate. One thread
-// per block decorrelates its colour word once per variant and writes every row.
+// per block decorrelates its colour word once per variant and writes every row
+// (write_colour_rows in common.cuh, which the BC3 region kernel shares).
 __global__ void __launch_bounds__(kThreads)
 bc1_regions_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out, int64_t n,
                    uint32_t code, int n_cand) {
   const int64_t b = global_thread();
   if (b >= n) return;
-  const uint32_t col = in[b].x;
-  const uint32_t d1 = decorrelate_pair<1>(col);
-  const uint32_t d2 = decorrelate_pair<2>(col);
-  const uint32_t d3 = decorrelate_pair<3>(col);
-  for (int c = 0; c < n_cand; ++c) {
-    const uint32_t cc = code >> (4 * c);
-    const uint32_t v = cc & 3u;
-    const uint32_t d = v == 0 ? col : v == 1 ? d1 : v == 2 ? d2 : d3;
-    uint8_t* row = out + static_cast<int64_t>(c) * 4 * n;
-    if (cc & 4u) {
-      reinterpret_cast<uint16_t*>(row)[b] = static_cast<uint16_t>(d & 0xFFFFu);
-      reinterpret_cast<uint16_t*>(row)[n + b] = static_cast<uint16_t>(d >> 16);
-    } else {
-      reinterpret_cast<uint32_t*>(row)[b] = d;
-    }
-  }
+  write_colour_rows(in[b].x, out, n, b, code, n_cand);
 }
 
 // ---- dlt_ltu_counts ------------------------------------------------------------------
@@ -181,10 +112,19 @@ bc1_regions_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out, int6
 // <= 255), the block sums through a shared atomic, and one 64-bit atomic per block
 // adds to the row: integer sums, so the count is exact in any block order. The
 // TPU kernel summed in f32, exact only below 2**24.
+//
+// Two instantiations. The near one (FAR = false) is the estimator's default: at
+// most 32 offsets, all within the 4096-byte halo, weights 0-255, the table passed
+// by value in the kernel's parameters. The far one takes any ascending offsets and
+// weights -255..255 from a table in device memory; an offset beyond the halo reads
+// its gram from global memory (two aligned 32-bit loads and a funnel shift, mostly
+// L2 hits), and the sums are signed. Offsets that no position reaches are dropped
+// by the wrapper, so every k in the table is below valid_len.
 constexpr int kTile = 8192;                            // positions per block
-constexpr int kHalo = 4096;                            // largest offset
+constexpr int kHalo = 4096;                            // largest near offset
 constexpr int kWinWords = (kHalo + kTile + 4) / 4 + 1; // halo, tile, lookahead
 constexpr int kMaxOffsets = 32;
+constexpr int64_t kMaxWeight = 255;
 
 struct LtuOffsets {
   int32_t k[kMaxOffsets];
@@ -192,13 +132,36 @@ struct LtuOffsets {
   int32_t n;
 };
 
+// The far table: k[0..n) then w[0..n), as int64, in device memory.
+struct LtuFarOffsets {
+  const int64_t* table;
+  int32_t n;
+};
+
 __device__ __forceinline__ uint32_t gram_at(const uint32_t* win, int p) {
   return __funnelshift_r(win[p >> 2], win[(p >> 2) + 1], (p & 3) * 8);
 }
 
+// gram(p) of a row from global memory, for any alignment of row + p. Both aligned
+// words hold a byte of the gram (the second is read only when the gram crosses
+// into it), so neither reaches past the allocation.
+__device__ __forceinline__ uint32_t gram_global(const uint8_t* row, int64_t p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(row) + static_cast<uintptr_t>(p);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~static_cast<uintptr_t>(3));
+  const unsigned sh = static_cast<unsigned>(a & 3u) * 8u;
+  return __funnelshift_r(__ldg(w), sh ? __ldg(w + 1) : 0u, sh);
+}
+
+// The near instantiation's parameters are those of the one kernel before the far
+// one existed, (rows, row_len, valid_len, LtuOffsets, counts); the far one takes
+// LtuFarOffsets in place of LtuOffsets.
+template <bool FAR>
+using OffsetTable = std::conditional_t<FAR, LtuFarOffsets, LtuOffsets>;
+
+template <bool FAR>
 __global__ void __launch_bounds__(kThreads)
 ltu_counts_kernel(const uint8_t* __restrict__ rows, int64_t row_len, int64_t valid_len,
-                  LtuOffsets offs, unsigned long long* __restrict__ counts) {
+                  OffsetTable<FAR> offs, unsigned long long* __restrict__ counts) {
   __shared__ uint32_t win[kWinWords];
   __shared__ uint32_t block_sum;
   const uint8_t* row = rows + static_cast<int64_t>(blockIdx.y) * row_len;
@@ -226,19 +189,36 @@ ltu_counts_kernel(const uint8_t* __restrict__ rows, int64_t row_len, int64_t val
     if (i >= end) break;
     const int lp = kHalo + t;
     const uint32_t gi = gram_at(win, lp);
-    for (int o = 0; o < offs.n; ++o) {
-      const int k = offs.k[o];
-      if (k > i) break;  // ascending: no later offset reaches back far enough either
-      if (gram_at(win, lp - k) == gi) {
-        local += offs.w[o];
-        break;
+    if constexpr (!FAR) {
+      for (int o = 0; o < offs.n; ++o) {
+        const int k = offs.k[o];
+        if (k > i) break;  // ascending: no later offset reaches back far enough either
+        if (gram_at(win, lp - k) == gi) {
+          local += offs.w[o];
+          break;
+        }
+      }
+    } else {
+      for (int o = 0; o < offs.n; ++o) {
+        const int64_t k = __ldg(offs.table + o);
+        if (k > i) break;
+        const uint32_t g = k <= kHalo ? gram_at(win, lp - static_cast<int>(k))
+                                      : gram_global(row, i - k);
+        if (g == gi) {
+          local += static_cast<uint32_t>(__ldg(offs.table + offs.n + o));  // two's complement
+          break;
+        }
       }
     }
   }
   atomicAdd(&block_sum, local);
   __syncthreads();
   if (threadIdx.x == 0 && block_sum != 0) {
-    atomicAdd(&counts[blockIdx.y], static_cast<unsigned long long>(block_sum));
+    // |block sum| <= kTile * 255 < 2**31, so the far sum sign-extends from 32 bits
+    const unsigned long long add =
+        FAR ? static_cast<unsigned long long>(static_cast<int64_t>(static_cast<int32_t>(block_sum)))
+            : static_cast<unsigned long long>(block_sum);
+    atomicAdd(&counts[blockIdx.y], add);
   }
 }
 
@@ -288,22 +268,37 @@ int dlt_bc1_regions(const void* in, void* out, int64_t n, int64_t code, int64_t 
   return cudaGetLastError();
 }
 
+// offsets and weights: host arrays of n_offsets int64 each, checked here. far_table:
+// the same values in device memory (k then w, int64), which the far instantiation
+// reads; null when the near one takes them (at most 32 offsets up to 4096, weights
+// 0-255), which the caller decides by the same rule.
 int dlt_ltu_counts(const void* rows, void* counts, int64_t n_rows, int64_t row_len,
                    int64_t valid_len, const void* offsets, const void* weights,
-                   int64_t n_offsets, void* stream) {
+                   int64_t n_offsets, const void* far_table, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_rows <= 0 || n_rows > 65535 || valid_len < 0 || valid_len > row_len ||
-      n_offsets < 0 || n_offsets > kMaxOffsets) {
+      n_offsets < 0 || n_offsets > INT32_MAX / 2) {
     return cudaErrorInvalidValue;
   }
-  LtuOffsets offs = {};
-  offs.n = static_cast<int32_t>(n_offsets);
+  const int64_t* ks = static_cast<const int64_t*>(offsets);
+  const int64_t* ws = static_cast<const int64_t*>(weights);
+  bool near = n_offsets <= kMaxOffsets;
   for (int64_t o = 0; o < n_offsets; ++o) {
-    offs.k[o] = static_cast<const int32_t*>(offsets)[o];
-    offs.w[o] = static_cast<uint32_t>(static_cast<const int32_t*>(weights)[o]);
-    const bool ascending = o == 0 || offs.k[o] > offs.k[o - 1];
-    if (offs.k[o] < 1 || offs.k[o] > kHalo || !ascending || offs.w[o] > 255u) {
+    const bool ascending = o == 0 || ks[o] > ks[o - 1];
+    if (ks[o] < 1 || !ascending || ws[o] < -kMaxWeight || ws[o] > kMaxWeight) {
       return cudaErrorInvalidValue;
+    }
+    near = near && ks[o] <= kHalo && ws[o] >= 0;
+  }
+  if (near != (far_table == nullptr)) return cudaErrorInvalidValue;
+  LtuOffsets offs = {};
+  const LtuFarOffsets far = {static_cast<const int64_t*>(far_table),
+                             static_cast<int32_t>(n_offsets)};
+  if (near) {
+    offs.n = static_cast<int32_t>(n_offsets);
+    for (int64_t o = 0; o < n_offsets; ++o) {
+      offs.k[o] = static_cast<int32_t>(ks[o]);
+      offs.w[o] = static_cast<uint32_t>(ws[o]);
     }
   }
   cudaError_t rc = cudaMemsetAsync(counts, 0, n_rows * sizeof(unsigned long long), st);
@@ -311,9 +306,15 @@ int dlt_ltu_counts(const void* rows, void* counts, int64_t n_rows, int64_t row_l
   const int64_t positions = valid_len > 3 ? valid_len - 3 : 1;
   const dim3 grid(static_cast<unsigned>((positions + kTile - 1) / kTile),
                   static_cast<unsigned>(n_rows));
-  ltu_counts_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(rows), row_len, valid_len, offs,
-      static_cast<unsigned long long*>(counts));
+  if (near) {
+    ltu_counts_kernel<false><<<grid, kThreads, 0, st>>>(
+        static_cast<const uint8_t*>(rows), row_len, valid_len, offs,
+        static_cast<unsigned long long*>(counts));
+  } else {
+    ltu_counts_kernel<true><<<grid, kThreads, 0, st>>>(
+        static_cast<const uint8_t*>(rows), row_len, valid_len, far,
+        static_cast<unsigned long long*>(counts));
+  }
   return cudaGetLastError();
 }
 

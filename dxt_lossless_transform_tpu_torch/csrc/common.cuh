@@ -1,0 +1,98 @@
+// Device code shared by the kernel sources (bc1_kernels.cu, bc3_kernels.cu): the
+// YCoCg-R colour-pair arithmetic, the launch shape and the writer of the candidate
+// colour regions that the BC1 and BC3 region kernels both build.
+//
+// Everything here has internal linkage, so each source gets its own copy and the
+// one shared library links without clashes.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// ---- YCoCg-R on both u16 halves of a c0 | c1 << 16 word at once (SWAR) ----------
+// Guard bits (| 0x0020_0020 before each subtraction, & 0x000F_000F after each
+// >> 1) keep borrows and carries inside each 16-bit half. Same arithmetic as
+// dxt_lossless_transform_tpu/ops/ycocg.py:decorrelate_pair_swar.
+constexpr uint32_t kP5 = 0x001F001Fu;
+constexpr uint32_t kP4 = 0x000F000Fu;
+constexpr uint32_t kPG = 0x00200020u;
+constexpr uint32_t kP1 = 0x00010001u;
+
+template <int V>
+__device__ __forceinline__ uint32_t decorrelate_pair(uint32_t p) {
+  if constexpr (V == 0) {
+    return p;
+  } else {
+    const uint32_t r = (p >> 11) & kP5, g = (p >> 6) & kP5;
+    const uint32_t gl = (p >> 5) & kP1, b = p & kP5;
+    const uint32_t co = ((r | kPG) - b) & kP5;
+    const uint32_t t = (b + ((co >> 1) & kP4)) & kP5;
+    const uint32_t cg = ((g | kPG) - t) & kP5;
+    const uint32_t y = (t + ((cg >> 1) & kP4)) & kP5;
+    if constexpr (V == 1) return (y << 11) | (co << 6) | (gl << 5) | cg;
+    else if constexpr (V == 2) return (gl << 15) | (y << 10) | (co << 5) | cg;
+    else return (y << 11) | (co << 6) | (cg << 1) | gl;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ uint32_t recorrelate_pair(uint32_t p) {
+  if constexpr (V == 0) {
+    return p;
+  } else {
+    uint32_t y, co, gl, cg;
+    if constexpr (V == 1) {
+      y = (p >> 11) & kP5; co = (p >> 6) & kP5; gl = (p >> 5) & kP1; cg = p & kP5;
+    } else if constexpr (V == 2) {
+      gl = (p >> 15) & kP1; y = (p >> 10) & kP5; co = (p >> 5) & kP5; cg = p & kP5;
+    } else {
+      y = (p >> 11) & kP5; co = (p >> 6) & kP5; cg = (p >> 1) & kP5; gl = p & kP1;
+    }
+    const uint32_t t = ((y | kPG) - ((cg >> 1) & kP4)) & kP5;
+    const uint32_t g = (cg + t) & kP5;
+    const uint32_t b = ((t | kPG) - ((co >> 1) & kP4)) & kP5;
+    const uint32_t r = (b + co) & kP5;
+    return (r << 11) | (g << 6) | (gl << 5) | b;
+  }
+}
+
+__device__ __forceinline__ int64_t global_thread() {
+  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+inline unsigned blocks_for(int64_t n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+// ---- candidate colour regions ------------------------------------------------------
+// Block b's part of every candidate's colour region, for its colour word `col`
+// (c0 | c1 << 16). Row c of out (u8[C, 4n]) holds exactly the bytes that
+// candidate c's transform writes to its colour stream(s):
+//   interleaved: d0 | d1 << 16 as u32 at word b;  split: d0 u16 at b, d1 u16 at n+b.
+// Candidate c is 4 bits of `code`: variant in bits 0-1, split in bit 2. The colour
+// word is decorrelated once per variant and written to each row that wants it.
+__device__ __forceinline__ void write_colour_rows(uint32_t col, uint8_t* out, int64_t n,
+                                                  int64_t b, uint32_t code, int n_cand) {
+  const uint32_t d1 = decorrelate_pair<1>(col);
+  const uint32_t d2 = decorrelate_pair<2>(col);
+  const uint32_t d3 = decorrelate_pair<3>(col);
+  for (int c = 0; c < n_cand; ++c) {
+    const uint32_t cc = code >> (4 * c);
+    const uint32_t v = cc & 3u;
+    const uint32_t d = v == 0 ? col : v == 1 ? d1 : v == 2 ? d2 : d3;
+    uint8_t* row = out + static_cast<int64_t>(c) * 4 * n;
+    if (cc & 4u) {
+      reinterpret_cast<uint16_t*>(row)[b] = static_cast<uint16_t>(d & 0xFFFFu);
+      reinterpret_cast<uint16_t*>(row)[n + b] = static_cast<uint16_t>(d >> 16);
+    } else {
+      reinterpret_cast<uint32_t*>(row)[b] = d;
+    }
+  }
+}
+
+}  // namespace

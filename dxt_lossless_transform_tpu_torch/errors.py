@@ -1,5 +1,5 @@
 """Typed errors of the ops layer (counterpart of ``dxt_lossless_transform_tpu/errors.py``,
-cut down to what BC1 needs), plus the error for a missing card.
+cut down to what BC1 and BC3 need), plus the error for a missing card.
 
 Validation errors subclass :class:`ValueError` and auto-transform errors
 :class:`RuntimeError`, as in the reference package.
@@ -28,6 +28,11 @@ class ValidationError(DltError, ValueError):
 class Bc1ValidationError(ValidationError):
     def __init__(self, length: int, divisor: int = 8, message: str = ""):
         super().__init__("BC1", length, divisor, message)
+
+
+class Bc3ValidationError(ValidationError):
+    def __init__(self, length: int, divisor: int = 16, message: str = ""):
+        super().__init__("BC3", length, divisor, message)
 
 
 class AutoTransformError(DltError, RuntimeError):

@@ -24,8 +24,9 @@ import torch
 
 from .. import backend
 
-MAX_OFFSET = 4096   # the kernel's backward halo
-MAX_OFFSETS = 32    # the kernel's offset table
+MAX_OFFSET = 4096   # the near instantiation's backward halo
+MAX_OFFSETS = 32    # the near instantiation's offset table
+MAX_WEIGHT = 255    # |weight|, so that a block's sum fits 32 bits
 MAX_ROWS = 65535    # grid.y
 
 
@@ -48,6 +49,12 @@ def _check(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
         raise ValueError("offsets and weights differ in length")
     if any(k < 1 for k in offsets) or list(offsets) != sorted(set(offsets)):
         raise ValueError(f"offsets must be positive and ascending, got {offsets}")
+
+
+def needs_far(offsets: Sequence[int], weights: Sequence[int]) -> bool:
+    """Whether the (kept) ladder needs the kernel's far instantiation."""
+    return (len(offsets) > MAX_OFFSETS or any(k > MAX_OFFSET for k in offsets)
+            or any(w < 0 for w in weights))
 
 
 def ltu_counts_plain(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
@@ -75,17 +82,24 @@ def ltu_counts(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
     if not backend.dispatch(rows):
         return ltu_counts_plain(rows, valid_len, offsets, weights)
     backend.require_cuda_tensor(rows, "ltu_counts", torch.uint8, align=1)
-    if (len(offsets) > MAX_OFFSETS or (offsets and offsets[-1] > MAX_OFFSET)
-            or any(not 0 <= w <= 255 for w in weights)
-            or rows.shape[0] > MAX_ROWS):
-        raise ValueError(
-            f"the kernel takes at most {MAX_OFFSETS} offsets up to {MAX_OFFSET} with "
-            f"weights 0-255 and at most {MAX_ROWS} rows")
+    if any(abs(w) > MAX_WEIGHT for w in weights) or rows.shape[0] > MAX_ROWS:
+        raise ValueError(f"the kernel takes weights -{MAX_WEIGHT}..{MAX_WEIGHT} and at "
+                         f"most {MAX_ROWS} rows")
+    # an offset k counts only at positions i >= k, and i < valid_len - 3
+    kept = [(k, w) for k, w in zip(offsets, weights) if k < valid_len - 3]
+    offsets, weights = [k for k, _ in kept], [w for _, w in kept]
     counts = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
     if rows.shape[0]:
-        k_arr = (ctypes.c_int32 * max(len(offsets), 1))(*offsets)
-        w_arr = (ctypes.c_int32 * max(len(weights), 1))(*weights)
+        far = None
+        if needs_far(offsets, weights):
+            # freed on return while the kernel may still read it: the caching
+            # allocator hands the block out again only to work queued after it on
+            # this stream
+            far = torch.tensor(offsets + weights, dtype=torch.int64).to(rows.device)
+        k_arr = (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
+        w_arr = (ctypes.c_int64 * max(len(weights), 1))(*weights)
         backend.launch("dlt_ltu_counts", rows.device, rows.data_ptr(),
                        counts.data_ptr(), rows.shape[0], rows.shape[1], valid_len,
-                       ctypes.addressof(k_arr), ctypes.addressof(w_arr), len(offsets))
+                       ctypes.addressof(k_arr), ctypes.addressof(w_arr), len(offsets),
+                       None if far is None else far.data_ptr())
     return counts

@@ -1,6 +1,6 @@
-"""TransformBundle with its BC1 slot (counterpart of
-``dxt_lossless_transform_tpu/formats/bundle.py``). The other formats' slots come with
-their slices of the port."""
+"""TransformBundle with its BC1 and BC3 slots (counterpart of
+``dxt_lossless_transform_tpu/formats/bundle.py:35-71``). The other formats' slots
+come with their slices of the port."""
 
 from __future__ import annotations
 
@@ -8,34 +8,48 @@ from typing import Optional, Union
 
 import torch
 
-from ..api import Bc1AutoTransformBuilder, Bc1ManualTransformBuilder
+from ..api import (
+    Bc1AutoTransformBuilder, Bc1ManualTransformBuilder, Bc3AutoTransformBuilder,
+    Bc3ManualTransformBuilder,
+)
 from .embed import TransformFormat, TransformHeader
 from .errors import NoBuilderForFormat
 
 Bc1Builder = Union[Bc1AutoTransformBuilder, Bc1ManualTransformBuilder]
+Bc3Builder = Union[Bc3AutoTransformBuilder, Bc3ManualTransformBuilder]
 
-LATER_SLICE = ("; this PyTorch port handles BC1 only so far, and BC2-BC7 and the RGB "
-               "formats come in later slices")
+LATER_SLICE = ("; this PyTorch port handles BC1 and BC3 so far, and BC2, BC4-BC7 "
+               "and the RGB formats come in later slices")
+
+# format -> (bundle slot, header constructor)
+_SLOTS = {
+    TransformFormat.BC1: ("bc1", TransformHeader.for_bc1),
+    TransformFormat.BC3: ("bc3", TransformHeader.for_bc3),
+}
 
 
 class TransformBundle:
     """The builder for each format; a format without one raises
     :class:`NoBuilderForFormat` on dispatch."""
 
-    def __init__(self, bc1: Optional[Bc1Builder] = None):
+    def __init__(self, bc1: Optional[Bc1Builder] = None,
+                 bc3: Optional[Bc3Builder] = None):
         self.bc1 = bc1
+        self.bc3 = bc3
 
     def dispatch_transform(self, fmt: TransformFormat, payload: bytes,
                            device: Union[str, torch.device] = "cuda"):
         """Transform ``payload`` on ``device``; returns
         ``(transformed, TransformHeader)``."""
-        if fmt != TransformFormat.BC1:
+        if fmt not in _SLOTS:
             raise NoBuilderForFormat(fmt, LATER_SLICE)
-        if self.bc1 is None:
+        slot, header = _SLOTS[fmt]
+        builder = getattr(self, slot)
+        if builder is None:
             raise NoBuilderForFormat(fmt)
-        if isinstance(self.bc1, Bc1ManualTransformBuilder):
-            out, settings = self.bc1.transform(payload, device), self.bc1.get_settings()
+        if hasattr(builder, "get_settings"):  # manual builder
+            out, settings = builder.transform(payload, device), builder.get_settings()
         else:
-            out, manual = self.bc1.transform(payload, device)
+            out, manual = builder.transform(payload, device)
             settings = manual.get_settings()
-        return out, TransformHeader.for_bc1(settings)
+        return out, header(settings)

@@ -1,13 +1,13 @@
 """The 4-byte transform header, written over the container magic.
 
-Counterpart of ``dxt_lossless_transform_tpu/formats/embed.py`` with BC1 packing
-(:94-110). On disk it is one little-endian u32:
+Counterpart of ``dxt_lossless_transform_tpu/formats/embed.py`` with BC1 and BC3
+packing (:94-110, :143-158). On disk it is one little-endian u32:
 
     bits 0-3:  transform format tag
-    bits 4-31: format-specific data; for BC1:
+    bits 4-31: format-specific data; for BC1 and BC3:
                bits 0-1 header version (0), bit 2 split colour endpoints,
                bits 3-4 decorrelation variant (0=Variant1, 1=Variant2, 2=Variant3,
-               3=None)
+               3=None), and for BC3 bit 5 split alpha endpoints
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import enum
 import struct
 from dataclasses import dataclass
 
-from ..settings import Bc1TransformSettings, YCoCgVariant
+from ..settings import Bc1TransformSettings, Bc3TransformSettings, YCoCgVariant
 from .errors import CorruptedEmbeddedData, UnknownTransformFormat
 
 TRANSFORM_HEADER_SIZE = 4
@@ -47,6 +47,18 @@ _VARIANT_TO_BITS = {
 _BITS_TO_VARIANT = {v: k for k, v in _VARIANT_TO_BITS.items()}
 
 
+def _pack_bc1_like(settings) -> int:
+    return ((int(settings.split_colour_endpoints) << 2)
+            | (_VARIANT_TO_BITS[YCoCgVariant(settings.decorrelation_mode)] << 3))
+
+
+def _unpack_bc1_like(data: int) -> tuple:
+    """-> (variant, split_colour); raises for a header version other than 0."""
+    if data & 0x3:
+        raise CorruptedEmbeddedData(f"unsupported header version {data & 0x3}")
+    return _BITS_TO_VARIANT[(data >> 3) & 0x3], bool((data >> 2) & 1)
+
+
 @dataclass(frozen=True)
 class TransformHeader:
     """A parsed 4-byte transform header."""
@@ -71,12 +83,16 @@ class TransformHeader:
 
     @staticmethod
     def for_bc1(settings: Bc1TransformSettings) -> "TransformHeader":
-        data = ((int(settings.split_colour_endpoints) << 2)
-                | (_VARIANT_TO_BITS[YCoCgVariant(settings.decorrelation_mode)] << 3))
-        return TransformHeader(TransformFormat.BC1, data)
+        return TransformHeader(TransformFormat.BC1, _pack_bc1_like(settings))
 
     def bc1_settings(self) -> Bc1TransformSettings:
-        if self.data & 0x3:
-            raise CorruptedEmbeddedData(f"unsupported header version {self.data & 0x3}")
-        return Bc1TransformSettings(_BITS_TO_VARIANT[(self.data >> 3) & 0x3],
-                                    bool((self.data >> 2) & 1))
+        return Bc1TransformSettings(*_unpack_bc1_like(self.data))
+
+    @staticmethod
+    def for_bc3(settings: Bc3TransformSettings) -> "TransformHeader":
+        data = _pack_bc1_like(settings) | (int(settings.split_alpha_endpoints) << 5)
+        return TransformHeader(TransformFormat.BC3, data)
+
+    def bc3_settings(self) -> Bc3TransformSettings:
+        variant, split_colour = _unpack_bc1_like(self.data)
+        return Bc3TransformSettings(variant, bool((self.data >> 5) & 1), split_colour)

@@ -1,5 +1,6 @@
 """Transform dispatch and the DDS handler (counterpart of
-``dxt_lossless_transform_tpu/formats/handlers.py:40-90`` and ``:123-175``, for BC1).
+``dxt_lossless_transform_tpu/formats/handlers.py:40-90`` and ``:123-175``, for BC1
+and BC3).
 
 Transform: copy the headers, transform the texture payload (every mip and surface in
 one call), copy trailing bytes, and write the 4-byte transform header over the DDS
@@ -13,7 +14,7 @@ from typing import Union
 
 import torch
 
-from ..ops import bc1 as ops_bc1
+from ..ops import bc1 as ops_bc1, bc3 as ops_bc3
 from .bundle import LATER_SLICE, TransformBundle
 from .dds import DDS_MAGIC, DdsFormat, parse_dds, parse_dds_ignore_magic
 from .embed import TRANSFORM_HEADER_SIZE, TransformFormat, TransformHeader
@@ -60,11 +61,13 @@ def dispatch_transform(fmt: TransformFormat, payload: bytes, bundle: TransformBu
 def dispatch_untransform(header: TransformHeader, payload: bytes,
                          device: Union[str, torch.device] = "cuda") -> bytes:
     """Decode the settings from the header and run the untransform."""
-    if header.format != TransformFormat.BC1:
+    if header.format not in (TransformFormat.BC1, TransformFormat.BC3):
         raise UnsupportedTransformFormat(header.format, LATER_SLICE)
     if len(payload) % _ALIGNMENT[header.format]:
         raise InvalidDataAlignment(len(payload), _ALIGNMENT[header.format])
-    return ops_bc1.untransform(payload, header.bc1_settings(), device)
+    if header.format == TransformFormat.BC1:
+        return ops_bc1.untransform(payload, header.bc1_settings(), device)
+    return ops_bc3.untransform(payload, header.bc3_settings(), device)
 
 
 class DdsHandler:

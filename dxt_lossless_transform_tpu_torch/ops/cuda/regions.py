@@ -1,12 +1,18 @@
-"""BC1 candidate-region kernel (``dlt_bc1_regions`` in ``csrc/bc1_kernels.cu``) and
-its plain version.
+"""Candidate-region kernels (``dlt_bc1_regions`` in ``csrc/bc1_kernels.cu``,
+``dlt_bc3_regions`` in ``csrc/bc3_kernels.cu``) and their plain versions.
 
-Replaces ``dxt_lossless_transform_tpu/ops/pallas/regions.py:60``
+``dlt_bc1_regions`` replaces ``dxt_lossless_transform_tpu/ops/pallas/regions.py:60``
 ``bc1_region_streams_tpu``. For BC1 blocks (uint8[8n]) and candidates
 ``((variant, split), ...)``, row c of the uint8[C, 4n] result is the colour region
 that candidate c's transform writes at ``[0, 4n)``: the decorrelated colour words,
 or the c0 stream followed by the c1 stream with no gap. These are the rows that
 ``dxt_lossless_transform_tpu/ops/auto.py:bc1_candidate_regions`` builds, cut to 4n.
+
+``dlt_bc3_regions`` replaces ``:114`` ``bc3_region_streams_tpu``. For BC3 blocks
+(uint8[16n]) it writes one alpha-endpoint row (uint8[2n], the bytes at ``[0, 2n)`` of
+the transform) per distinct ``split_alpha`` value and one colour row (uint8[4n], the
+bytes at ``[8n, 12n)``) per distinct ``(variant, split_colour)`` pair: the rows of
+``dxt_lossless_transform_tpu/ops/auto.py:bc3_candidate_regions`` without repeats.
 """
 
 from __future__ import annotations
@@ -39,14 +45,18 @@ def candidate_code(candidates: Sequence[Tuple[int, bool]]) -> int:
     return code
 
 
-def bc1_regions_plain(x: torch.Tensor, candidates) -> torch.Tensor:
-    colours = x.view(torch.int32).view(-1, 2)[:, 0]
+def colour_rows_plain(colours: torch.Tensor, candidates) -> torch.Tensor:
+    """int32 colour words (n) -> uint8[C, 4n] colour regions, in candidate order."""
     dec = {v: ycocg.decorrelate_pair(colours, v) for v, _ in candidates}
     out = torch.empty((len(candidates), colours.numel() * 4), dtype=torch.uint8,
-                      device=x.device)
+                      device=colours.device)
     for row, (v, split) in zip(out, candidates):
         write_colours(row, dec[v], split)
     return out
+
+
+def bc1_regions_plain(x: torch.Tensor, candidates) -> torch.Tensor:
+    return colour_rows_plain(x.view(torch.int32).view(-1, 2)[:, 0], candidates)
 
 
 def bc1_regions(x: torch.Tensor, candidates) -> torch.Tensor:
@@ -61,3 +71,43 @@ def bc1_regions(x: torch.Tensor, candidates) -> torch.Tensor:
         backend.launch("dlt_bc1_regions", x.device, x.data_ptr(), out.data_ptr(), n,
                        candidate_code(cand), len(cand))
     return out
+
+
+def _check_alpha_keys(alpha_keys) -> Tuple[bool, ...]:
+    keys = tuple(bool(sa) for sa in alpha_keys)
+    if not 0 < len(keys) <= 2 or len(set(keys)) != len(keys):
+        raise ValueError(f"expected 1-2 distinct split_alpha keys, got {alpha_keys!r}")
+    return keys
+
+
+def bc3_regions_plain(x: torch.Tensor, alpha_keys, colour_keys):
+    n = x.numel() // 16
+    blocks = x.view(n, 16)
+    alpha = torch.empty((len(alpha_keys), 2 * n), dtype=torch.uint8, device=x.device)
+    for row, split in zip(alpha, alpha_keys):
+        if split:
+            row.view(2, n).copy_(blocks[:, :2].T)
+        else:
+            row.view(n, 2).copy_(blocks[:, :2])
+    colour = colour_rows_plain(x.view(torch.int32).view(n, 4)[:, 2], colour_keys)
+    return alpha, colour
+
+
+def bc3_regions(x: torch.Tensor, alpha_keys, colour_keys):
+    """BC3 blocks (uint8[16n]) -> (uint8[A, 2n] alpha-endpoint rows, one per
+    ``alpha_keys`` entry (split_alpha), uint8[K, 4n] colour rows, one per
+    ``colour_keys`` entry ((variant, split_colour)))."""
+    n = _check_blocks(x, "bc3_regions", 16)
+    akeys = _check_alpha_keys(alpha_keys)
+    ckeys = _check_candidates(colour_keys)
+    if not backend.dispatch(x):
+        return bc3_regions_plain(x, akeys, ckeys)
+    backend.require_cuda_tensor(x, "bc3_regions", torch.uint8, align=16)
+    alpha = torch.empty((len(akeys), 2 * n), dtype=torch.uint8, device=x.device)
+    colour = torch.empty((len(ckeys), 4 * n), dtype=torch.uint8, device=x.device)
+    if n:
+        alpha_code = sum(1 << a for a, split in enumerate(akeys) if split)
+        backend.launch("dlt_bc3_regions", x.device, x.data_ptr(), alpha.data_ptr(),
+                       colour.data_ptr(), n, alpha_code, len(akeys),
+                       candidate_code(ckeys), len(ckeys))
+    return alpha, colour

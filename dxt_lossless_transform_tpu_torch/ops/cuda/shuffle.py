@@ -1,14 +1,24 @@
-"""BC1 transform and untransform kernels (``dlt_bc1_transform``,
-``dlt_bc1_untransform`` in ``csrc/bc1_kernels.cu``) and their plain versions.
+"""BC1 and BC3 transform and untransform kernels and their plain versions.
 
-They replace ``dxt_lossless_transform_tpu/ops/pallas/shuffle.py:157``
-``bc1_transform_tpu`` and ``:185`` ``bc1_untransform_tpu``. Both directions map a
-uint8 tensor of 8n bytes to another of 8n bytes, laid out as on disk:
+``dlt_bc1_transform`` and ``dlt_bc1_untransform`` (``csrc/bc1_kernels.cu``) replace
+``dxt_lossless_transform_tpu/ops/pallas/shuffle.py:157`` ``bc1_transform_tpu`` and
+``:185`` ``bc1_untransform_tpu``. Both directions map a uint8 tensor of 8n bytes to
+another of 8n bytes, laid out as on disk:
 
 - BC1 blocks: colour word ``c0 | c1 << 16`` then index word, per 8-byte block;
 - transformed, interleaved: colour words at ``[0, 4n)``, index words at ``[4n, 8n)``;
 - transformed, split: c0 u16 at ``[0, 2n)``, c1 u16 at ``[2n, 4n)``, indices at
   ``[4n, 8n)``.
+
+``dlt_bc3_transform`` and ``dlt_bc3_untransform`` (``csrc/bc3_kernels.cu``) replace
+``:301`` ``bc3_transform_tpu`` and ``:354`` ``bc3_untransform_tpu``, 16n bytes to
+16n bytes:
+
+- BC3 blocks: a0, a1, 6 alpha-index bytes, colour word, colour-index word;
+- transformed: alpha endpoints at ``[0, 2n)`` (``a0 | a1 << 8`` u16, or all a0 then
+  all a1 when split), the 6 alpha-index bytes of each block at ``[2n, 8n)``, colours
+  at ``[8n, 12n)`` (u32, or c0 u16 then c1 u16 when split) and colour indices at
+  ``[12n, 16n)``.
 
 Any n works, odd or 1; nothing is padded.
 """
@@ -21,11 +31,12 @@ from ... import backend
 from .. import ycocg
 
 
-def _check_blocks(x: torch.Tensor, what: str) -> int:
-    if x.dtype != torch.uint8 or x.dim() != 1 or x.numel() % 8:
-        raise ValueError(f"{what}: expected a 1-D uint8 tensor of 8n bytes, got "
-                         f"{x.dtype} of shape {tuple(x.shape)}")
-    return x.numel() // 8
+def _check_blocks(x: torch.Tensor, what: str, block_size: int = 8) -> int:
+    """The block count n of a 1-D uint8 tensor of ``block_size`` * n bytes."""
+    if x.dtype != torch.uint8 or x.dim() != 1 or x.numel() % block_size:
+        raise ValueError(f"{what}: expected a 1-D uint8 tensor of {block_size}n "
+                         f"bytes, got {x.dtype} of shape {tuple(x.shape)}")
+    return x.numel() // block_size
 
 
 def _check_variant(variant: int) -> int:
@@ -91,4 +102,71 @@ def bc1_untransform(x: torch.Tensor, variant: int, split: bool) -> torch.Tensor:
     if n:
         backend.launch("dlt_bc1_untransform", x.device, x.data_ptr(), out.data_ptr(),
                        n, variant, int(bool(split)))
+    return out
+
+
+def bc3_transform_plain(x: torch.Tensor, variant: int, split_alpha: bool,
+                        split_colour: bool) -> torch.Tensor:
+    n = x.numel() // 16
+    blocks = x.view(n, 16)
+    out = torch.empty_like(x)
+    if split_alpha:
+        out[:2 * n].view(2, n).copy_(blocks[:, :2].T)
+    else:
+        out[:2 * n].view(n, 2).copy_(blocks[:, :2])
+    out[2 * n:8 * n].view(n, 6).copy_(blocks[:, 2:8])
+    colours = x.view(torch.int32).view(n, 4)[:, 2]
+    write_colours(out[8 * n:12 * n], ycocg.decorrelate_pair(colours, variant),
+                  split_colour)
+    out[12 * n:].view(n, 4).copy_(blocks[:, 12:])
+    return out
+
+
+def bc3_untransform_plain(x: torch.Tensor, variant: int, split_alpha: bool,
+                          split_colour: bool) -> torch.Tensor:
+    n = x.numel() // 16
+    out = torch.empty_like(x)
+    blocks = out.view(n, 16)
+    if split_alpha:
+        blocks[:, :2] = x[:2 * n].view(2, n).T
+    else:
+        blocks[:, :2] = x[:2 * n].view(n, 2)
+    blocks[:, 2:8] = x[2 * n:8 * n].view(n, 6)
+    if split_colour:
+        halves = x[8 * n:12 * n].view(torch.int16).view(2, n).to(torch.int32) & 0xFFFF
+        d = ycocg.join_pair(halves[0], halves[1])
+    else:
+        d = x[8 * n:12 * n].view(torch.int32)
+    out.view(torch.int32).view(n, 4)[:, 2] = ycocg.recorrelate_pair(d, variant)
+    blocks[:, 12:] = x[12 * n:].view(n, 4)
+    return out
+
+
+def bc3_transform(x: torch.Tensor, variant: int, split_alpha: bool,
+                  split_colour: bool) -> torch.Tensor:
+    """BC3 blocks (uint8[16n]) -> transformed bytes (uint8[16n])."""
+    n = _check_blocks(x, "bc3_transform", 16)
+    variant = _check_variant(variant)
+    if not backend.dispatch(x):
+        return bc3_transform_plain(x, variant, split_alpha, split_colour)
+    backend.require_cuda_tensor(x, "bc3_transform", torch.uint8, align=16)
+    out = torch.empty_like(x)
+    if n:
+        backend.launch("dlt_bc3_transform", x.device, x.data_ptr(), out.data_ptr(),
+                       n, variant, int(bool(split_alpha)), int(bool(split_colour)))
+    return out
+
+
+def bc3_untransform(x: torch.Tensor, variant: int, split_alpha: bool,
+                    split_colour: bool) -> torch.Tensor:
+    """Transformed bytes (uint8[16n]) -> BC3 blocks (uint8[16n])."""
+    n = _check_blocks(x, "bc3_untransform", 16)
+    variant = _check_variant(variant)
+    if not backend.dispatch(x):
+        return bc3_untransform_plain(x, variant, split_alpha, split_colour)
+    backend.require_cuda_tensor(x, "bc3_untransform", torch.uint8, align=4)
+    out = torch.empty_like(x)
+    if n:
+        backend.launch("dlt_bc3_untransform", x.device, x.data_ptr(), out.data_ptr(),
+                       n, variant, int(bool(split_alpha)), int(bool(split_colour)))
     return out

@@ -1,9 +1,10 @@
-"""BC1 transform settings and the auto-search candidate sets.
+"""BC1 and BC3 transform settings and the auto-search candidate sets.
 
 Counterpart of ``dxt_lossless_transform_tpu/settings.py`` (``YCoCgVariant``,
-``Bc1TransformSettings`` and the BC1 candidate tuples), kept as this package's own
-copy so that the port imports nothing of the JAX package. The candidate orders are
-the reference's: the most likely winner comes last.
+``Bc1TransformSettings``, ``Bc3TransformSettings`` and the BC1 and BC3 candidate
+tuples, :75-91 and :189-226), kept as this package's own copy so that the port
+imports nothing of the JAX package. The candidate orders are the reference's: the
+most likely winner comes last.
 """
 
 from __future__ import annotations
@@ -36,6 +37,23 @@ class Bc1TransformSettings:
                 yield Bc1TransformSettings(mode, split)
 
 
+@dataclass(frozen=True)
+class Bc3TransformSettings:
+    """Decorrelation variant, and whether the alpha endpoints and the colour
+    endpoints each go to two separate streams: 8 stream-layout families."""
+
+    decorrelation_mode: YCoCgVariant = YCoCgVariant.VARIANT1
+    split_alpha_endpoints: bool = False
+    split_colour_endpoints: bool = False
+
+    @staticmethod
+    def all_combinations() -> Iterator["Bc3TransformSettings"]:
+        for mode in YCoCgVariant:
+            for split_a in (True, False):
+                for split_c in (True, False):
+                    yield Bc3TransformSettings(mode, split_a, split_c)
+
+
 BC1_FAST_CANDIDATES: Tuple[Bc1TransformSettings, ...] = (
     Bc1TransformSettings(YCoCgVariant.NONE, False),
     Bc1TransformSettings(YCoCgVariant.NONE, True),
@@ -52,4 +70,41 @@ BC1_COMPREHENSIVE_CANDIDATES: Tuple[Bc1TransformSettings, ...] = (
     Bc1TransformSettings(YCoCgVariant.VARIANT2, True),
     Bc1TransformSettings(YCoCgVariant.VARIANT1, False),
     Bc1TransformSettings(YCoCgVariant.VARIANT1, True),
+)
+
+# (variant, split_alpha_endpoints, split_colour_endpoints)
+BC3_FAST_CANDIDATES: Tuple[Bc3TransformSettings, ...] = tuple(
+    Bc3TransformSettings(m, sa, sc)
+    for (m, sa, sc) in (
+        (YCoCgVariant.VARIANT1, True, False),
+        (YCoCgVariant.VARIANT1, True, True),
+        (YCoCgVariant.NONE, True, False),
+        (YCoCgVariant.NONE, False, True),
+        (YCoCgVariant.NONE, True, True),
+        (YCoCgVariant.VARIANT1, False, True),
+        (YCoCgVariant.NONE, False, False),
+        (YCoCgVariant.VARIANT1, False, False),
+    )
+)
+
+BC3_COMPREHENSIVE_CANDIDATES: Tuple[Bc3TransformSettings, ...] = tuple(
+    Bc3TransformSettings(m, sa, sc)
+    for (m, sa, sc) in (
+        (YCoCgVariant.VARIANT2, True, False),
+        (YCoCgVariant.VARIANT2, True, True),
+        (YCoCgVariant.VARIANT3, True, True),
+        (YCoCgVariant.VARIANT3, True, False),
+        (YCoCgVariant.VARIANT1, True, False),
+        (YCoCgVariant.VARIANT3, False, True),
+        (YCoCgVariant.VARIANT1, True, True),
+        (YCoCgVariant.VARIANT2, False, True),
+        (YCoCgVariant.VARIANT2, False, False),
+        (YCoCgVariant.VARIANT3, False, False),
+        (YCoCgVariant.NONE, True, False),
+        (YCoCgVariant.NONE, False, True),
+        (YCoCgVariant.NONE, True, True),
+        (YCoCgVariant.VARIANT1, False, True),
+        (YCoCgVariant.NONE, False, False),
+        (YCoCgVariant.VARIANT1, False, False),
+    )
 )

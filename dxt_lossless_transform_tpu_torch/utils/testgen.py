@@ -1,8 +1,9 @@
-"""Deterministic BC1 test data and DDS files.
+"""Deterministic BC1 and BC3 test data and DDS files.
 
-This package's copy of the BC1 parts of ``dxt_lossless_transform_tpu/utils/testgen.py``
-(:25-48, :88-122, :144-183): the same seeds give the same bytes, which the tests
-check. ``chip_smoke.py`` uses it, since it cannot import the JAX package.
+This package's copy of the BC1 and BC3 parts of
+``dxt_lossless_transform_tpu/utils/testgen.py`` (:25-48, :61-73, :88-122, :144-183):
+the same seeds give the same bytes, which the tests check. ``chip_smoke.py`` uses
+it, since it cannot import the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ _DDSD_WIDTH = 0x4
 _DDSD_PIXELFORMAT = 0x1000
 _DDSD_MIPMAPCOUNT = 0x20000
 _DDPF_FOURCC = 0x4
-_DXGI_BC1_UNORM = 71
+_FOURCC = {"BC1": b"DXT1", "BC3": b"DXT5"}
+_DXGI = {"BC1": 71, "BC3": 77}
+_BLOCK_SIZE = {"BC1": 8, "BC3": 16}
 
 
 def from_rgb(r, g, b) -> np.ndarray:
@@ -55,6 +58,31 @@ def bc1_realistic(num_blocks: int, seed: int = 0) -> bytes:
     return words.tobytes()
 
 
+def bc3_realistic(num_blocks: int, seed: int = 0) -> bytes:
+    """BC3 blocks: the colour half of :func:`bc1_realistic`, mostly-opaque alpha
+    endpoints and a few alpha-index patterns."""
+    rng = np.random.default_rng(seed)
+    color_part = np.frombuffer(bc1_realistic(num_blocks, seed), dtype="<u4").reshape(-1, 2)
+    words = np.empty((num_blocks, 4), dtype="<u4")
+    a0 = (200 + rng.normal(0, 20, num_blocks)).clip(0, 255).astype(np.uint32)
+    a1 = (a0 - rng.integers(0, 64, num_blocks)).clip(0, 255).astype(np.uint32)
+    idx_lo = rng.integers(0, 2**16, num_blocks, dtype=np.uint32)
+    words[:, 0] = a0 | (a1 << 8) | (idx_lo << 16)
+    words[:, 1] = rng.integers(0, 4, num_blocks, dtype=np.uint32) * 0x49249249
+    words[:, 2] = color_part[:, 0]
+    words[:, 3] = color_part[:, 1]
+    return words.tobytes()
+
+
+_REALISTIC = {"BC1": bc1_realistic, "BC3": bc3_realistic}
+
+
+def _check_format(fmt: str) -> None:
+    if fmt not in _FOURCC:
+        raise ValueError(f"unsupported synthetic format {fmt}: this package makes "
+                         f"{' and '.join(_FOURCC)}")
+
+
 def _chain_blocks(width: int, height: int, mipmaps: int) -> int:
     total, w, h = 0, width, height
     for _ in range(mipmaps):
@@ -70,16 +98,17 @@ def _flags(mipmaps: int) -> int:
 
 def make_dds(fmt: str, width: int, height: int, mipmaps: int = 1, seed: int = 0,
              realistic: bool = True, trailing: bytes = b"") -> bytes:
-    """A legacy-header BC1 (DXT1) DDS file whose payload covers the whole mip chain."""
-    if fmt != "BC1":
-        raise ValueError(f"unsupported synthetic format {fmt}: this package makes BC1")
+    """A legacy-header BC1 (DXT1) or BC3 (DXT5) DDS file whose payload covers the
+    whole mip chain."""
+    _check_format(fmt)
     n = _chain_blocks(width, height, mipmaps)
-    payload = bc1_realistic(n, seed) if realistic else bc_blocks(n, 8, seed)
+    payload = (_REALISTIC[fmt](n, seed) if realistic
+               else bc_blocks(n, _BLOCK_SIZE[fmt], seed))
     header = bytearray(128)
     header[0:4] = b"DDS "
     struct.pack_into("<7I", header, 4, 124, _flags(mipmaps), height, width, 0, 0, mipmaps)
     struct.pack_into("<2I", header, 0x4C, 32, _DDPF_FOURCC)
-    header[0x54:0x58] = b"DXT1"
+    header[0x54:0x58] = _FOURCC[fmt]
     struct.pack_into("<I", header, 0x6C, 0x1000)  # caps: DDSCAPS_TEXTURE
     return bytes(header) + payload + trailing
 
@@ -87,21 +116,21 @@ def make_dds(fmt: str, width: int, height: int, mipmaps: int = 1, seed: int = 0,
 def make_dx10_dds(fmt: str, width: int, height: int, mipmaps: int = 1,
                   seed: int = 0, trailing: bytes = b"",
                   payload: bytes = None) -> bytes:
-    """A DX10-header BC1 DDS file (payload at 0x94)."""
-    if fmt != "BC1":
-        raise ValueError(f"unsupported DX10 format {fmt}: this package makes BC1")
+    """A DX10-header BC1 or BC3 DDS file (payload at 0x94)."""
+    _check_format(fmt)
     n = _chain_blocks(width, height, mipmaps)
     if payload is None:
-        payload = bc1_realistic(n, seed)
-    elif len(payload) != n * 8:
+        payload = _REALISTIC[fmt](n, seed)
+    elif len(payload) != n * _BLOCK_SIZE[fmt]:
         raise ValueError(f"payload is {len(payload)} bytes; the stated "
-                         f"{width}x{height}x{mipmaps} chain needs {n * 8}")
+                         f"{width}x{height}x{mipmaps} chain needs "
+                         f"{n * _BLOCK_SIZE[fmt]}")
     header = bytearray(0x94)
     header[0:4] = b"DDS "
     struct.pack_into("<7I", header, 4, 124, _flags(mipmaps), height, width, 0, 0, mipmaps)
     struct.pack_into("<2I", header, 0x4C, 32, _DDPF_FOURCC)
     header[0x54:0x58] = b"DX10"
     # dxgiFormat, resourceDimension=3 (2D), miscFlag, arraySize, miscFlags2
-    struct.pack_into("<5I", header, 0x80, _DXGI_BC1_UNORM, 3, 0, 1, 0)
+    struct.pack_into("<5I", header, 0x80, _DXGI[fmt], 3, 0, 1, 0)
     struct.pack_into("<I", header, 0x6C, 0x1000)
     return bytes(header) + payload + trailing

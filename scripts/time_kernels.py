@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Time the BC1-path kernels of a checkout of the PyTorch port on one card, in a
+fresh process, so that two versions of the port can be compared in turns within
+one call (parent, change, change, parent).
+
+    python3 scripts/time_kernels.py [--root DIR] [--iters N]
+
+``--root`` is the directory that holds the ``dxt_lossless_transform_tpu_torch``
+package to time (default: this checkout). On the 4096x4096 BC1 file of
+``chip_smoke.py`` (1,398,103 blocks) it times ``dlt_bc1_transform`` and
+``dlt_bc1_untransform`` (variant 1, split), ``dlt_bc1_regions`` and
+``dlt_ltu_counts`` with the default offsets on the 8 COMPREHENSIVE colour rows:
+CUDA-event medians of N launches, the 50 MB L2 flushed before each, as
+``chip_smoke.py`` times them. Prints the ``nvidia-smi`` line and one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from dxt_lossless_transform_tpu_torch import backend
+    from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import (
+        DEFAULT_OFFSETS, offset_weight,
+    )
+    from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
+    from dxt_lossless_transform_tpu_torch.settings import BC1_COMPREHENSIVE_CANDIDATES
+    from dxt_lossless_transform_tpu_torch.utils.testgen import make_dds
+
+    dev = torch.device("cuda", 0)
+    x = backend.upload(make_dds("BC1", 4096, 4096, 13, seed=7)[0x80:], dev)
+    n = x.numel() // 8
+    key = tuple((int(c.decorrelation_mode), c.split_colour_endpoints)
+                for c in BC1_COMPREHENSIVE_CANDIDATES)
+    ks = sorted(DEFAULT_OFFSETS)
+    ws = [offset_weight(k) for k in ks]
+    t = shuffle.bc1_transform(x, 1, True)
+    rows = regions.bc1_regions(x, key)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def event_ms(fn) -> float:
+        fn()
+        times = []
+        for _ in range(args.iters):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    ms = {
+        "dlt_bc1_transform": event_ms(lambda: shuffle.bc1_transform(x, 1, True)),
+        "dlt_bc1_untransform": event_ms(lambda: shuffle.bc1_untransform(t, 1, True)),
+        "dlt_bc1_regions": event_ms(lambda: regions.bc1_regions(x, key)),
+        "dlt_ltu_counts": event_ms(lambda: cuda_ltu.ltu_counts(rows, 4 * n, ks, ws)),
+    }
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(json.dumps({"root": args.root, "library": backend.library_path().name,
+                      "iters": args.iters, "ms": ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -99,3 +99,16 @@ def test_empty_and_bad_lengths():
     assert out == b"" and s == convert.from_reference(BC1_FAST_CANDIDATES[-1])
     with pytest.raises(Bc1ValidationError):
         auto.transform_bc1_auto(bytes(12), NoEstimation(), device="cpu")
+    with pytest.raises(Bc1ValidationError):
+        auto.transform_bc1_auto(bytes(9), NoEstimation(), device="cpu")
+
+
+@pytest.mark.parametrize("size", range(0, 8))
+def test_inputs_shorter_than_a_block_match_jax(size):
+    """1-7 bytes give empty output and the last candidate, as in the JAX package."""
+    data = bytes(range(size))
+    for use_all in (False, True):
+        want = jax_auto.transform_bc1_auto(data, JaxLtu(), use_all)
+        got = auto.transform_bc1_auto(data, convert.from_reference(JaxLtu()), use_all,
+                                      device="cpu")
+        assert got == (want[0], convert.from_reference(want[1])) and got[0] == b""

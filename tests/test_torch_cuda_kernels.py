@@ -1,8 +1,9 @@
-"""The four CUDA kernels against their plain versions, on the card.
+"""The seven CUDA kernels against their plain versions, on the card.
 
-Marked ``cuda``: without a CUDA device they skip. On a machine with one:
+Marked ``cuda``: without a CUDA device they skip. On a machine with one (and
+without JAX, which ``tests/conftest.py`` imports):
 
-    python -m pytest tests/test_torch_cuda_kernels.py -q
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 """
 
 import numpy as np
@@ -13,14 +14,23 @@ from dxt_lossless_transform_tpu_torch import backend
 from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
 from dxt_lossless_transform_tpu_torch.estimate.ltu import DEFAULT_OFFSETS, offset_weight
 from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
+from dxt_lossless_transform_tpu_torch.ops import auto
 from dxt_lossless_transform_tpu_torch.settings import (
-    BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, Bc1TransformSettings,
+    BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES,
+    BC3_FAST_CANDIDATES, Bc1TransformSettings, Bc3TransformSettings,
 )
 
 pytestmark = pytest.mark.cuda
 
 SETTINGS = list(Bc1TransformSettings.all_combinations())
+BC3_SETTINGS = list(Bc3TransformSettings.all_combinations())
 SIZES = [1, 3, 255, 257, 2048, 100003]
+BC3_SIZES = [1, 2, 3, 5, 2047, 2049, 100003]
+# offsets beyond the 4096-byte halo, and a 40-offset ladder (the far instantiation)
+FAR_OFFSETS = (1, 2, 4096, 4097, 8192, 65536)
+LADDER_40 = tuple(sorted(set(DEFAULT_OFFSETS) | {
+    7, 9, 10, 11, 13, 14, 15, 20, 28, 40, 80, 160, 384, 768, 1536, 3072, 6144, 12288,
+    24576, 49152}))
 
 
 @pytest.fixture
@@ -30,8 +40,8 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _blocks(n, dev):
-    data = np.random.default_rng(n).integers(0, 256, 8 * n, np.uint8)
+def _blocks(n, dev, size=8):
+    data = np.random.default_rng(n).integers(0, 256, size * n, np.uint8)
     return torch.from_numpy(data).to(dev)
 
 
@@ -72,6 +82,64 @@ def test_scorer_kernel_on_unaligned_rows(cuda, length):
                        cuda_ltu.ltu_counts_plain(rows, length, ks, ws))
 
 
+@pytest.mark.parametrize("n", BC3_SIZES)
+@pytest.mark.parametrize("s", BC3_SETTINGS, ids=str)
+def test_bc3_shuffle_kernels(cuda, s, n):
+    x = _blocks(n, cuda, 16)
+    args = (int(s.decorrelation_mode), s.split_alpha_endpoints, s.split_colour_endpoints)
+    t = shuffle.bc3_transform(x, *args)
+    assert torch.equal(t, shuffle.bc3_transform_plain(x, *args))
+    u = shuffle.bc3_untransform(t, *args)
+    assert torch.equal(u, shuffle.bc3_untransform_plain(t, *args))
+    assert torch.equal(u, x)
+
+
+@pytest.mark.parametrize("n", BC3_SIZES)
+@pytest.mark.parametrize("cand", [BC3_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES],
+                         ids=["fast", "comprehensive"])
+def test_bc3_regions_and_scorer_kernels(cuda, cand, n):
+    x = _blocks(n, cuda, 16)
+    alpha_keys, colour_keys, _, _ = auto.bc3_keys(cand)
+    alpha, colour = regions.bc3_regions(x, alpha_keys, colour_keys)
+    want_alpha, want_colour = regions.bc3_regions_plain(x, alpha_keys, colour_keys)
+    assert torch.equal(alpha, want_alpha) and torch.equal(colour, want_colour)
+    ks = sorted(DEFAULT_OFFSETS)
+    ws = [offset_weight(k) for k in ks]
+    for rows in (alpha, colour):
+        length = rows.shape[1]
+        for valid in sorted({length, max(0, length - 5)}):
+            assert torch.equal(cuda_ltu.ltu_counts(rows, valid, ks, ws),
+                               cuda_ltu.ltu_counts_plain(rows, valid, ks, ws))
+
+
+def _periodic_rows(length, dev):
+    """Rows that repeat with periods 4097, 8192 and 65536 under 20% noise, so that
+    the far offsets find matches."""
+    out = []
+    for period in (4097, 8192, 65536):
+        rng = np.random.default_rng(length + period)
+        row = np.tile(rng.integers(0, 256, period, np.uint8), length // period + 1)
+        row = row[:length].copy()
+        noise = rng.random(length) < 0.2
+        row[noise] = rng.integers(0, 3, int(noise.sum()))
+        out.append(row)
+    return torch.from_numpy(np.stack(out)).to(dev)
+
+
+@pytest.mark.parametrize("length", [5, 4101, 70001, 140002])
+@pytest.mark.parametrize("ks", [FAR_OFFSETS, LADDER_40], ids=["far", "ladder40"])
+def test_scorer_kernel_far_and_many_offsets(cuda, ks, length):
+    rows = _periodic_rows(length, cuda)
+    ws = [offset_weight(k) for k in ks]
+    for r in (rows, rows.reshape(-1)[1:1 + 2 * length].view(2, length)):  # unaligned
+        for valid in (length, length - 3):
+            assert torch.equal(cuda_ltu.ltu_counts(r, valid, ks, ws),
+                               cuda_ltu.ltu_counts_plain(r, valid, ks, ws))
+    neg = [-w for w in ws]
+    assert torch.equal(cuda_ltu.ltu_counts(rows, length, ks, neg),
+                       cuda_ltu.ltu_counts_plain(rows, length, ks, neg))
+
+
 def test_each_wrapper_counts_its_launches(cuda):
     x = _blocks(64, cuda)
     backend.reset_launch_counts()
@@ -79,9 +147,14 @@ def test_each_wrapper_counts_its_launches(cuda):
     shuffle.bc1_untransform(t, 1, True)
     rows = regions.bc1_regions(x, ((1, True),))
     cuda_ltu.ltu_counts(rows, rows.shape[1], [1], [24])
+    t3 = shuffle.bc3_transform(x, 1, True, False)
+    shuffle.bc3_untransform(t3, 1, True, False)
+    regions.bc3_regions(x, (True,), ((1, True),))
     torch.cuda.synchronize()
     assert backend.LAUNCHES == {"dlt_bc1_transform": 1, "dlt_bc1_untransform": 1,
-                                "dlt_bc1_regions": 1, "dlt_ltu_counts": 1}
+                                "dlt_bc1_regions": 1, "dlt_ltu_counts": 1,
+                                "dlt_bc3_transform": 1, "dlt_bc3_untransform": 1,
+                                "dlt_bc3_regions": 1}
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -92,4 +165,19 @@ def test_wrappers_check_their_inputs(cuda):
                               False)
     with pytest.raises(ValueError):
         cuda_ltu.ltu_counts(torch.zeros((1, 16), dtype=torch.uint8, device=cuda), 16,
-                            [8192], [11])
+                            [1], [256])
+    with pytest.raises(ValueError):
+        shuffle.bc3_transform(torch.zeros(40, dtype=torch.uint8, device=cuda)[8:], 0,
+                              False, False)
+
+
+def test_short_inputs_on_the_card(cuda):
+    """Inputs shorter than one block give empty output and the last candidate."""
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+
+    for size in range(1, 16):
+        assert auto.transform_bc3_auto(bytes(size), LtuEstimation()) == \
+            (b"", BC3_FAST_CANDIDATES[-1])
+    for size in range(1, 8):
+        assert auto.transform_bc1_auto(bytes(size), LtuEstimation()) == \
+            (b"", BC1_FAST_CANDIDATES[-1])

@@ -98,11 +98,12 @@ def test_non_bc1_dds_raises_as_jax(fmt):
 
 
 def test_non_bc1_header_is_unsupported_on_untransform():
-    data = jax_testgen.make_dds("BC3", 8, 8)
-    from dxt_lossless_transform_tpu.api import Bc3ManualTransformBuilder
+    """A format of a later slice (BC2 here; BC3 is ported) raises on untransform."""
+    data = jax_testgen.make_dds("BC2", 8, 8)
+    from dxt_lossless_transform_tpu.api import Bc2ManualTransformBuilder
 
     transformed = JaxHandler().transform_bundle(
-        data, JaxBundle(bc3=Bc3ManualTransformBuilder()))
+        data, JaxBundle(bc2=Bc2ManualTransformBuilder()))
     with pytest.raises(errors.UnsupportedTransformFormat, match="later slice"):
         DdsHandler("cpu").untransform(transformed)
 

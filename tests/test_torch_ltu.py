@@ -95,6 +95,52 @@ def test_scores_are_exact_above_2_pow_24():
     assert int(counts[0]) == 24 * (size - 4) > 2**24
 
 
+FAR_OFFSETS = (1, 2, 4096, 4097, 8192, 65536)
+LADDER_40 = tuple(sorted(set(jax_ltu.DEFAULT_OFFSETS) | {
+    7, 9, 10, 11, 13, 14, 15, 20, 28, 40, 80, 160, 384, 768, 1536, 3072, 6144, 12288,
+    24576, 49152}))
+
+
+def _periodic(size: int, period: int) -> np.ndarray:
+    """A row that repeats with ``period`` under 20% noise: matches at far offsets."""
+    rng = np.random.default_rng(size + period)
+    row = np.tile(rng.integers(0, 256, period, np.uint8), size // period + 1)[:size]
+    noise = rng.random(size) < 0.2
+    row[noise] = rng.integers(0, 3, int(noise.sum()))
+    return row
+
+
+@pytest.mark.parametrize("period", [4097, 8192, 65536])
+@pytest.mark.parametrize("offsets", [FAR_OFFSETS, LADDER_40], ids=["far", "ladder40"])
+def test_far_and_many_offsets_equal_numpy_twin(offsets, period):
+    """Offsets beyond the kernel's 4096-byte halo, and more than 32 of them: the
+    plain version equals the JAX package's numpy twin, as the estimator does."""
+    assert len(LADDER_40) == 40
+    data = _periodic(140_002, period)
+    want = jax_ltu._coverage_score_np(data, offsets)
+    got = ltu.coverage_scores(torch.from_numpy(data.copy())[None, :], data.size,
+                              offsets)
+    assert int(got[0]) == want
+    est = convert.from_reference(jax_ltu.LtuEstimation(offsets))
+    assert est.estimate(data.tobytes(), device="cpu") == want
+
+
+def test_far_ladder_selects_the_far_kernel():
+    ks = list(FAR_OFFSETS)
+    ws = [ltu.offset_weight(k) for k in ks]
+    assert cuda_ltu.needs_far(ks, ws) and cuda_ltu.needs_far(list(LADDER_40[:33]),
+                                                               [1] * 33)
+    assert cuda_ltu.needs_far([1, 2], [24, -1])
+    assert not cuda_ltu.needs_far(list(ltu.DEFAULT_OFFSETS),
+                                  [ltu.offset_weight(k) for k in ltu.DEFAULT_OFFSETS])
+
+
+def test_negative_weights_are_summed_signed():
+    data = np.zeros(100, np.uint8)
+    counts = cuda_ltu.ltu_counts(torch.from_numpy(data)[None, :], 100, [1, 50], [-3, 5])
+    assert int(counts[0]) == -3 * 96
+
+
 @pytest.mark.parametrize("bad", [{"valid_len": 10}, {"offsets": [2, 1]},
                                  {"offsets": [0, 1]}, {"weights": [1]}])
 def test_counts_reject_bad_arguments(bad):

@@ -16,14 +16,15 @@ from dxt_lossless_transform_tpu.settings import (
 )
 from dxt_lossless_transform_tpu_torch import backend, convert, settings
 from dxt_lossless_transform_tpu_torch.api import (
-    Bc1AutoTransformBuilder, Bc1ManualTransformBuilder,
+    Bc1AutoTransformBuilder, Bc1ManualTransformBuilder, Bc3AutoTransformBuilder,
+    Bc3ManualTransformBuilder,
 )
 from dxt_lossless_transform_tpu_torch.errors import DeviceUnavailableError
 from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
 from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
 from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
 from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
-from dxt_lossless_transform_tpu_torch.ops import auto, bc1
+from dxt_lossless_transform_tpu_torch.ops import auto, bc1, bc3
 from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
 from dxt_lossless_transform_tpu_torch.utils import testgen
 
@@ -50,7 +51,9 @@ def test_imports_nothing_of_jax(path):
 def test_scan_covers_the_package():
     names = {p.relative_to(PACKAGE).as_posix() for p in SOURCES[:-1]}
     assert {"backend.py", "ops/cuda/shuffle.py", "ops/cuda/regions.py",
-            "estimate/cuda_ltu.py", "formats/handlers.py", "api.py"} <= names
+            "estimate/cuda_ltu.py", "formats/handlers.py", "api.py", "ops/bc3.py",
+            "ops/auto.py", "formats/bundle.py", "formats/embed.py", "convert.py",
+            "settings.py", "errors.py", "utils/testgen.py"} <= names
 
 
 def test_import_builds_nothing_and_imports_no_triton():
@@ -81,6 +84,7 @@ def _no_cuda():
 
 DATA = bytes(range(256)) * 4
 DDS = testgen.make_dds("BC1", 16, 16, 1)
+DDS3 = testgen.make_dds("BC3", 16, 16, 1)
 ENTRY_POINTS = {
     "bc1.transform": lambda: bc1.transform(DATA),
     "bc1.untransform": lambda: bc1.untransform(DATA),
@@ -93,6 +97,16 @@ ENTRY_POINTS = {
         DdsHandler("cpu").transform_bundle(
             DDS, TransformBundle(bc1=Bc1ManualTransformBuilder()))),
     "LtuEstimation.estimate": lambda: LtuEstimation().estimate(DATA),
+    "bc3.transform": lambda: bc3.transform(DATA),
+    "bc3.untransform": lambda: bc3.untransform(DATA),
+    "auto.transform_bc3_auto": lambda: auto.transform_bc3_auto(DATA, LtuEstimation()),
+    "bc3 manual builder": lambda: Bc3ManualTransformBuilder().transform(DATA),
+    "bc3 auto builder": lambda: Bc3AutoTransformBuilder(LtuEstimation()).transform(DATA),
+    "DdsHandler.transform_bundle bc3": lambda: DdsHandler().transform_bundle(
+        DDS3, TransformBundle(bc3=Bc3AutoTransformBuilder(LtuEstimation()))),
+    "DdsHandler.untransform bc3": lambda: DdsHandler().untransform(
+        DdsHandler("cpu").transform_bundle(
+            DDS3, TransformBundle(bc3=Bc3ManualTransformBuilder()))),
 }
 
 
@@ -111,6 +125,10 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(shuffle.bc1_untransform(t, 1, True), x)
     rows = regions.bc1_regions(x, ((1, True), (0, False)))
     cuda_ltu.ltu_counts(rows, rows.shape[1], [1, 2], [24, 23])
+    cuda_ltu.ltu_counts(rows, rows.shape[1], [1, 8192], [24, 11])
+    t3 = shuffle.bc3_transform(x, 2, True, True)
+    assert torch.equal(shuffle.bc3_untransform(t3, 2, True, True), x)
+    regions.bc3_regions(x, (True, False), ((1, True), (0, False)))
     assert all(count == 0 for count in backend.LAUNCHES.values())
 
 
@@ -127,10 +145,39 @@ def test_upload_download_cpu():
     assert backend.download(backend.upload(DATA, dev)) == DATA
 
 
-def test_library_path_is_keyed_by_source():
+def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
     path = backend.library_path()
     assert path.parent == REPO / "build" / "cuda"
-    assert path.name.startswith("libdlt_bc1_kernels_") and path.suffix == ".so"
+    assert path.name.startswith("libdlt_kernels_") and path.suffix == ".so"
+    assert [p.name for p in backend.sources()] == ["bc1_kernels.cu", "bc3_kernels.cu"]
+    # every source and header is in the hash
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in backend.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(backend, "CSRC", csrc)
+    assert backend.library_path() == path
+    for name in ("common.cuh", "bc3_kernels.cu"):
+        (csrc / name).write_bytes((csrc / name).read_bytes() + b"\n")
+        changed = backend.library_path()
+        assert changed != path
+        path = changed
+
+
+def test_convert_bc3_from_reference():
+    from dxt_lossless_transform_tpu import settings as jax_settings
+
+    assert convert.from_reference(jax_settings.BC3_FAST_CANDIDATES) == \
+        settings.BC3_FAST_CANDIDATES
+    assert convert.from_reference(jax_settings.BC3_COMPREHENSIVE_CANDIDATES) == \
+        settings.BC3_COMPREHENSIVE_CANDIDATES
+    assert [convert.from_reference(s) for s in
+            jax_settings.Bc3TransformSettings.all_combinations()] == \
+        list(settings.Bc3TransformSettings.all_combinations())
+    assert convert.from_reference(jax_settings.Bc3TransformSettings()) == \
+        settings.Bc3TransformSettings()
+    with pytest.raises(TypeError):  # BC2 comes with a later slice
+        convert.from_reference(jax_settings.Bc2TransformSettings())
 
 
 def test_convert_from_reference():
@@ -166,17 +213,20 @@ def _fake_nvcc(tmp_path, body: str) -> Path:
 
 
 def test_build_writes_the_hash_named_library_once(tmp_path, monkeypatch):
-    # a stand-in nvcc that writes its -o argument and logs each call
-    bindir = _fake_nvcc(tmp_path, 'echo call >> "$(dirname "$0")/log"\n'
-                                  'while [ "$1" != "-o" ]; do shift; done\n'
-                                  'echo built > "$2"\n')
+    # a stand-in nvcc that writes its -o argument and logs each call with its sources
+    bindir = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done\n'
+                                  'out="$2"; shift 2\n'
+                                  'echo "call $(basename -a "$@" | tr "\\n" " ")"'
+                                  ' >> "$(dirname "$0")/log"\n'
+                                  'echo built > "$out"\n')
     monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
     monkeypatch.setattr(backend, "BUILD_DIR", tmp_path / "build" / "cuda")
     path, _ = backend.build()
     assert path == backend.library_path() and path.read_text() == "built\n"
     assert [p.name for p in path.parent.iterdir()] == [path.name]  # no temp left
     assert backend.build() == (path, "")  # already built: nvcc is not called again
-    assert (bindir / "log").read_text() == "call\n"
+    # one nvcc call for every source
+    assert (bindir / "log").read_text() == "call bc1_kernels.cu bc3_kernels.cu \n"
 
 
 def test_build_failure_raises_and_leaves_nothing(tmp_path, monkeypatch):
