@@ -7,22 +7,25 @@ NVIDIA card.
 Phases, each printed as a JSON line with its wall time:
 
 1. device: the card as ``nvidia-smi`` names it, its power limit, the PyTorch build;
-2. build: the one ``nvcc`` call that builds the seven kernels from the two sources
-   ``csrc/bc1_kernels.cu`` and ``csrc/bc3_kernels.cu`` into one library under
-   ``build/cuda/`` (skipped when that library is already built);
+2. build: the one ``nvcc`` call that builds the fourteen kernel entry points from
+   the four sources ``csrc/bc1_kernels.cu``, ``bc2_kernels.cu``, ``bc3_kernels.cu``
+   and ``bc45_kernels.cu`` into one library under ``build/cuda/`` (skipped when that
+   library is already built);
 3. check: each kernel against its plain PyTorch version, both on the card, byte for
-   byte and for scores as exact integers: every setting (8 for BC1, 16 for BC3),
-   n in {1, 3, 2048, 1,398,103} blocks, the FAST and COMPREHENSIVE candidate sets;
-   the count kernel also on offsets beyond its 4096-byte halo and on a 40-offset
-   ladder; inputs shorter than one block through both auto-searches;
-4. main: the production path through the entry points a user calls: a 4096x4096
-   BC1 DDS file and a 4096x4096 BC3 DDS file, each with its full 13-level mip
-   chain (1,398,103 blocks; payloads of 11,184,824 and 22,369,648 bytes),
-   auto-transformed under the LTU estimator with the FAST and the COMPREHENSIVE
-   candidates, then untransformed. The files must come back byte-identical, and
-   the picks, the exact integer scores and the transformed files' sha256 must equal
-   the JAX package's (constants below). Every kernel must have been launched in
-   this phase;
+   byte and for scores as exact integers: every setting (8 for BC1 and BC2, 16 for
+   BC3, 2 for BC4 and BC5), n in {1, 3, 2048, 1,398,103} blocks, the FAST and
+   COMPREHENSIVE candidate sets; the count kernel also on offsets beyond its
+   4096-byte halo, on a 40-offset ladder and on 70,000 rows (more than a launch's
+   grid.y holds); inputs shorter than one block through every auto-search;
+4. main: the production path through the entry points a user calls, one path per
+   format: a 4096x4096 DDS file of each of BC1-BC5, each with its full 13-level mip
+   chain (1,398,103 blocks; payloads of 11,184,824 bytes for BC1 and BC4 and
+   22,369,648 for BC2, BC3 and BC5), auto-transformed under the LTU estimator (with
+   the FAST and the COMPREHENSIVE candidates for BC1-BC3), then untransformed. The
+   files must come back byte-identical, and the picks, the exact integer scores and
+   the transformed files' sha256 must equal the JAX package's (constants below).
+   The launch counts are set to 0 just before each path and read just after it;
+   every kernel of the path must have been launched in it;
 5. times: CUDA-event medians of each kernel at the main path's shapes beside its
    plain version and its bound, and the wall time of one transform and one
    untransform of each file, with the host<->device copies shown apart.
@@ -47,12 +50,19 @@ import time
 TIME_LIMIT_S = 1100
 
 # Reference constants, from the JAX package's exact integer scorer on the same files
-# (for BC3 a candidate's score is its alpha region's plus its colour region's):
+# (for BC3 a candidate's score is its alpha region's plus its colour region's; for
+# BC4 and BC5 the candidates are split_endpoints true, then false, scored on their
+# endpoint streams):
 #     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py
 SIZE, MIPS, SEED = 4096, 13, 7
 BLOCKS = 1398103
 FILE_SHA256 = {"BC1": "e07169bacbb49da01c672e1141cf4975372d92b352185762f0b108300f56f94f",
-               "BC3": "4063e4a3827e3234aa1cf9f86908037d1206107059e07821d9b50a3b3d47feab"}
+               "BC2": "4cdee0db42ff5be5ff66b3fd2d60bf38d539cd98d6bdf910d8b2a56fa0dfb970",
+               "BC3": "4063e4a3827e3234aa1cf9f86908037d1206107059e07821d9b50a3b3d47feab",
+               "BC4": "cffd267cec6ad6125aa13856ec4c57e5e4f38074751e17783900778ad626b4f5",
+               "BC5": "7dfa7cd1c740e967808fd0aa6a8bcab92ee035c1aa910a69dd9af10bcfefac29"}
+FORMATS = ("BC1", "BC2", "BC3", "BC4", "BC5")
+BLOCK_SIZE = {"BC1": 8, "BC2": 16, "BC3": 16, "BC4": 8, "BC5": 16}
 REFERENCE = {
     "BC1": {
         "fast": {"scores": [132521388, 131980904, 132369283, 131964940],
@@ -75,6 +85,21 @@ REFERENCE = {
                           "pick": (1, True, True),
                           "sha256": "63f2777c858b3dbda930f3a511136d4bf11e74d95e5e39200fda226f47ee9096"},
     },
+    "BC2": {
+        "fast": {"scores": [132521388, 131980904, 132369283, 131964940],
+                 "pick": (1, True),
+                 "sha256": "515081da7ec93976be51372477325e3a3063f0f8e208bc94dcdfb762e2a116bd"},
+        "comprehensive": {"scores": [132434502, 132521388, 131980904, 132370408,
+                                     131967433, 131996919, 132369283, 131964940],
+                          "pick": (1, True),
+                          "sha256": "515081da7ec93976be51372477325e3a3063f0f8e208bc94dcdfb762e2a116bd"},
+    },
+    # the JAX package's own search picks split_endpoints=True for BC5: its device
+    # scorer sums the 5.6 MB rows in f32, and the exact scores differ by 2
+    "BC4": {"auto": {"scores": [67305488, 67305494], "pick": (True,),
+                     "sha256": "cf0e3da0aae5f402f259ec56ce09db98dcd845dfc4f3efd9325c162cec9c30df"}},
+    "BC5": {"auto": {"scores": [134414433, 134414431], "pick": (False,),
+                     "sha256": "a7fcd80c34fdb565a8040fea963d909e6092bc10182d80f4a67f89ba35fdddf8"}},
 }
 
 CSRC = "dxt_lossless_transform_tpu_torch/csrc/"
@@ -94,7 +119,27 @@ KERNELS = {
                             "dxt_lossless_transform_tpu/ops/pallas/shuffle.py:354"),
     "dlt_bc3_regions": ("bc3_kernels.cu",
                         "dxt_lossless_transform_tpu/ops/pallas/regions.py:114"),
+    "dlt_bc2_transform": ("bc2_kernels.cu",
+                          "dxt_lossless_transform_tpu/ops/pallas/shuffle.py:218"),
+    "dlt_bc2_untransform": ("bc2_kernels.cu",
+                            "dxt_lossless_transform_tpu/ops/pallas/shuffle.py:245"),
+    "dlt_bc2_regions": ("bc2_kernels.cu",
+                        "dxt_lossless_transform_tpu/ops/pallas/regions.py:83"),
+    "dlt_bc4_transform": ("bc45_kernels.cu",
+                          "dxt_lossless_transform_tpu/ops/pallas/shuffle.py:420"),
+    "dlt_bc4_untransform": ("bc45_kernels.cu",
+                            "dxt_lossless_transform_tpu/ops/pallas/shuffle.py:443"),
+    "dlt_bc5_transform": ("bc45_kernels.cu",
+                          "dxt_lossless_transform_tpu/ops/pallas/shuffle.py:471"),
+    "dlt_bc5_untransform": ("bc45_kernels.cu",
+                            "dxt_lossless_transform_tpu/ops/pallas/shuffle.py:501"),
 }
+# the kernels of each format's path: its shuffles, its region kernel if it has one,
+# and the count kernel that scores every auto-search
+PATH_KERNELS = {fmt: [name for name in KERNELS if name.startswith(f"dlt_{fmt.lower()}_")]
+                + ["dlt_ltu_counts"] for fmt in FORMATS}
+# rows for the count kernel's many-rows case: more than one launch's grid.y (65,535)
+MANY_ROWS = 70_000
 # The count kernel's far instantiation: offsets beyond its 4096-byte halo, and a
 # 40-offset ladder (more than the near table's 32).
 FAR_OFFSETS = (1, 2, 4096, 4097, 8192, 65536)
@@ -150,7 +195,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dxt_lossless_transform_tpu_torch import backend
     from dxt_lossless_transform_tpu_torch.api import (
-        Bc1AutoTransformBuilder, Bc3AutoTransformBuilder,
+        Bc1AutoTransformBuilder, Bc2AutoTransformBuilder, Bc3AutoTransformBuilder,
+        Bc4AutoTransformBuilder, Bc5AutoTransformBuilder,
     )
     from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
     from dxt_lossless_transform_tpu_torch.estimate.ltu import (
@@ -159,16 +205,19 @@ def main() -> int:
     from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
     from dxt_lossless_transform_tpu_torch.formats.embed import TransformHeader
     from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
-    from dxt_lossless_transform_tpu_torch.ops import auto
+    from dxt_lossless_transform_tpu_torch.ops import auto, bc45
     from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
     from dxt_lossless_transform_tpu_torch.settings import (
-        BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES,
-        BC3_FAST_CANDIDATES, Bc1TransformSettings, Bc3TransformSettings,
+        BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
+        BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
+        Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
+        Bc4TransformSettings, Bc5TransformSettings,
     )
     from dxt_lossless_transform_tpu_torch.utils.testgen import make_dds
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
+    run_start = time.perf_counter()
 
     # ---- 1. device ------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -202,7 +251,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ks = sorted(DEFAULT_OFFSETS)
     ws = [offset_weight(k) for k in ks]
-    dds = {fmt: make_dds(fmt, SIZE, SIZE, MIPS, seed=SEED) for fmt in ("BC1", "BC3")}
+    dds = {fmt: make_dds(fmt, SIZE, SIZE, MIPS, seed=SEED) for fmt in FORMATS}
     for fmt, data in dds.items():
         if hashlib.sha256(data).hexdigest() != FILE_SHA256[fmt]:
             fail(f"make_dds gave another {fmt} file than the reference run")
@@ -232,6 +281,15 @@ def main() -> int:
     bc3_keys = {label: auto.bc3_keys(cand)[:2]
                 for label, cand in (("fast", BC3_FAST_CANDIDATES),
                                     ("comprehensive", BC3_COMPREHENSIVE_CANDIDATES))}
+    bc2_keys = {label: auto.colour_keys(cand)[0]
+                for label, cand in (("fast", BC2_FAST_CANDIDATES),
+                                    ("comprehensive", BC2_COMPREHENSIVE_CANDIDATES))}
+    # BC4 and BC5: (kernel, plain) for each direction, and endpoint bytes per block
+    bc45_kernels = {
+        "BC4": ((shuffle.bc4_transform, shuffle.bc4_transform_plain),
+                (shuffle.bc4_untransform, shuffle.bc4_untransform_plain), 2),
+        "BC5": ((shuffle.bc5_transform, shuffle.bc5_transform_plain),
+                (shuffle.bc5_untransform, shuffle.bc5_untransform_plain), 4)}
     rng = np.random.default_rng(SEED)
     checked = []
     for n in (1, 3, 2048, BLOCKS):
@@ -276,6 +334,40 @@ def main() -> int:
                 for valid in sorted({length, max(length - 5, 0)}):
                     compare_counts(rows, valid, ks,
                                    f"BC3 n={n} {label} valid_len={valid}")
+        x = backend.upload(payload["BC2"] if n == BLOCKS
+                           else rng.integers(0, 256, 16 * n, np.uint8).tobytes(), dev)
+        for s in Bc2TransformSettings.all_combinations():
+            v, sp = int(s.decorrelation_mode), s.split_colour_endpoints
+            t = shuffle.bc2_transform(x, v, sp)
+            compare("dlt_bc2_transform", t, shuffle.bc2_transform_plain(x, v, sp),
+                    f"n={n} {s}")
+            u = shuffle.bc2_untransform(t, v, sp)
+            compare("dlt_bc2_untransform", u, shuffle.bc2_untransform_plain(t, v, sp),
+                    f"n={n} {s}")
+            compare("dlt_bc2_untransform", u, x, f"n={n} {s} round trip")
+        for label, key in bc2_keys.items():
+            rows = regions.bc2_regions(x, key)
+            compare("dlt_bc2_regions", rows, regions.bc2_regions_plain(x, key),
+                    f"n={n} {label}")
+            for valid in sorted({4 * n, max(4 * n - 5, 0)}):
+                compare_counts(rows, valid, ks, f"BC2 n={n} {label} valid_len={valid}")
+        for fmt, ((t_kernel, t_plain), (u_kernel, u_plain), ep) in bc45_kernels.items():
+            size = BLOCK_SIZE[fmt]
+            x = backend.upload(payload[fmt] if n == BLOCKS
+                               else rng.integers(0, 256, size * n, np.uint8).tobytes(),
+                               dev)
+            name = f"dlt_{fmt.lower()}"
+            prefixes = []
+            for split in (True, False):
+                t = t_kernel(x, split)
+                compare(f"{name}_transform", t, t_plain(x, split), f"n={n} split={split}")
+                u = u_kernel(t, split)
+                compare(f"{name}_untransform", u, u_plain(t, split),
+                        f"n={n} split={split}")
+                compare(f"{name}_untransform", u, x, f"n={n} split={split} round trip")
+                prefixes.append(t[:ep * n])
+            compare_counts(torch.stack(prefixes), ep * n, ks,
+                           f"{fmt} n={n} endpoint rows")
         checked.append(n)
     # the count kernel's far instantiation: the main file's BC3 rows, and rows that
     # repeat with periods beyond the halo so that the far offsets match
@@ -295,16 +387,28 @@ def main() -> int:
             far_counts.append(int(cuda_ltu.ltu_counts(
                 rows, rows.shape[1], offsets,
                 [offset_weight(k) for k in offsets]).sum()))
+    # more rows than one launch's grid.y holds: the entry point launches per group
+    many = torch.from_numpy(rng.integers(0, 3, (MANY_ROWS, 12), np.uint8)).to(dev)
+    compare_counts(many, 12, ks, f"{MANY_ROWS} rows of 12 bytes")
+    many_rows_sum = int(cuda_ltu.ltu_counts(many, 12, ks, ws).sum())
     # inputs shorter than one block, through the entry points
-    for size in range(1, 16):
-        if size < 8 and auto.transform_bc1_auto(bytes(size), LtuEstimation()) != \
-                (b"", BC1_FAST_CANDIDATES[-1]):
-            fail(f"BC1 auto-transform of {size} bytes")
-        if auto.transform_bc3_auto(bytes(size), LtuEstimation(), True) != \
-                (b"", BC3_COMPREHENSIVE_CANDIDATES[-1]):
-            fail(f"BC3 auto-transform of {size} bytes")
+    short = {"BC1": (lambda d: auto.transform_bc1_auto(d, LtuEstimation()),
+                     BC1_FAST_CANDIDATES[-1]),
+             "BC2": (lambda d: auto.transform_bc2_auto(d, LtuEstimation(), True),
+                     BC2_COMPREHENSIVE_CANDIDATES[-1]),
+             "BC3": (lambda d: auto.transform_bc3_auto(d, LtuEstimation(), True),
+                     BC3_COMPREHENSIVE_CANDIDATES[-1]),
+             "BC4": (lambda d: bc45.transform_bc4_auto(d, LtuEstimation()),
+                     Bc4TransformSettings(False)),
+             "BC5": (lambda d: bc45.transform_bc5_auto(d, LtuEstimation()),
+                     Bc5TransformSettings(False))}
+    for fmt, (search, last) in short.items():
+        for size in range(1, BLOCK_SIZE[fmt]):
+            if search(bytes(size)) != (b"", last):
+                fail(f"{fmt} auto-transform of {size} bytes")
     emit("check", t0, block_counts=checked, max_abs_err=max_err,
-         far_counts=far_counts, launches=dict(backend.LAUNCHES))
+         far_counts=far_counts, many_rows=MANY_ROWS, many_rows_count_sum=many_rows_sum,
+         launches=dict(backend.LAUNCHES))
 
     # ---- 4. the main path, through the entry points ---------------------------------
     t0 = time.perf_counter()
@@ -313,43 +417,74 @@ def main() -> int:
         ("BC1", "fast"): TransformBundle(bc1=Bc1AutoTransformBuilder(LtuEstimation())),
         ("BC1", "comprehensive"): TransformBundle(
             bc1=Bc1AutoTransformBuilder.new_ultra(LtuEstimation())),
+        ("BC2", "fast"): TransformBundle(bc2=Bc2AutoTransformBuilder(LtuEstimation())),
+        ("BC2", "comprehensive"): TransformBundle(
+            bc2=Bc2AutoTransformBuilder.new_ultra(LtuEstimation())),
         ("BC3", "fast"): TransformBundle(bc3=Bc3AutoTransformBuilder(LtuEstimation())),
         ("BC3", "comprehensive"): TransformBundle(
             bc3=Bc3AutoTransformBuilder.new_ultra(LtuEstimation())),
+        ("BC4", "auto"): TransformBundle(bc4=Bc4AutoTransformBuilder(LtuEstimation())),
+        ("BC5", "auto"): TransformBundle(bc5=Bc5AutoTransformBuilder(LtuEstimation())),
     }
-    sync()
-    backend.reset_launch_counts()
     wall = {}
     outs = {}
-    for (fmt, label), bundle in bundles.items():
-        t = time.perf_counter()
-        outs[fmt, label] = handler.transform_bundle(dds[fmt], bundle)
-        wall[f"{fmt}_transform_{label}_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        back = handler.untransform(outs[fmt, label])
-        wall[f"{fmt}_untransform_{label}_s"] = time.perf_counter() - t
-        if back != dds[fmt]:
-            fail(f"{fmt} {label}: the untransformed file differs from the input")
-    sync()
-    launches = dict(backend.LAUNCHES)
-    if any(count == 0 for count in launches.values()):
-        fail(f"a kernel was not launched on the main path: {launches}")
+    path_launches = {}
+    for fmt in FORMATS:
+        # each format's path: its counts set to 0 just before and read just after
+        sync()
+        backend.reset_launch_counts()
+        for (bundle_fmt, label), bundle in bundles.items():
+            if bundle_fmt != fmt:
+                continue
+            t = time.perf_counter()
+            outs[fmt, label] = handler.transform_bundle(dds[fmt], bundle)
+            wall[f"{fmt}_transform_{label}_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            back = handler.untransform(outs[fmt, label])
+            wall[f"{fmt}_untransform_{label}_s"] = time.perf_counter() - t
+            if back != dds[fmt]:
+                fail(f"{fmt} {label}: the untransformed file differs from the input")
+        sync()
+        path_launches[fmt] = {name: backend.LAUNCHES[name] for name in PATH_KERNELS[fmt]}
+        if any(count == 0 for count in path_launches[fmt].values()):
+            fail(f"a kernel of the {fmt} path was not launched on it: "
+                 f"{path_launches[fmt]}")
+        others = {name: count for name, count in backend.LAUNCHES.items()
+                  if count and name not in PATH_KERNELS[fmt]}
+        if others:
+            fail(f"the {fmt} path launched other formats' kernels: {others}")
+    # each kernel's launches on the main path: the count kernel's over every path
+    launches = {name: sum(counts.get(name, 0) for counts in path_launches.values())
+                for name in KERNELS}
     results = {}
     xs = {fmt: backend.upload(data, dev) for fmt, data in payload.items()}
+    n = BLOCKS
     for (fmt, label), out in outs.items():
         ref = REFERENCE[fmt][label]
         header = TransformHeader.from_bytes(out)
-        if fmt == "BC1":
-            cand = BC1_FAST_CANDIDATES if label == "fast" else BC1_COMPREHENSIVE_CANDIDATES
-            pick = header.bc1_settings()
+        if fmt in ("BC1", "BC2"):
+            cand = {("BC1", "fast"): BC1_FAST_CANDIDATES,
+                    ("BC1", "comprehensive"): BC1_COMPREHENSIVE_CANDIDATES,
+                    ("BC2", "fast"): BC2_FAST_CANDIDATES,
+                    ("BC2", "comprehensive"): BC2_COMPREHENSIVE_CANDIDATES}[fmt, label]
+            pick = getattr(header, f"{fmt.lower()}_settings")()
             pick_key = (int(pick.decorrelation_mode), pick.split_colour_endpoints)
-            scores = auto.candidate_scores(xs[fmt], LtuEstimation(), cand)
-        else:
+            scores = (auto.candidate_scores if fmt == "BC1" else
+                      auto.bc2_candidate_scores)(xs[fmt], LtuEstimation(), cand)
+        elif fmt == "BC3":
             cand = BC3_FAST_CANDIDATES if label == "fast" else BC3_COMPREHENSIVE_CANDIDATES
             pick = header.bc3_settings()
             pick_key = (int(pick.decorrelation_mode), pick.split_alpha_endpoints,
                         pick.split_colour_endpoints)
             scores = auto.bc3_candidate_scores(xs[fmt], LtuEstimation(), cand)
+        else:
+            settings = Bc4TransformSettings if fmt == "BC4" else Bc5TransformSettings
+            pick = getattr(header, f"{fmt.lower()}_settings")()
+            pick_key = (pick.split_endpoints,)
+            (kernel, _), _, ep = bc45_kernels[fmt]
+            scores, _ = bc45.endpoint_scores(fmt, xs[fmt], LtuEstimation(),
+                                             tuple(settings.all_combinations()), ep * n,
+                                             kernel)
         scores = [int(v) for v in scores]
         digest = hashlib.sha256(out).hexdigest()
         results[f"{fmt}/{label}"] = {"pick": list(pick_key), "scores": scores,
@@ -362,7 +497,7 @@ def main() -> int:
             fail(f"{fmt} {label}: transformed file sha256 differs from the JAX package's")
     emit("main", t0, file_bytes={fmt: len(d) for fmt, d in dds.items()},
          payload_bytes={fmt: len(p) for fmt, p in payload.items()}, blocks=BLOCKS,
-         launches=launches, results=results, wall=wall)
+         launches=path_launches, results=results, wall=wall)
 
     # ---- 5. times ----------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -424,13 +559,23 @@ def main() -> int:
     # the search alone (regions and scores, without the copies and the transform),
     # and a fresh pinned staging buffer of the payload's size, as upload and
     # download each take one
+    # (BC4 and BC5: both candidates' transforms and their scores)
     search = {"BC1": lambda x: auto.candidate_scores(x, LtuEstimation(),
                                                      BC1_FAST_CANDIDATES),
+              "BC2": lambda x: auto.bc2_candidate_scores(x, LtuEstimation(),
+                                                         BC2_FAST_CANDIDATES),
               "BC3": lambda x: auto.bc3_candidate_scores(x, LtuEstimation(),
-                                                         BC3_FAST_CANDIDATES)}
+                                                         BC3_FAST_CANDIDATES),
+              "BC4": lambda x: bc45.endpoint_scores(
+                  "BC4", x, LtuEstimation(), tuple(Bc4TransformSettings.all_combinations()),
+                  2 * n, shuffle.bc4_transform),
+              "BC5": lambda x: bc45.endpoint_scores(
+                  "BC5", x, LtuEstimation(), tuple(Bc5TransformSettings.all_combinations()),
+                  4 * n, shuffle.bc5_transform)}
     copies = {}
-    for fmt in ("BC1", "BC3"):
+    for fmt in FORMATS:
         xt = xs[fmt]
+        fast = "auto" if fmt in ("BC4", "BC5") else "fast"
         copies[f"{fmt}_h2d_payload_s"] = host_s(lambda: backend.upload(payload[fmt], dev))
         copies[f"{fmt}_d2h_payload_s"] = host_s(lambda: backend.download(xt))
         copies[f"{fmt}_pinned_buffer_s"] = host_s(lambda: torch.empty(
@@ -441,10 +586,10 @@ def main() -> int:
         copies[f"{fmt}_slice_s"] = host_s(lambda: dds[fmt][0x80:0x80 + len(payload[fmt])])
         copies[f"{fmt}_assemble_s"] = host_s(
             lambda: dds[fmt][:4] + dds[fmt][4:0x80] + payload[fmt] + dds[fmt][len(dds[fmt]):])
-        copies[f"{fmt}_transform_fast_file_s"] = host_s(
-            lambda: handler.transform_bundle(dds[fmt], bundles[fmt, "fast"]))
+        copies[f"{fmt}_transform_{fast}_file_s"] = host_s(
+            lambda: handler.transform_bundle(dds[fmt], bundles[fmt, fast]))
         copies[f"{fmt}_untransform_file_s"] = host_s(
-            lambda: handler.untransform(outs[fmt, "fast"]))
+            lambda: handler.untransform(outs[fmt, fast]))
 
     n = BLOCKS
     timed = {}
@@ -490,6 +635,40 @@ def main() -> int:
         alpha, colour = regions.bc3_regions(x3, akeys, ckeys)
         timed[f"dlt_ltu_counts/bc3_alpha_{label}"] = time_counts(alpha, 2 * n)
         timed[f"dlt_ltu_counts/bc3_colour_{label}"] = time_counts(colour, 4 * n)
+    # BC2: the pick of both candidate sets, variant 1 split
+    x2 = xs["BC2"]
+    t2 = shuffle.bc2_transform(x2, v, sp)
+    timed["dlt_bc2_transform"] = dict(
+        ms=event_ms(lambda: shuffle.bc2_transform(x2, v, sp), 20),
+        plain_ms=event_ms(lambda: shuffle.bc2_transform_plain(x2, v, sp), 5),
+        bytes=32 * n, ops=OPS_PAIR * n)
+    timed["dlt_bc2_untransform"] = dict(
+        ms=event_ms(lambda: shuffle.bc2_untransform(t2, v, sp), 20),
+        plain_ms=event_ms(lambda: shuffle.bc2_untransform_plain(t2, v, sp), 5),
+        bytes=32 * n, ops=OPS_PAIR * n)
+    for label, key in bc2_keys.items():
+        c = len(key)
+        timed[f"dlt_bc2_regions/{label}"] = dict(
+            ms=event_ms(lambda: regions.bc2_regions(x2, key), 20),
+            plain_ms=event_ms(lambda: regions.bc2_regions_plain(x2, key), 5),
+            bytes=16 * n + 4 * n * c, ops=3 * OPS_PAIR * n + 4 * c * n)
+        timed[f"dlt_ltu_counts/bc2_{label}"] = time_counts(regions.bc2_regions(x2, key),
+                                                           4 * n)
+    # BC4 and BC5: both settings are the main path's (each search transforms with
+    # both); split, as the row of each; pure moves, no arithmetic
+    for fmt, ((t_kernel, t_plain), (u_kernel, u_plain), ep) in bc45_kernels.items():
+        x45 = xs[fmt]
+        t45 = t_kernel(x45, True)
+        name = f"dlt_{fmt.lower()}"
+        moved = 2 * BLOCK_SIZE[fmt] * n
+        timed[f"{name}_transform"] = dict(
+            ms=event_ms(lambda: t_kernel(x45, True), 20),
+            plain_ms=event_ms(lambda: t_plain(x45, True), 5), bytes=moved, ops=0)
+        timed[f"{name}_untransform"] = dict(
+            ms=event_ms(lambda: u_kernel(t45, True), 20),
+            plain_ms=event_ms(lambda: u_plain(t45, True), 5), bytes=moved, ops=0)
+        rows = torch.stack([t_kernel(x45, True)[:ep * n], t_kernel(x45, False)[:ep * n]])
+        timed[f"dlt_ltu_counts/{fmt.lower()}_endpoints"] = time_counts(rows, ep * n)
     for entry in timed.values():
         bytes_ms = entry["bytes"] / rate * 1e3
         ops_ms = entry["ops"] / int_rate * 1e3
@@ -498,7 +677,7 @@ def main() -> int:
 
     emit("times", t0, kernels=timed, host=copies,
          note="kernel ms: CUDA-event medians with L2 flushed before each launch; "
-              "host s: medians of 5")
+              "host s: medians of 5", run_seconds=time.perf_counter() - run_start)
 
     # ---- 6. the contract lines ----------------------------------------------------------
     # the row of each kernel: its COMPREHENSIVE shape where it has one, and the count

@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of ``dxt_lossless_transform_tpu`` for NVIDIA Hopper (H100).
 
-It carries the BC1 and BC3 DDS production paths: the auto-search under the LTU
+It carries the BC1-BC5 DDS production paths: the auto-search under the LTU
 estimator, the transform with the winning settings and the 4-byte header, and the
 load path that reads the header back and untransforms. Entry points run on the
 CUDA device by default (``device="cuda"``) and raise
@@ -12,6 +12,8 @@ compiled by ``nvcc`` at first use (see :mod:`.backend`).
 """
 
 from .settings import (  # noqa: F401
-    BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES,
-    BC3_FAST_CANDIDATES, Bc1TransformSettings, Bc3TransformSettings, YCoCgVariant,
+    BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
+    BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
+    Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
+    Bc4TransformSettings, Bc5TransformSettings, YCoCgVariant,
 )

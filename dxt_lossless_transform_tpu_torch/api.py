@@ -1,4 +1,4 @@
-"""BC1 and BC3 builders (counterpart of ``dxt_lossless_transform_tpu/api.py:26-119``).
+"""BC1-BC5 builders (counterpart of ``dxt_lossless_transform_tpu/api.py:26-176``).
 
 An auto builder searches for the best settings with a pluggable estimator and hands
 back the untransform recipe as a manual builder; a manual builder transforms with
@@ -13,13 +13,18 @@ from typing import Optional, Union
 import torch
 
 from .estimate.base import NoEstimation, SizeEstimation
-from .ops import auto as ops_auto, bc1 as ops_bc1, bc3 as ops_bc3
-from .settings import Bc1TransformSettings, Bc3TransformSettings, YCoCgVariant
+from .ops import auto as ops_auto, bc1 as ops_bc1, bc2 as ops_bc2, bc3 as ops_bc3
+from .ops import bc45 as ops_bc45
+from .settings import (
+    Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
+    Bc4TransformSettings, Bc5TransformSettings, YCoCgVariant,
+)
 
 
 class _ManualBuilder:
     _settings_cls = None  # the format's settings dataclass
-    _ops = None           # the format's ops module (transform, untransform)
+    _transform = None     # the format's (data, settings, device) -> bytes
+    _untransform = None
 
     def __init__(self, settings=None):
         self._settings = settings if settings is not None else type(self)._settings_cls()
@@ -28,21 +33,32 @@ class _ManualBuilder:
         self._settings = type(self._settings)(**{**self._settings.__dict__, **changes})
         return self
 
+    def get_settings(self):
+        return self._settings
+
+    def transform(self, data: bytes, device: Union[str, torch.device] = "cuda") -> bytes:
+        return type(self)._transform(data, self._settings, device)
+
+    def untransform(self, data: bytes,
+                    device: Union[str, torch.device] = "cuda") -> bytes:
+        return type(self)._untransform(data, self._settings, device)
+
+
+class _ColourManualBuilder(_ManualBuilder):
+    """A manual builder of a format with a colour half (BC1-BC3)."""
+
     def decorrelation_mode(self, variant: YCoCgVariant):
         return self._with(decorrelation_mode=YCoCgVariant(variant))
 
     def split_colour_endpoints(self, flag: bool):
         return self._with(split_colour_endpoints=bool(flag))
 
-    def get_settings(self):
-        return self._settings
 
-    def transform(self, data: bytes, device: Union[str, torch.device] = "cuda") -> bytes:
-        return type(self)._ops.transform(data, self._settings, device)
+class _EndpointManualBuilder(_ManualBuilder):
+    """A manual builder of BC4 or BC5, whose one knob splits the endpoints."""
 
-    def untransform(self, data: bytes,
-                    device: Union[str, torch.device] = "cuda") -> bytes:
-        return type(self)._ops.untransform(data, self._settings, device)
+    def split_endpoints(self, flag: bool):
+        return self._with(split_endpoints=bool(flag))
 
 
 class _AutoBuilder:
@@ -70,9 +86,10 @@ class _AutoBuilder:
         return out, type(self)._manual(settings)
 
 
-class Bc1ManualTransformBuilder(_ManualBuilder):
+class Bc1ManualTransformBuilder(_ColourManualBuilder):
     _settings_cls = Bc1TransformSettings
-    _ops = ops_bc1
+    _transform = staticmethod(ops_bc1.transform)
+    _untransform = staticmethod(ops_bc1.untransform)
 
 
 class Bc1AutoTransformBuilder(_AutoBuilder):
@@ -80,9 +97,21 @@ class Bc1AutoTransformBuilder(_AutoBuilder):
     _manual = Bc1ManualTransformBuilder
 
 
-class Bc3ManualTransformBuilder(_ManualBuilder):
+class Bc2ManualTransformBuilder(_ColourManualBuilder):
+    _settings_cls = Bc2TransformSettings
+    _transform = staticmethod(ops_bc2.transform)
+    _untransform = staticmethod(ops_bc2.untransform)
+
+
+class Bc2AutoTransformBuilder(_AutoBuilder):
+    _search = staticmethod(ops_auto.transform_bc2_auto)
+    _manual = Bc2ManualTransformBuilder
+
+
+class Bc3ManualTransformBuilder(_ColourManualBuilder):
     _settings_cls = Bc3TransformSettings
-    _ops = ops_bc3
+    _transform = staticmethod(ops_bc3.transform)
+    _untransform = staticmethod(ops_bc3.untransform)
 
     def split_alpha_endpoints(self, flag: bool):
         return self._with(split_alpha_endpoints=bool(flag))
@@ -91,3 +120,25 @@ class Bc3ManualTransformBuilder(_ManualBuilder):
 class Bc3AutoTransformBuilder(_AutoBuilder):
     _search = staticmethod(ops_auto.transform_bc3_auto)
     _manual = Bc3ManualTransformBuilder
+
+
+class Bc4ManualTransformBuilder(_EndpointManualBuilder):
+    _settings_cls = Bc4TransformSettings
+    _transform = staticmethod(ops_bc45.transform_bc4)
+    _untransform = staticmethod(ops_bc45.untransform_bc4)
+
+
+class Bc4AutoTransformBuilder(_AutoBuilder):
+    _search = staticmethod(ops_bc45.transform_bc4_auto)
+    _manual = Bc4ManualTransformBuilder
+
+
+class Bc5ManualTransformBuilder(_EndpointManualBuilder):
+    _settings_cls = Bc5TransformSettings
+    _transform = staticmethod(ops_bc45.transform_bc5)
+    _untransform = staticmethod(ops_bc45.untransform_bc5)
+
+
+class Bc5AutoTransformBuilder(_AutoBuilder):
+    _search = staticmethod(ops_bc45.transform_bc5_auto)
+    _manual = Bc5ManualTransformBuilder

@@ -1,8 +1,8 @@
 """Device selection, the CUDA kernel library, host<->device copies and launch counts.
 
 The kernels live in the CUDA C++ sources ``csrc/*.cu`` (``bc1_kernels.cu`` with the
-LTU count kernel, ``bc3_kernels.cu``), which share ``csrc/common.cuh`` and have
-plain ``extern "C"`` entry points. At first use, :func:`library` compiles all of
+LTU count kernel, ``bc2_kernels.cu``, ``bc3_kernels.cu``, ``bc45_kernels.cu``), which
+share ``csrc/common.cuh`` and have plain ``extern "C"`` entry points. At first use, :func:`library` compiles all of
 them with one ``nvcc`` call into one shared library under ``build/cuda/`` at the
 repository root and loads it with :mod:`ctypes`. The file name carries a hash of
 every source and header and of the flags, and the library is written under a
@@ -54,6 +54,16 @@ _SIGNATURES = {
     # (in, alpha_out, colour_out, n_blocks, alpha code, n_alpha, colour code,
     #  n_colour, stream)
     "dlt_bc3_regions": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (in, out, n_blocks, variant, split, stream)
+    "dlt_bc2_transform": (_P, _P, _I, _I, _I, _P),
+    "dlt_bc2_untransform": (_P, _P, _I, _I, _I, _P),
+    # (in, out, n_blocks, candidate code, n_candidates, stream)
+    "dlt_bc2_regions": (_P, _P, _I, _I, _I, _P),
+    # (in, out, n_blocks, split, stream)
+    "dlt_bc4_transform": (_P, _P, _I, _I, _P),
+    "dlt_bc4_untransform": (_P, _P, _I, _I, _P),
+    "dlt_bc5_transform": (_P, _P, _I, _I, _P),
+    "dlt_bc5_untransform": (_P, _P, _I, _I, _P),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.

@@ -12,18 +12,28 @@ from __future__ import annotations
 from . import api
 from .estimate.base import NoEstimation
 from .estimate.ltu import LtuEstimation
-from .settings import Bc1TransformSettings, Bc3TransformSettings, YCoCgVariant
+from .settings import (
+    Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
+    Bc4TransformSettings, Bc5TransformSettings, YCoCgVariant,
+)
 
-_MANUAL = {"Bc1ManualTransformBuilder": api.Bc1ManualTransformBuilder,
-           "Bc3ManualTransformBuilder": api.Bc3ManualTransformBuilder}
-_AUTO = {"Bc1AutoTransformBuilder": api.Bc1AutoTransformBuilder,
-         "Bc3AutoTransformBuilder": api.Bc3AutoTransformBuilder}
+_FORMATS = ("Bc1", "Bc2", "Bc3", "Bc4", "Bc5")
+_MANUAL = {f"{f}ManualTransformBuilder": getattr(api, f"{f}ManualTransformBuilder")
+           for f in _FORMATS}
+_AUTO = {f"{f}AutoTransformBuilder": getattr(api, f"{f}AutoTransformBuilder")
+         for f in _FORMATS}
+# settings with a decorrelation variant and split colour endpoints
+_COLOUR = {"Bc1TransformSettings": Bc1TransformSettings,
+           "Bc2TransformSettings": Bc2TransformSettings}
+# settings with split endpoints only
+_ENDPOINTS = {"Bc4TransformSettings": Bc4TransformSettings,
+              "Bc5TransformSettings": Bc5TransformSettings}
 
 
 def from_reference(obj):
-    """The port's counterpart of a JAX-package ``Bc1TransformSettings``,
-    ``Bc3TransformSettings``, ``YCoCgVariant``, tuple or list of those, BC1 or BC3
-    manual or auto builder, ``LtuEstimation`` or ``NoEstimation``."""
+    """The port's counterpart of a JAX-package ``Bc1``-``Bc5TransformSettings``,
+    ``YCoCgVariant``, tuple or list of those, BC1-BC5 manual or auto builder,
+    ``LtuEstimation`` or ``NoEstimation``."""
     name = type(obj).__name__
     if isinstance(obj, (tuple, list)):
         return tuple(from_reference(o) for o in obj)
@@ -31,9 +41,11 @@ def from_reference(obj):
         return Bc3TransformSettings(YCoCgVariant(int(obj.decorrelation_mode)),
                                     bool(obj.split_alpha_endpoints),
                                     bool(obj.split_colour_endpoints))
-    if name == "Bc1TransformSettings":
-        return Bc1TransformSettings(YCoCgVariant(int(obj.decorrelation_mode)),
-                                    bool(obj.split_colour_endpoints))
+    if name in _COLOUR:
+        return _COLOUR[name](YCoCgVariant(int(obj.decorrelation_mode)),
+                             bool(obj.split_colour_endpoints))
+    if name in _ENDPOINTS:
+        return _ENDPOINTS[name](bool(obj.split_endpoints))
     if name == "YCoCgVariant":
         return YCoCgVariant(int(obj))
     if name == "LtuEstimation" and hasattr(obj, "offsets"):

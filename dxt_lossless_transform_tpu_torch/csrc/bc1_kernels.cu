@@ -1,6 +1,6 @@
 // The BC1 kernels and the LTU coverage count, for sm_90a.
 //
-// Built with bc3_kernels.cu by one nvcc call into one shared library with a plain
+// Built with the other sources by one nvcc call into one shared library with a plain
 // C interface (dxt_lossless_transform_tpu_torch/backend.py) and called through
 // ctypes. Every entry point launches on the stream it is given, allocates nothing
 // (the Python wrapper allocates each output with torch.empty) and returns
@@ -12,6 +12,7 @@
 //   transformed, split:       c0 u16 at [0,2n), c1 u16 at [2n,4n), indices at [4n,8n)
 // n may be any block count (odd, or 1); nothing is padded.
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -125,6 +126,7 @@ constexpr int kHalo = 4096;                            // largest near offset
 constexpr int kWinWords = (kHalo + kTile + 4) / 4 + 1; // halo, tile, lookahead
 constexpr int kMaxOffsets = 32;
 constexpr int64_t kMaxWeight = 255;
+constexpr int64_t kMaxGridY = 65535;                   // rows per launch
 
 struct LtuOffsets {
   int32_t k[kMaxOffsets];
@@ -276,7 +278,7 @@ int dlt_ltu_counts(const void* rows, void* counts, int64_t n_rows, int64_t row_l
                    int64_t valid_len, const void* offsets, const void* weights,
                    int64_t n_offsets, const void* far_table, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_rows <= 0 || n_rows > 65535 || valid_len < 0 || valid_len > row_len ||
+  if (n_rows <= 0 || valid_len < 0 || valid_len > row_len ||
       n_offsets < 0 || n_offsets > INT32_MAX / 2) {
     return cudaErrorInvalidValue;
   }
@@ -304,18 +306,24 @@ int dlt_ltu_counts(const void* rows, void* counts, int64_t n_rows, int64_t row_l
   cudaError_t rc = cudaMemsetAsync(counts, 0, n_rows * sizeof(unsigned long long), st);
   if (rc != cudaSuccess) return rc;
   const int64_t positions = valid_len > 3 ? valid_len - 3 : 1;
-  const dim3 grid(static_cast<unsigned>((positions + kTile - 1) / kTile),
-                  static_cast<unsigned>(n_rows));
-  if (near) {
-    ltu_counts_kernel<false><<<grid, kThreads, 0, st>>>(
-        static_cast<const uint8_t*>(rows), row_len, valid_len, offs,
-        static_cast<unsigned long long*>(counts));
-  } else {
-    ltu_counts_kernel<true><<<grid, kThreads, 0, st>>>(
-        static_cast<const uint8_t*>(rows), row_len, valid_len, far,
-        static_cast<unsigned long long*>(counts));
+  const unsigned tiles = static_cast<unsigned>((positions + kTile - 1) / kTile);
+  // grid.y holds the rows, at most kMaxGridY of them a launch: more rows take one
+  // launch per group of kMaxGridY
+  for (int64_t r0 = 0; r0 < n_rows; r0 += kMaxGridY) {
+    const dim3 grid(tiles, static_cast<unsigned>(std::min(n_rows - r0, kMaxGridY)));
+    const uint8_t* group = static_cast<const uint8_t*>(rows) + r0 * row_len;
+    unsigned long long* group_counts = static_cast<unsigned long long*>(counts) + r0;
+    if (near) {
+      ltu_counts_kernel<false><<<grid, kThreads, 0, st>>>(group, row_len, valid_len, offs,
+                                                          group_counts);
+    } else {
+      ltu_counts_kernel<true><<<grid, kThreads, 0, st>>>(group, row_len, valid_len, far,
+                                                         group_counts);
+    }
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
   }
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // The BC3 kernels of the BC3 DDS auto-transform and load path, for sm_90a.
 //
-// Built with bc1_kernels.cu by one nvcc call into one shared library with a plain
+// Built with the other sources by one nvcc call into one shared library with a plain
 // C interface (dxt_lossless_transform_tpu_torch/backend.py) and called through
 // ctypes. Every entry point launches on the stream it is given, allocates nothing
 // and returns cudaGetLastError(). The LTU count kernel that scores the BC3 regions
@@ -20,7 +20,7 @@
 //   [12n, 16n) colour-index words, u32 at 12n+4b
 // n may be any block count (odd, or 1); nothing is padded. The stream bases 2n and
 // 10n are only 2-byte aligned for odd n, so those streams are written as u16 and
-// bytes, never through a uint32_t pointer.
+// bytes, never through a uint32_t pointer (the alpha-section helpers of common.cuh).
 
 #include "common.cuh"
 
@@ -40,16 +40,8 @@ bc3_transform_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out, in
   const int64_t b = global_thread();
   if (b >= n) return;
   const uint4 blk = in[b];
-  if constexpr (SA) {
-    out[b] = static_cast<uint8_t>(blk.x & 0xFFu);
-    out[n + b] = static_cast<uint8_t>((blk.x >> 8) & 0xFFu);
-  } else {
-    reinterpret_cast<uint16_t*>(out)[b] = static_cast<uint16_t>(blk.x & 0xFFFFu);
-  }
-  uint16_t* idx = reinterpret_cast<uint16_t*>(out + 2 * n) + 3 * b;
-  idx[0] = static_cast<uint16_t>(blk.x >> 16);
-  idx[1] = static_cast<uint16_t>(blk.y & 0xFFFFu);
-  idx[2] = static_cast<uint16_t>(blk.y >> 16);
+  store_alpha_endpoints<SA>(out, n, b, blk.x);
+  store_alpha_index(out + 2 * n, b, blk.x, blk.y);
   const uint32_t d = decorrelate_pair<V>(blk.z);
   if constexpr (SC) {
     reinterpret_cast<uint16_t*>(out + 8 * n)[b] = static_cast<uint16_t>(d & 0xFFFFu);
@@ -69,15 +61,8 @@ __global__ void __launch_bounds__(kThreads)
 bc3_untransform_kernel(const uint8_t* __restrict__ in, uint4* __restrict__ out, int64_t n) {
   const int64_t b = global_thread();
   if (b >= n) return;
-  uint32_t ep;
-  if constexpr (SA) {
-    ep = static_cast<uint32_t>(in[b]) | (static_cast<uint32_t>(in[n + b]) << 8);
-  } else {
-    ep = reinterpret_cast<const uint16_t*>(in)[b];
-  }
-  const uint16_t* idx = reinterpret_cast<const uint16_t*>(in + 2 * n) + 3 * b;
-  const uint32_t w0 = ep | (static_cast<uint32_t>(idx[0]) << 16);
-  const uint32_t w1 = static_cast<uint32_t>(idx[1]) | (static_cast<uint32_t>(idx[2]) << 16);
+  const uint32_t ep = load_alpha_endpoints<SA>(in, n, b);
+  const uint2 alpha = load_alpha_section(in + 2 * n, b, ep);
   uint32_t d;
   if constexpr (SC) {
     d = static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(in + 8 * n)[b])
@@ -85,7 +70,7 @@ bc3_untransform_kernel(const uint8_t* __restrict__ in, uint4* __restrict__ out, 
   } else {
     d = reinterpret_cast<const uint32_t*>(in + 8 * n)[b];
   }
-  out[b] = make_uint4(w0, w1, recorrelate_pair<V>(d),
+  out[b] = make_uint4(alpha.x, alpha.y, recorrelate_pair<V>(d),
                       reinterpret_cast<const uint32_t*>(in + 12 * n)[b]);
 }
 
@@ -111,10 +96,9 @@ bc3_regions_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ alpha,
   for (int a = 0; a < n_alpha; ++a) {
     uint8_t* row = alpha + static_cast<int64_t>(a) * 2 * n;
     if ((alpha_code >> a) & 1u) {
-      row[b] = static_cast<uint8_t>(blk.x & 0xFFu);
-      row[n + b] = static_cast<uint8_t>((blk.x >> 8) & 0xFFu);
+      store_alpha_endpoints<true>(row, n, b, blk.x);
     } else {
-      reinterpret_cast<uint16_t*>(row)[b] = static_cast<uint16_t>(blk.x & 0xFFFFu);
+      store_alpha_endpoints<false>(row, n, b, blk.x);
     }
   }
   write_colour_rows(blk.z, colour, n, b, colour_code, n_colour);

@@ -1,6 +1,8 @@
-// Device code shared by the kernel sources (bc1_kernels.cu, bc3_kernels.cu): the
-// YCoCg-R colour-pair arithmetic, the launch shape and the writer of the candidate
-// colour regions that the BC1 and BC3 region kernels both build.
+// Device code shared by the kernel sources (bc1_kernels.cu, bc2_kernels.cu,
+// bc3_kernels.cu, bc45_kernels.cu): the YCoCg-R colour-pair arithmetic, the launch
+// shape, the writer of the candidate colour regions that the BC1, BC2 and BC3
+// region kernels build, and the loads and stores of the 8-byte alpha section that
+// BC3, BC4 and BC5 blocks share.
 //
 // Everything here has internal linkage, so each source gets its own copy and the
 // one shared library links without clashes.
@@ -93,6 +95,53 @@ __device__ __forceinline__ void write_colour_rows(uint32_t col, uint8_t* out, in
       reinterpret_cast<uint32_t*>(row)[b] = d;
     }
   }
+}
+
+// ---- the 8-byte alpha section: a0, a1, then 6 bytes of 3-bit indices ---------------
+// Read as two u32 words: w0 = a0 | a1 << 8 | index bytes 0-1 << 16, w1 = index
+// bytes 2-5. It is the alpha half of a BC3 block and a whole BC4 block; a BC5 block
+// is two of them. Transformed (dxt_lossless_transform_tpu/oracle/bc4.py), the
+// endpoints of block b go to an endpoint stream as a0 | a1 << 8 u16 at 2b, or,
+// split, a0 at b and a1 at n+b; its index bytes go to an index stream at 6b. Those
+// streams start at offsets such as 2n or 10n, which are only 2-byte aligned for odd
+// n (and n, 3n only 1-byte aligned), so these helpers store u16 and bytes, never
+// through a uint32_t pointer.
+template <bool SPLIT>
+__device__ __forceinline__ void store_alpha_endpoints(uint8_t* out, int64_t n, int64_t b,
+                                                      uint32_t w0) {
+  if constexpr (SPLIT) {
+    out[b] = static_cast<uint8_t>(w0 & 0xFFu);
+    out[n + b] = static_cast<uint8_t>((w0 >> 8) & 0xFFu);
+  } else {
+    reinterpret_cast<uint16_t*>(out)[b] = static_cast<uint16_t>(w0 & 0xFFFFu);
+  }
+}
+
+template <bool SPLIT>
+__device__ __forceinline__ uint32_t load_alpha_endpoints(const uint8_t* in, int64_t n,
+                                                         int64_t b) {
+  if constexpr (SPLIT) {
+    return static_cast<uint32_t>(in[b]) | (static_cast<uint32_t>(in[n + b]) << 8);
+  } else {
+    return reinterpret_cast<const uint16_t*>(in)[b];
+  }
+}
+
+__device__ __forceinline__ void store_alpha_index(uint8_t* out, int64_t b, uint32_t w0,
+                                                  uint32_t w1) {
+  uint16_t* idx = reinterpret_cast<uint16_t*>(out) + 3 * b;
+  idx[0] = static_cast<uint16_t>(w0 >> 16);
+  idx[1] = static_cast<uint16_t>(w1 & 0xFFFFu);
+  idx[2] = static_cast<uint16_t>(w1 >> 16);
+}
+
+// The section's words (w0, w1) from its endpoints `ep` (a0 | a1 << 8) and the index
+// bytes of block b in the index stream at `in`.
+__device__ __forceinline__ uint2 load_alpha_section(const uint8_t* in, int64_t b,
+                                                    uint32_t ep) {
+  const uint16_t* idx = reinterpret_cast<const uint16_t*>(in) + 3 * b;
+  return make_uint2(ep | (static_cast<uint32_t>(idx[0]) << 16),
+                    static_cast<uint32_t>(idx[1]) | (static_cast<uint32_t>(idx[2]) << 16));
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
 """Typed errors of the ops layer (counterpart of ``dxt_lossless_transform_tpu/errors.py``,
-cut down to what BC1 and BC3 need), plus the error for a missing card.
+cut down to what BC1-BC5 need), plus the error for a missing card.
 
 Validation errors subclass :class:`ValueError` and auto-transform errors
 :class:`RuntimeError`, as in the reference package.
@@ -33,6 +33,21 @@ class Bc1ValidationError(ValidationError):
 class Bc3ValidationError(ValidationError):
     def __init__(self, length: int, divisor: int = 16, message: str = ""):
         super().__init__("BC3", length, divisor, message)
+
+
+class Bc2ValidationError(ValidationError):
+    def __init__(self, length: int, divisor: int = 16, message: str = ""):
+        super().__init__("BC2", length, divisor, message)
+
+
+class Bc4ValidationError(ValidationError):
+    def __init__(self, length: int, divisor: int = 8, message: str = ""):
+        super().__init__("BC4", length, divisor, message)
+
+
+class Bc5ValidationError(ValidationError):
+    def __init__(self, length: int, divisor: int = 16, message: str = ""):
+        super().__init__("BC5", length, divisor, message)
 
 
 class AutoTransformError(DltError, RuntimeError):

@@ -2,34 +2,57 @@
 
 Estimates are relative: the auto-search keeps the candidate with the smallest one.
 The auto-search scores a (C, L) uint8 tensor of candidate regions with
-:meth:`SizeEstimation.estimate_batch_device`, on the device the tensor lies on, so
-that the whole search stays there. Host-only estimators (zstd) come with a later
-slice of the port.
+:meth:`SizeEstimation.estimate_batch_device`. An estimator that scores on the device
+(:class:`~.ltu.LtuEstimation`) overrides it and scores the rows where they lie; the
+default copies the rows to the host and scores them there with
+:meth:`SizeEstimation.estimate_batch`, as the JAX package's auto-search does for a
+host-only estimator (its ``estimate_batch_device`` returns None).
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
 import torch
 
 
 class SizeEstimation:
-    """Base protocol for size estimators."""
+    """Base protocol for size estimators. A subclass defines :meth:`estimate` and
+    may override the batch methods."""
 
-    def estimate(self, data, device="cuda") -> int:
-        """Estimate the compressed size of ``data`` (bytes), computed on ``device``.
-        Lower is better."""
+    def max_compressed_size(self, len_bytes: int) -> int:
+        """Upper bound on the size of a compressed buffer (for preallocation)."""
         raise NotImplementedError
+
+    def estimate(self, data) -> int:
+        """Estimate the compressed size of ``data`` (bytes). Lower is better."""
+        raise NotImplementedError
+
+    def estimate_batch(self, regions: Sequence) -> list:
+        """Estimate several independent buffers: a loop over :meth:`estimate`."""
+        return [self.estimate(r) for r in regions]
 
     def estimate_batch_device(self, regions: torch.Tensor,
                               valid_len: int) -> torch.Tensor:
         """Scores of the rows of a (C, L) uint8 tensor, of which the first
-        ``valid_len`` bytes are real, as a (C,) tensor on ``regions.device``."""
-        raise NotImplementedError(
-            f"{type(self).__name__} does not score on the device")
+        ``valid_len`` bytes are real, as a (C,) tensor on ``regions.device``: int64
+        when every score is an integer, else float64.
+
+        This default copies each row's first ``valid_len`` bytes to the host and
+        scores them with :meth:`estimate_batch`."""
+        host = regions[:, :valid_len].cpu().numpy()
+        scores = np.asarray(self.estimate_batch([row.tobytes() for row in host]))
+        if scores.dtype.kind != "f" or np.array_equal(scores, np.round(scores)):
+            scores = scores.astype(np.int64)
+        return torch.from_numpy(scores).to(regions.device)
 
 
 class NoEstimation(SizeEstimation):
     """Always 0: the estimator of the manual-settings paths."""
+
+    def max_compressed_size(self, len_bytes: int) -> int:
+        return 0
 
     def estimate(self, data, device="cuda") -> int:
         return 0

@@ -12,7 +12,9 @@ i as a little-endian u32, i is worth ``weights[o]`` of the first offset
 ``offsets[o]`` (ascending) with i >= k and gram(i) == gram(i - k), and nothing when
 there is none. The count is the sum over i, as an exact int64: the TPU kernel
 summed in f32, which is exact only below 2**24. The entropy term and the score
-are computed outside the kernel (:mod:`.ltu`), as in the JAX package.
+are computed outside the kernel (:mod:`.ltu`), as in the JAX package. Any number
+of rows works: the C entry point launches the kernel once per 65,535 rows (its
+grid.y).
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from .. import backend
 MAX_OFFSET = 4096   # the near instantiation's backward halo
 MAX_OFFSETS = 32    # the near instantiation's offset table
 MAX_WEIGHT = 255    # |weight|, so that a block's sum fits 32 bits
-MAX_ROWS = 65535    # grid.y
 
 
 def byte_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -82,9 +83,8 @@ def ltu_counts(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
     if not backend.dispatch(rows):
         return ltu_counts_plain(rows, valid_len, offsets, weights)
     backend.require_cuda_tensor(rows, "ltu_counts", torch.uint8, align=1)
-    if any(abs(w) > MAX_WEIGHT for w in weights) or rows.shape[0] > MAX_ROWS:
-        raise ValueError(f"the kernel takes weights -{MAX_WEIGHT}..{MAX_WEIGHT} and at "
-                         f"most {MAX_ROWS} rows")
+    if any(abs(w) > MAX_WEIGHT for w in weights):
+        raise ValueError(f"the kernel takes weights -{MAX_WEIGHT}..{MAX_WEIGHT}")
     # an offset k counts only at positions i >= k, and i < valid_len - 3
     kept = [(k, w) for k, w in zip(offsets, weights) if k < valid_len - 3]
     offsets, weights = [k for k, _ in kept], [w for _, w in kept]

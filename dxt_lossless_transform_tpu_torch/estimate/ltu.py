@@ -70,6 +70,9 @@ class LtuEstimation(SizeEstimation):
     def __init__(self, offsets=DEFAULT_OFFSETS):
         self.offsets = tuple(offsets)
 
+    def max_compressed_size(self, len_bytes: int) -> int:
+        return 0  # no compression buffer needed
+
     def estimate(self, data, device: Union[str, torch.device] = "cuda") -> int:
         rows = backend.upload(data, backend.resolve_device(device))[None, :]
         return int(coverage_scores(rows, rows.shape[1], self.offsets)[0])

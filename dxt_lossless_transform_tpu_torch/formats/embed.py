@@ -1,13 +1,14 @@
 """The 4-byte transform header, written over the container magic.
 
-Counterpart of ``dxt_lossless_transform_tpu/formats/embed.py`` with BC1 and BC3
-packing (:94-110, :143-158). On disk it is one little-endian u32:
+Counterpart of ``dxt_lossless_transform_tpu/formats/embed.py`` with BC1-BC5
+packing (:94-110, :139-177). On disk it is one little-endian u32:
 
     bits 0-3:  transform format tag
-    bits 4-31: format-specific data; for BC1 and BC3:
+    bits 4-31: format-specific data; for BC1, BC2 and BC3:
                bits 0-1 header version (0), bit 2 split colour endpoints,
                bits 3-4 decorrelation variant (0=Variant1, 1=Variant2, 2=Variant3,
-               3=None), and for BC3 bit 5 split alpha endpoints
+               3=None), and for BC3 bit 5 split alpha endpoints;
+               for BC4 and BC5: bits 0-1 header version (0), bit 2 split endpoints
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ import enum
 import struct
 from dataclasses import dataclass
 
-from ..settings import Bc1TransformSettings, Bc3TransformSettings, YCoCgVariant
+from ..settings import (
+    Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
+    Bc4TransformSettings, Bc5TransformSettings, YCoCgVariant,
+)
 from .errors import CorruptedEmbeddedData, UnknownTransformFormat
 
 TRANSFORM_HEADER_SIZE = 4
@@ -59,6 +63,13 @@ def _unpack_bc1_like(data: int) -> tuple:
     return _BITS_TO_VARIANT[(data >> 3) & 0x3], bool((data >> 2) & 1)
 
 
+def _unpack_split_endpoints(fmt: str, data: int) -> bool:
+    """BC4/BC5 -> split_endpoints; raises for a header version other than 0."""
+    if data & 0x3:
+        raise CorruptedEmbeddedData(f"unsupported {fmt} header version {data & 0x3}")
+    return bool((data >> 2) & 1)
+
+
 @dataclass(frozen=True)
 class TransformHeader:
     """A parsed 4-byte transform header."""
@@ -89,6 +100,13 @@ class TransformHeader:
         return Bc1TransformSettings(*_unpack_bc1_like(self.data))
 
     @staticmethod
+    def for_bc2(settings: Bc2TransformSettings) -> "TransformHeader":
+        return TransformHeader(TransformFormat.BC2, _pack_bc1_like(settings))
+
+    def bc2_settings(self) -> Bc2TransformSettings:
+        return Bc2TransformSettings(*_unpack_bc1_like(self.data))
+
+    @staticmethod
     def for_bc3(settings: Bc3TransformSettings) -> "TransformHeader":
         data = _pack_bc1_like(settings) | (int(settings.split_alpha_endpoints) << 5)
         return TransformHeader(TransformFormat.BC3, data)
@@ -96,3 +114,17 @@ class TransformHeader:
     def bc3_settings(self) -> Bc3TransformSettings:
         variant, split_colour = _unpack_bc1_like(self.data)
         return Bc3TransformSettings(variant, bool((self.data >> 5) & 1), split_colour)
+
+    @staticmethod
+    def for_bc4(settings: Bc4TransformSettings) -> "TransformHeader":
+        return TransformHeader(TransformFormat.BC4, int(settings.split_endpoints) << 2)
+
+    def bc4_settings(self) -> Bc4TransformSettings:
+        return Bc4TransformSettings(_unpack_split_endpoints("BC4", self.data))
+
+    @staticmethod
+    def for_bc5(settings: Bc5TransformSettings) -> "TransformHeader":
+        return TransformHeader(TransformFormat.BC5, int(settings.split_endpoints) << 2)
+
+    def bc5_settings(self) -> Bc5TransformSettings:
+        return Bc5TransformSettings(_unpack_split_endpoints("BC5", self.data))

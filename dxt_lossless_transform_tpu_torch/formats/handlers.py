@@ -1,6 +1,6 @@
 """Transform dispatch and the DDS handler (counterpart of
-``dxt_lossless_transform_tpu/formats/handlers.py:40-90`` and ``:123-175``, for BC1
-and BC3).
+``dxt_lossless_transform_tpu/formats/handlers.py:40-90`` and ``:123-175``, for
+BC1-BC5).
 
 Transform: copy the headers, transform the texture payload (every mip and surface in
 one call), copy trailing bytes, and write the 4-byte transform header over the DDS
@@ -14,7 +14,7 @@ from typing import Union
 
 import torch
 
-from ..ops import bc1 as ops_bc1, bc3 as ops_bc3
+from ..ops import bc1 as ops_bc1, bc2 as ops_bc2, bc3 as ops_bc3, bc45 as ops_bc45
 from .bundle import LATER_SLICE, TransformBundle
 from .dds import DDS_MAGIC, DdsFormat, parse_dds, parse_dds_ignore_magic
 from .embed import TRANSFORM_HEADER_SIZE, TransformFormat, TransformHeader
@@ -58,16 +58,25 @@ def dispatch_transform(fmt: TransformFormat, payload: bytes, bundle: TransformBu
     return bundle.dispatch_transform(fmt, payload, device)
 
 
+# format -> (untransform, the header's settings accessor)
+_UNTRANSFORM = {
+    TransformFormat.BC1: (ops_bc1.untransform, TransformHeader.bc1_settings),
+    TransformFormat.BC2: (ops_bc2.untransform, TransformHeader.bc2_settings),
+    TransformFormat.BC3: (ops_bc3.untransform, TransformHeader.bc3_settings),
+    TransformFormat.BC4: (ops_bc45.untransform_bc4, TransformHeader.bc4_settings),
+    TransformFormat.BC5: (ops_bc45.untransform_bc5, TransformHeader.bc5_settings),
+}
+
+
 def dispatch_untransform(header: TransformHeader, payload: bytes,
                          device: Union[str, torch.device] = "cuda") -> bytes:
     """Decode the settings from the header and run the untransform."""
-    if header.format not in (TransformFormat.BC1, TransformFormat.BC3):
+    if header.format not in _UNTRANSFORM:
         raise UnsupportedTransformFormat(header.format, LATER_SLICE)
     if len(payload) % _ALIGNMENT[header.format]:
         raise InvalidDataAlignment(len(payload), _ALIGNMENT[header.format])
-    if header.format == TransformFormat.BC1:
-        return ops_bc1.untransform(payload, header.bc1_settings(), device)
-    return ops_bc3.untransform(payload, header.bc3_settings(), device)
+    untransform, settings = _UNTRANSFORM[header.format]
+    return untransform(payload, settings(header), device)
 
 
 class DdsHandler:

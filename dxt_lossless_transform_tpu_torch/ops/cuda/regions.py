@@ -1,5 +1,6 @@
 """Candidate-region kernels (``dlt_bc1_regions`` in ``csrc/bc1_kernels.cu``,
-``dlt_bc3_regions`` in ``csrc/bc3_kernels.cu``) and their plain versions.
+``dlt_bc2_regions`` in ``csrc/bc2_kernels.cu``, ``dlt_bc3_regions`` in
+``csrc/bc3_kernels.cu``) and their plain versions.
 
 ``dlt_bc1_regions`` replaces ``dxt_lossless_transform_tpu/ops/pallas/regions.py:60``
 ``bc1_region_streams_tpu``. For BC1 blocks (uint8[8n]) and candidates
@@ -7,6 +8,13 @@
 that candidate c's transform writes at ``[0, 4n)``: the decorrelated colour words,
 or the c0 stream followed by the c1 stream with no gap. These are the rows that
 ``dxt_lossless_transform_tpu/ops/auto.py:bc1_candidate_regions`` builds, cut to 4n.
+
+``dlt_bc2_regions`` replaces ``:83`` ``bc2_region_streams_tpu``. For BC2 blocks
+(uint8[16n]) and distinct keys ``((variant, split), ...)``, row c of the uint8[K, 4n]
+result is the colour stream that key c's transform writes at ``[8n, 12n)``, built from
+word 2 of each block: the rows of
+``dxt_lossless_transform_tpu/ops/auto.py:bc2_candidate_regions`` cut to 4n, without
+repeats.
 
 ``dlt_bc3_regions`` replaces ``:114`` ``bc3_region_streams_tpu``. For BC3 blocks
 (uint8[16n]) it writes one alpha-endpoint row (uint8[2n], the bytes at ``[0, 2n)`` of
@@ -23,7 +31,7 @@ import torch
 
 from ... import backend
 from .. import ycocg
-from .shuffle import _check_blocks, write_colours
+from .shuffle import _check_blocks, write_colours, write_endpoints
 
 MAX_CANDIDATES = 8
 
@@ -73,6 +81,24 @@ def bc1_regions(x: torch.Tensor, candidates) -> torch.Tensor:
     return out
 
 
+def bc2_regions_plain(x: torch.Tensor, candidates) -> torch.Tensor:
+    return colour_rows_plain(x.view(torch.int32).view(-1, 4)[:, 2], candidates)
+
+
+def bc2_regions(x: torch.Tensor, candidates) -> torch.Tensor:
+    """BC2 blocks (uint8[16n]) -> uint8[K, 4n] colour regions, in key order."""
+    n = _check_blocks(x, "bc2_regions", 16)
+    cand = _check_candidates(candidates)
+    if not backend.dispatch(x):
+        return bc2_regions_plain(x, cand)
+    backend.require_cuda_tensor(x, "bc2_regions", torch.uint8, align=16)
+    out = torch.empty((len(cand), 4 * n), dtype=torch.uint8, device=x.device)
+    if n:
+        backend.launch("dlt_bc2_regions", x.device, x.data_ptr(), out.data_ptr(), n,
+                       candidate_code(cand), len(cand))
+    return out
+
+
 def _check_alpha_keys(alpha_keys) -> Tuple[bool, ...]:
     keys = tuple(bool(sa) for sa in alpha_keys)
     if not 0 < len(keys) <= 2 or len(set(keys)) != len(keys):
@@ -85,10 +111,7 @@ def bc3_regions_plain(x: torch.Tensor, alpha_keys, colour_keys):
     blocks = x.view(n, 16)
     alpha = torch.empty((len(alpha_keys), 2 * n), dtype=torch.uint8, device=x.device)
     for row, split in zip(alpha, alpha_keys):
-        if split:
-            row.view(2, n).copy_(blocks[:, :2].T)
-        else:
-            row.view(n, 2).copy_(blocks[:, :2])
+        write_endpoints(row, blocks, split)
     colour = colour_rows_plain(x.view(torch.int32).view(n, 4)[:, 2], colour_keys)
     return alpha, colour
 

@@ -1,10 +1,10 @@
-"""BC1 and BC3 transform settings and the auto-search candidate sets.
+"""BC1-BC5 transform settings and the auto-search candidate sets.
 
-Counterpart of ``dxt_lossless_transform_tpu/settings.py`` (``YCoCgVariant``,
-``Bc1TransformSettings``, ``Bc3TransformSettings`` and the BC1 and BC3 candidate
-tuples, :75-91 and :189-226), kept as this package's own copy so that the port
+Counterpart of ``dxt_lossless_transform_tpu/settings.py`` (``YCoCgVariant``, the
+``Bc1``-``Bc5TransformSettings`` dataclasses, :33-118, and the BC1, BC2 and BC3
+candidate tuples, :133-226), kept as this package's own copy so that the port
 imports nothing of the JAX package. The candidate orders are the reference's: the
-most likely winner comes last.
+most likely winner comes last, and ties go to the first minimum.
 """
 
 from __future__ import annotations
@@ -38,6 +38,21 @@ class Bc1TransformSettings:
 
 
 @dataclass(frozen=True)
+class Bc2TransformSettings:
+    """The knobs of BC1: the alpha half of a BC2 block is moved to its own stream
+    but never transformed."""
+
+    decorrelation_mode: YCoCgVariant = YCoCgVariant.VARIANT1
+    split_colour_endpoints: bool = True
+
+    @staticmethod
+    def all_combinations() -> Iterator["Bc2TransformSettings"]:
+        for mode in YCoCgVariant:
+            for split in (True, False):
+                yield Bc2TransformSettings(mode, split)
+
+
+@dataclass(frozen=True)
 class Bc3TransformSettings:
     """Decorrelation variant, and whether the alpha endpoints and the colour
     endpoints each go to two separate streams: 8 stream-layout families."""
@@ -52,6 +67,30 @@ class Bc3TransformSettings:
             for split_a in (True, False):
                 for split_c in (True, False):
                     yield Bc3TransformSettings(mode, split_a, split_c)
+
+
+@dataclass(frozen=True)
+class Bc4TransformSettings:
+    """Whether the u8 endpoint pair of a BC4 block goes to two separate streams."""
+
+    split_endpoints: bool = True
+
+    @staticmethod
+    def all_combinations() -> Iterator["Bc4TransformSettings"]:
+        for split in (True, False):
+            yield Bc4TransformSettings(split)
+
+
+@dataclass(frozen=True)
+class Bc5TransformSettings:
+    """Whether the u8 endpoint pairs of both BC5 channels go to separate streams."""
+
+    split_endpoints: bool = True
+
+    @staticmethod
+    def all_combinations() -> Iterator["Bc5TransformSettings"]:
+        for split in (True, False):
+            yield Bc5TransformSettings(split)
 
 
 BC1_FAST_CANDIDATES: Tuple[Bc1TransformSettings, ...] = (
@@ -71,6 +110,14 @@ BC1_COMPREHENSIVE_CANDIDATES: Tuple[Bc1TransformSettings, ...] = (
     Bc1TransformSettings(YCoCgVariant.VARIANT1, False),
     Bc1TransformSettings(YCoCgVariant.VARIANT1, True),
 )
+
+BC2_FAST_CANDIDATES: Tuple[Bc2TransformSettings, ...] = tuple(
+    Bc2TransformSettings(c.decorrelation_mode, c.split_colour_endpoints)
+    for c in BC1_FAST_CANDIDATES)
+
+BC2_COMPREHENSIVE_CANDIDATES: Tuple[Bc2TransformSettings, ...] = tuple(
+    Bc2TransformSettings(c.decorrelation_mode, c.split_colour_endpoints)
+    for c in BC1_COMPREHENSIVE_CANDIDATES)
 
 # (variant, split_alpha_endpoints, split_colour_endpoints)
 BC3_FAST_CANDIDATES: Tuple[Bc3TransformSettings, ...] = tuple(

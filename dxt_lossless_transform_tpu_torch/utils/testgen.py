@@ -1,7 +1,7 @@
-"""Deterministic BC1 and BC3 test data and DDS files.
+"""Deterministic BC1-BC5 test data and DDS files.
 
-This package's copy of the BC1 and BC3 parts of
-``dxt_lossless_transform_tpu/utils/testgen.py`` (:25-48, :61-73, :88-122, :144-183):
+This package's copy of the BC1-BC5 parts of
+``dxt_lossless_transform_tpu/utils/testgen.py`` (:25-73, :88-122, :144-183):
 the same seeds give the same bytes, which the tests check. ``chip_smoke.py`` uses
 it, since it cannot import the JAX package.
 """
@@ -18,9 +18,10 @@ _DDSD_WIDTH = 0x4
 _DDSD_PIXELFORMAT = 0x1000
 _DDSD_MIPMAPCOUNT = 0x20000
 _DDPF_FOURCC = 0x4
-_FOURCC = {"BC1": b"DXT1", "BC3": b"DXT5"}
-_DXGI = {"BC1": 71, "BC3": 77}
-_BLOCK_SIZE = {"BC1": 8, "BC3": 16}
+_FOURCC = {"BC1": b"DXT1", "BC2": b"DXT3", "BC3": b"DXT5", "BC4": b"BC4U",
+           "BC5": b"ATI2"}
+_DXGI = {"BC1": 71, "BC2": 74, "BC3": 77, "BC4": 80, "BC5": 83}
+_BLOCK_SIZE = {"BC1": 8, "BC2": 16, "BC3": 16, "BC4": 8, "BC5": 16}
 
 
 def from_rgb(r, g, b) -> np.ndarray:
@@ -58,6 +59,20 @@ def bc1_realistic(num_blocks: int, seed: int = 0) -> bytes:
     return words.tobytes()
 
 
+def bc2_realistic(num_blocks: int, seed: int = 0) -> bytes:
+    """BC2 blocks: the colour half of :func:`bc1_realistic`, a few explicit-alpha
+    patterns in the lower alpha word and an opaque upper one."""
+    rng = np.random.default_rng(seed)
+    color_part = np.frombuffer(bc1_realistic(num_blocks, seed), dtype="<u4").reshape(-1, 2)
+    words = np.empty((num_blocks, 4), dtype="<u4")
+    alpha_patterns = rng.integers(0, 2**32, 4, dtype=np.uint32)
+    words[:, 0] = alpha_patterns[rng.integers(0, 4, num_blocks)]
+    words[:, 1] = 0xFFFFFFFF
+    words[:, 2] = color_part[:, 0]
+    words[:, 3] = color_part[:, 1]
+    return words.tobytes()
+
+
 def bc3_realistic(num_blocks: int, seed: int = 0) -> bytes:
     """BC3 blocks: the colour half of :func:`bc1_realistic`, mostly-opaque alpha
     endpoints and a few alpha-index patterns."""
@@ -74,13 +89,16 @@ def bc3_realistic(num_blocks: int, seed: int = 0) -> bytes:
     return words.tobytes()
 
 
-_REALISTIC = {"BC1": bc1_realistic, "BC3": bc3_realistic}
+# BC4 and BC5 payloads are uniform-random blocks, as in the reference
+_REALISTIC = {"BC1": bc1_realistic, "BC2": bc2_realistic, "BC3": bc3_realistic,
+              "BC4": lambda n, seed: bc_blocks(n, 8, seed),
+              "BC5": lambda n, seed: bc_blocks(n, 16, seed)}
 
 
 def _check_format(fmt: str) -> None:
     if fmt not in _FOURCC:
         raise ValueError(f"unsupported synthetic format {fmt}: this package makes "
-                         f"{' and '.join(_FOURCC)}")
+                         f"{', '.join(_FOURCC)}")
 
 
 def _chain_blocks(width: int, height: int, mipmaps: int) -> int:
@@ -98,8 +116,8 @@ def _flags(mipmaps: int) -> int:
 
 def make_dds(fmt: str, width: int, height: int, mipmaps: int = 1, seed: int = 0,
              realistic: bool = True, trailing: bytes = b"") -> bytes:
-    """A legacy-header BC1 (DXT1) or BC3 (DXT5) DDS file whose payload covers the
-    whole mip chain."""
+    """A legacy-header BC1 (DXT1), BC2 (DXT3), BC3 (DXT5), BC4 (BC4U) or BC5 (ATI2)
+    DDS file whose payload covers the whole mip chain."""
     _check_format(fmt)
     n = _chain_blocks(width, height, mipmaps)
     payload = (_REALISTIC[fmt](n, seed) if realistic
@@ -116,7 +134,7 @@ def make_dds(fmt: str, width: int, height: int, mipmaps: int = 1, seed: int = 0,
 def make_dx10_dds(fmt: str, width: int, height: int, mipmaps: int = 1,
                   seed: int = 0, trailing: bytes = b"",
                   payload: bytes = None) -> bytes:
-    """A DX10-header BC1 or BC3 DDS file (payload at 0x94)."""
+    """A DX10-header BC1-BC5 DDS file (payload at 0x94)."""
     _check_format(fmt)
     n = _chain_blocks(width, height, mipmaps)
     if payload is None:

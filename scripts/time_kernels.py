@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the BC1-path kernels of a checkout of the PyTorch port on one card, in a
-fresh process, so that two versions of the port can be compared in turns within
-one call (parent, change, change, parent).
+"""Time the BC1- and BC3-path kernels and files of a checkout of the PyTorch port
+on one card, in a fresh process, so that two versions of the port can be compared
+in turns within one call (parent, change, change, parent).
 
     python3 scripts/time_kernels.py [--root DIR] [--iters N]
 
@@ -11,7 +11,12 @@ package to time (default: this checkout). On the 4096x4096 BC1 file of
 ``dlt_bc1_untransform`` (variant 1, split), ``dlt_bc1_regions`` and
 ``dlt_ltu_counts`` with the default offsets on the 8 COMPREHENSIVE colour rows:
 CUDA-event medians of N launches, the 50 MB L2 flushed before each, as
-``chip_smoke.py`` times them. Prints the ``nvidia-smi`` line and one JSON object.
+``chip_smoke.py`` times them. On the 4096x4096 BC3 file it times
+``dlt_bc3_transform`` and ``dlt_bc3_untransform`` (variant 1, split alpha, split
+colour) and ``dlt_bc3_regions`` (COMPREHENSIVE). For both files it takes the host
+wall time of the whole FAST auto-transform of the file through ``DdsHandler`` and of
+its untransform (medians of 5, ``file_s``). Prints the ``nvidia-smi`` line and one
+JSON object.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 
 def main() -> int:
@@ -41,11 +47,24 @@ def main() -> int:
         DEFAULT_OFFSETS, offset_weight,
     )
     from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
-    from dxt_lossless_transform_tpu_torch.settings import BC1_COMPREHENSIVE_CANDIDATES
+    from dxt_lossless_transform_tpu_torch.api import (
+        Bc1AutoTransformBuilder, Bc3AutoTransformBuilder,
+    )
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+    from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
+    from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
+    from dxt_lossless_transform_tpu_torch.ops import auto
+    from dxt_lossless_transform_tpu_torch.settings import (
+        BC1_COMPREHENSIVE_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES,
+    )
     from dxt_lossless_transform_tpu_torch.utils.testgen import make_dds
 
     dev = torch.device("cuda", 0)
-    x = backend.upload(make_dds("BC1", 4096, 4096, 13, seed=7)[0x80:], dev)
+    dds = {fmt: make_dds(fmt, 4096, 4096, 13, seed=7) for fmt in ("BC1", "BC3")}
+    x = backend.upload(dds["BC1"][0x80:], dev)
+    x3 = backend.upload(dds["BC3"][0x80:], dev)
+    alpha_keys, colour_keys, _, _ = auto.bc3_keys(BC3_COMPREHENSIVE_CANDIDATES)
+    t3 = shuffle.bc3_transform(x3, 1, True, True)
     n = x.numel() // 8
     key = tuple((int(c.decorrelation_mode), c.split_colour_endpoints)
                 for c in BC1_COMPREHENSIVE_CANDIDATES)
@@ -74,13 +93,38 @@ def main() -> int:
         "dlt_bc1_untransform": event_ms(lambda: shuffle.bc1_untransform(t, 1, True)),
         "dlt_bc1_regions": event_ms(lambda: regions.bc1_regions(x, key)),
         "dlt_ltu_counts": event_ms(lambda: cuda_ltu.ltu_counts(rows, 4 * n, ks, ws)),
+        "dlt_bc3_transform": event_ms(lambda: shuffle.bc3_transform(x3, 1, True, True)),
+        "dlt_bc3_untransform": event_ms(
+            lambda: shuffle.bc3_untransform(t3, 1, True, True)),
+        "dlt_bc3_regions": event_ms(
+            lambda: regions.bc3_regions(x3, alpha_keys, colour_keys)),
     }
+    handler = DdsHandler()
+    bundles = {"BC1": TransformBundle(bc1=Bc1AutoTransformBuilder(LtuEstimation())),
+               "BC3": TransformBundle(bc3=Bc3AutoTransformBuilder(LtuEstimation()))}
+
+    def wall_s(fn) -> float:
+        fn()
+        times = []
+        for _ in range(5):
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        return statistics.median(times)
+
+    file_s = {}
+    for fmt, data in dds.items():
+        out = handler.transform_bundle(data, bundles[fmt])
+        file_s[f"{fmt}_transform_fast"] = wall_s(
+            lambda: handler.transform_bundle(data, bundles[fmt]))
+        file_s[f"{fmt}_untransform"] = wall_s(lambda: handler.untransform(out))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(json.dumps({"root": args.root, "library": backend.library_path().name,
-                      "iters": args.iters, "ms": ms}))
+                      "iters": args.iters, "ms": ms, "file_s": file_s}))
     return 0
 
 

@@ -1,40 +1,51 @@
 """Reference constants for the PyTorch port's chip smoke run (``chip_smoke.py``).
 
-Builds the smoke run's BC1 and BC3 DDS files (4096x4096, full 13-level mip chain,
-seed below) with the JAX package's ``utils.testgen.make_dds`` and prints, for each
-format and for the FAST and the COMPREHENSIVE candidates: the exact integer LTU
-score of each candidate (the numpy twin ``estimate.ltu._coverage_score_np``; for
-BC1 on each candidate's colour region, for BC3 the sum over its alpha-endpoint
-region and its colour region, as ``ops/auto.py:transform_bc3_auto`` scores them),
-the pick (first minimum), and the sha256 of the file that the JAX package's
-``DdsHandler`` writes with that pick through its manual builder. Runs on the CPU:
+Builds the smoke run's BC1-BC5 DDS files (4096x4096, full 13-level mip chain, seed
+below) with the JAX package's ``utils.testgen.make_dds`` and prints, for each
+format and candidate set (FAST and COMPREHENSIVE for BC1-BC3; BC4 and BC5 have one,
+``split_endpoints`` true then false): the exact integer LTU score of each candidate
+(the numpy twin ``estimate.ltu._coverage_score_np``; for BC1 and BC2 on each
+candidate's colour region, for BC3 the sum over its alpha-endpoint region and its
+colour region, as ``ops/auto.py`` scores them, for BC4 and BC5 on its endpoint
+streams, as ``ops/bc45.py`` does), the pick (first minimum), and the sha256 of the
+file that the JAX package's ``DdsHandler`` writes with that pick through its manual
+builder. For BC2, BC4 and BC5 it also runs the JAX package's own auto-search on
+the payload and prints whether its pick agrees (``jax_pick_agrees``): above 2**24
+its device scorer sums in f32, so it may differ on a near tie. Runs on the CPU:
 
-    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py [--formats BC2 BC4]
 """
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from dxt_lossless_transform_tpu.api import (  # noqa: E402
-    Bc1ManualTransformBuilder, Bc3ManualTransformBuilder,
+    Bc1ManualTransformBuilder, Bc2ManualTransformBuilder, Bc3ManualTransformBuilder,
+    Bc4ManualTransformBuilder, Bc5ManualTransformBuilder,
 )
+from dxt_lossless_transform_tpu.estimate.ltu import LtuEstimation  # noqa: E402
 from dxt_lossless_transform_tpu.estimate.ltu import (  # noqa: E402
     DEFAULT_OFFSETS, _coverage_score_np,
 )
 from dxt_lossless_transform_tpu.formats.bundle import TransformBundle  # noqa: E402
 from dxt_lossless_transform_tpu.formats.handlers import DdsHandler  # noqa: E402
+from dxt_lossless_transform_tpu.ops import auto as jax_auto, bc45 as jax_bc45  # noqa: E402
 from dxt_lossless_transform_tpu.ops.auto import _host_colour_regions  # noqa: E402
+from dxt_lossless_transform_tpu.oracle.bc4 import _ep_streams  # noqa: E402
 from dxt_lossless_transform_tpu.settings import (  # noqa: E402
-    BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES,
-    BC3_FAST_CANDIDATES,
+    BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
+    BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
+    Bc4TransformSettings, Bc5TransformSettings,
 )
 from dxt_lossless_transform_tpu.utils.testgen import make_dds  # noqa: E402
 
@@ -45,14 +56,29 @@ def _score(row: bytes) -> int:
     return int(_coverage_score_np(np.frombuffer(row, np.uint8), DEFAULT_OFFSETS))
 
 
+def _key(settings) -> list:
+    if hasattr(settings, "split_endpoints"):
+        return [settings.split_endpoints]
+    return ([int(settings.decorrelation_mode)]
+            + ([settings.split_alpha_endpoints]
+               if hasattr(settings, "split_alpha_endpoints") else [])
+            + [settings.split_colour_endpoints])
+
+
 def _pick(dds: bytes, cand, scores, bundle) -> dict:
     best = cand[int(np.argmin(scores))]
     out = DdsHandler().transform_bundle(dds, bundle(best))
-    return {"scores": scores,
-            "pick": [int(best.decorrelation_mode)]
-            + ([best.split_alpha_endpoints] if hasattr(best, "split_alpha_endpoints")
-               else []) + [best.split_colour_endpoints],
+    return {"scores": scores, "pick": _key(best),
             "sha256": hashlib.sha256(out).hexdigest()}
+
+
+def _jax_agrees(result: dict, search) -> None:
+    """Run the JAX package's own search; record its pick and whether it agrees."""
+    start = time.perf_counter()
+    _, settings = search()
+    result["jax_pick"] = _key(settings)
+    result["jax_pick_agrees"] = result["jax_pick"] == result["pick"]
+    result["jax_search_s"] = round(time.perf_counter() - start, 1)
 
 
 def bc1() -> dict:
@@ -97,8 +123,62 @@ def bc3() -> dict:
     return result
 
 
+def bc2() -> dict:
+    dds = make_dds("BC2", SIZE, SIZE, MIPS, seed=SEED)
+    payload = dds[0x80:]
+    colours = np.frombuffer(payload, "<u4").reshape(-1, 4)[:, 2].copy()
+    result = {"blocks": len(payload) // 16, "payload_bytes": len(payload),
+              "file_sha256": hashlib.sha256(dds).hexdigest()}
+    for name, cand in (("fast", BC2_FAST_CANDIDATES),
+                       ("comprehensive", BC2_COMPREHENSIVE_CANDIDATES)):
+        key = tuple((int(c.decorrelation_mode), c.split_colour_endpoints) for c in cand)
+        scores = [_score(r) for r in _host_colour_regions(colours, key)]
+        result[name] = _pick(dds, cand, scores, lambda best: TransformBundle(
+            bc2=Bc2ManualTransformBuilder(best)))
+        _jax_agrees(result[name], lambda: jax_auto.transform_bc2_auto(
+            payload, LtuEstimation(), name == "comprehensive"))
+    return result
+
+
+def bc45(fmt: str) -> dict:
+    dds = make_dds(fmt, SIZE, SIZE, MIPS, seed=SEED)
+    payload = dds[0x80:]
+    halves = np.frombuffer(payload, "<u2").reshape(-1, 4)
+    # BC4: one endpoint stream; BC5: red's then green's
+    eps = ([halves[:, 0].copy()] if fmt == "BC4"
+           else [halves[0::2, 0].copy(), halves[1::2, 0].copy()])
+    cls, manual, search = {
+        "BC4": (Bc4TransformSettings, Bc4ManualTransformBuilder,
+                jax_bc45.transform_bc4_auto),
+        "BC5": (Bc5TransformSettings, Bc5ManualTransformBuilder,
+                jax_bc45.transform_bc5_auto)}[fmt]
+    cand = tuple(cls.all_combinations())
+    scores = [_score(b"".join(_ep_streams(ep, c.split_endpoints) for ep in eps))
+              for c in cand]
+    block = 8 if fmt == "BC4" else 16
+    result = {"blocks": len(payload) // block, "payload_bytes": len(payload),
+              "file_sha256": hashlib.sha256(dds).hexdigest()}
+    result["auto"] = _pick(dds, cand, scores, lambda best: TransformBundle(
+        **{fmt.lower(): manual(best)}))
+    _jax_agrees(result["auto"], lambda: search(payload, LtuEstimation()))
+    return result
+
+
+FORMATS = {"BC1": bc1, "BC2": bc2, "BC3": bc3, "BC4": lambda: bc45("BC4"),
+           "BC5": lambda: bc45("BC5")}
+
+
 def main() -> None:
-    print(json.dumps({"bc1": bc1(), "bc3": bc3()}))
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--formats", nargs="+", default=list(FORMATS),
+                        choices=list(FORMATS))
+    args = parser.parse_args()
+    out = {}
+    for fmt in args.formats:
+        start = time.perf_counter()
+        out[fmt.lower()] = FORMATS[fmt]()
+        out[fmt.lower()]["seconds"] = round(time.perf_counter() - start, 1)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ from dxt_lossless_transform_tpu.utils.testgen import bc1_realistic
 from dxt_lossless_transform_tpu_torch import convert
 from dxt_lossless_transform_tpu_torch.errors import AutoTransformError, Bc1ValidationError
 from dxt_lossless_transform_tpu_torch.estimate.base import NoEstimation, SizeEstimation
-from dxt_lossless_transform_tpu_torch.ops import auto
+from dxt_lossless_transform_tpu_torch.ops import auto, bc1
 
 EXPLICIT = (
     Bc1TransformSettings(YCoCgVariant.VARIANT3, True),
@@ -95,12 +95,16 @@ def test_estimator_failure_is_an_auto_transform_error():
 
 
 def test_empty_and_bad_lengths():
+    """An unaligned input of at least one block is an auto-transform error; the
+    manual transform keeps its validation error."""
     out, s = auto.transform_bc1_auto(b"", NoEstimation(), device="cpu")
     assert out == b"" and s == convert.from_reference(BC1_FAST_CANDIDATES[-1])
-    with pytest.raises(Bc1ValidationError):
+    with pytest.raises(AutoTransformError):
         auto.transform_bc1_auto(bytes(12), NoEstimation(), device="cpu")
-    with pytest.raises(Bc1ValidationError):
+    with pytest.raises(AutoTransformError):
         auto.transform_bc1_auto(bytes(9), NoEstimation(), device="cpu")
+    with pytest.raises(Bc1ValidationError):
+        bc1.transform(bytes(12), device="cpu")
 
 
 @pytest.mark.parametrize("size", range(0, 8))

@@ -22,7 +22,7 @@ from dxt_lossless_transform_tpu.utils.testgen import bc3_realistic
 from dxt_lossless_transform_tpu_torch import convert
 from dxt_lossless_transform_tpu_torch.errors import AutoTransformError, Bc3ValidationError
 from dxt_lossless_transform_tpu_torch.estimate.base import NoEstimation, SizeEstimation
-from dxt_lossless_transform_tpu_torch.ops import auto
+from dxt_lossless_transform_tpu_torch.ops import auto, bc3
 from dxt_lossless_transform_tpu_torch.ops.cuda import regions
 
 EXPLICIT = (
@@ -170,8 +170,11 @@ def test_inputs_shorter_than_a_block_match_jax(size):
 
 @pytest.mark.parametrize("size", [17, 24, 31, 1000])
 def test_longer_unaligned_inputs_raise(size):
-    with pytest.raises(Bc3ValidationError):
+    """An auto-transform error; the manual transform keeps its validation error."""
+    with pytest.raises(AutoTransformError, match="BC3"):
         auto.transform_bc3_auto(bytes(size), NoEstimation(), device="cpu")
+    with pytest.raises(Bc3ValidationError):
+        bc3.transform(bytes(size), device="cpu")
 
 
 def test_no_estimation_picks_the_first_candidate():

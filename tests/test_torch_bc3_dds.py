@@ -101,10 +101,13 @@ def test_bc3_without_its_builder_raises_as_jax():
 
 @pytest.mark.parametrize("fmt", ["BC2", "BC4", "BC5"])
 def test_later_slices_still_raise(fmt):
+    """BC2, BC4 and BC5 came with a later slice: a bundle without their builder
+    raises for want of the builder, no longer for want of the format."""
     data = jax_testgen.make_dds(fmt, 8, 8)
     bundle = TransformBundle(bc3=Bc3ManualTransformBuilder())
-    with pytest.raises(errors.NoBuilderForFormat, match="later slices"):
+    with pytest.raises(errors.NoBuilderForFormat) as info:
         DdsHandler("cpu").transform_bundle(data, bundle)
+    assert "later slices" not in str(info.value)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 12345])

@@ -1,4 +1,4 @@
-"""The seven CUDA kernels against their plain versions, on the card.
+"""The fourteen CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: without a CUDA device they skip. On a machine with one (and
 without JAX, which ``tests/conftest.py`` imports):
@@ -14,10 +14,12 @@ from dxt_lossless_transform_tpu_torch import backend
 from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
 from dxt_lossless_transform_tpu_torch.estimate.ltu import DEFAULT_OFFSETS, offset_weight
 from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
-from dxt_lossless_transform_tpu_torch.ops import auto
+from dxt_lossless_transform_tpu_torch.ops import auto, bc45
 from dxt_lossless_transform_tpu_torch.settings import (
-    BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES,
-    BC3_FAST_CANDIDATES, Bc1TransformSettings, Bc3TransformSettings,
+    BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
+    BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
+    Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
+    Bc4TransformSettings, Bc5TransformSettings,
 )
 
 pytestmark = pytest.mark.cuda
@@ -26,6 +28,9 @@ SETTINGS = list(Bc1TransformSettings.all_combinations())
 BC3_SETTINGS = list(Bc3TransformSettings.all_combinations())
 SIZES = [1, 3, 255, 257, 2048, 100003]
 BC3_SIZES = [1, 2, 3, 5, 2047, 2049, 100003]
+BC2_SETTINGS = list(Bc2TransformSettings.all_combinations())
+# the sizes of the CPU tests against the JAX package, odd n included
+SLICE3_SIZES = [1, 2, 3, 5, 2047, 2049, 70000]
 # offsets beyond the 4096-byte halo, and a 40-offset ladder (the far instantiation)
 FAR_OFFSETS = (1, 2, 4096, 4097, 8192, 65536)
 LADDER_40 = tuple(sorted(set(DEFAULT_OFFSETS) | {
@@ -140,6 +145,84 @@ def test_scorer_kernel_far_and_many_offsets(cuda, ks, length):
                        cuda_ltu.ltu_counts_plain(rows, length, ks, neg))
 
 
+@pytest.mark.parametrize("n", SLICE3_SIZES)
+@pytest.mark.parametrize("s", BC2_SETTINGS, ids=str)
+def test_bc2_shuffle_kernels(cuda, s, n):
+    x = _blocks(n, cuda, 16)
+    v, sp = int(s.decorrelation_mode), s.split_colour_endpoints
+    t = shuffle.bc2_transform(x, v, sp)
+    assert torch.equal(t, shuffle.bc2_transform_plain(x, v, sp))
+    u = shuffle.bc2_untransform(t, v, sp)
+    assert torch.equal(u, shuffle.bc2_untransform_plain(t, v, sp))
+    assert torch.equal(u, x)
+
+
+@pytest.mark.parametrize("n", SLICE3_SIZES)
+@pytest.mark.parametrize("cand", [BC2_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES],
+                         ids=["fast", "comprehensive"])
+def test_bc2_regions_kernel(cuda, cand, n):
+    x = _blocks(n, cuda, 16)
+    keys, _ = auto.colour_keys(cand)
+    rows = regions.bc2_regions(x, keys)
+    assert torch.equal(rows, regions.bc2_regions_plain(x, keys))
+    ks = sorted(DEFAULT_OFFSETS)
+    ws = [offset_weight(k) for k in ks]
+    assert torch.equal(cuda_ltu.ltu_counts(rows, 4 * n, ks, ws),
+                       cuda_ltu.ltu_counts_plain(rows, 4 * n, ks, ws))
+
+
+@pytest.mark.parametrize("n", SLICE3_SIZES)
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("fmt", ["BC4", "BC5"])
+def test_bc45_shuffle_kernels(cuda, fmt, split, n):
+    size = 8 if fmt == "BC4" else 16
+    kernels = {"BC4": (shuffle.bc4_transform, shuffle.bc4_transform_plain,
+                       shuffle.bc4_untransform, shuffle.bc4_untransform_plain),
+               "BC5": (shuffle.bc5_transform, shuffle.bc5_transform_plain,
+                       shuffle.bc5_untransform, shuffle.bc5_untransform_plain)}[fmt]
+    t_kernel, t_plain, u_kernel, u_plain = kernels
+    x = _blocks(n, cuda, size)
+    t = t_kernel(x, split)
+    assert torch.equal(t, t_plain(x, split))
+    u = u_kernel(t, split)
+    assert torch.equal(u, u_plain(t, split))
+    assert torch.equal(u, x)
+
+
+@pytest.mark.parametrize("fmt", ["BC4", "BC5"])
+def test_bc45_auto_on_the_card(cuda, fmt):
+    """The search's scores on the card equal those of its plain versions on the
+    CPU, and so do the pick and the bytes."""
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+
+    size, ep, search, kernel = {
+        "BC4": (8, 2, bc45.transform_bc4_auto, shuffle.bc4_transform),
+        "BC5": (16, 4, bc45.transform_bc5_auto, shuffle.bc5_transform)}[fmt]
+    n = 30001
+    data = _blocks(n, "cpu", size).numpy().tobytes()
+    assert search(data, LtuEstimation()) == search(data, LtuEstimation(), device="cpu")
+    cand = (Bc4TransformSettings if fmt == "BC4" else Bc5TransformSettings
+            ).all_combinations()
+    cand = tuple(cand)
+    on_card, _ = bc45.endpoint_scores(fmt, _blocks(n, cuda, size), LtuEstimation(), cand,
+                                      ep * n, kernel)
+    on_cpu, _ = bc45.endpoint_scores(fmt, _blocks(n, "cpu", size), LtuEstimation(),
+                                     cand, ep * n, kernel)
+    assert on_card.tolist() == on_cpu.tolist()
+
+
+def test_counts_of_more_rows_than_grid_y(cuda):
+    """70,000 rows: the entry point launches once per 65,535 of them."""
+    rng = np.random.default_rng(70000)
+    rows = torch.from_numpy(rng.integers(0, 3, (70000, 12), np.uint8)).to(cuda)
+    ks = sorted(DEFAULT_OFFSETS)
+    ws = [offset_weight(k) for k in ks]
+    backend.reset_launch_counts()
+    counts = cuda_ltu.ltu_counts(rows, 12, ks, ws)
+    assert backend.LAUNCHES["dlt_ltu_counts"] == 1
+    assert torch.equal(counts, cuda_ltu.ltu_counts_plain(rows, 12, ks, ws))
+
+
 def test_each_wrapper_counts_its_launches(cuda):
     x = _blocks(64, cuda)
     backend.reset_launch_counts()
@@ -150,11 +233,19 @@ def test_each_wrapper_counts_its_launches(cuda):
     t3 = shuffle.bc3_transform(x, 1, True, False)
     shuffle.bc3_untransform(t3, 1, True, False)
     regions.bc3_regions(x, (True,), ((1, True),))
+    t2 = shuffle.bc2_transform(x, 1, True)
+    shuffle.bc2_untransform(t2, 1, True)
+    regions.bc2_regions(x, ((1, True),))
+    shuffle.bc4_untransform(shuffle.bc4_transform(x, True), True)
+    shuffle.bc5_untransform(shuffle.bc5_transform(x, False), False)
     torch.cuda.synchronize()
     assert backend.LAUNCHES == {"dlt_bc1_transform": 1, "dlt_bc1_untransform": 1,
                                 "dlt_bc1_regions": 1, "dlt_ltu_counts": 1,
                                 "dlt_bc3_transform": 1, "dlt_bc3_untransform": 1,
-                                "dlt_bc3_regions": 1}
+                                "dlt_bc3_regions": 1, "dlt_bc2_transform": 1,
+                                "dlt_bc2_untransform": 1, "dlt_bc2_regions": 1,
+                                "dlt_bc4_transform": 1, "dlt_bc4_untransform": 1,
+                                "dlt_bc5_transform": 1, "dlt_bc5_untransform": 1}
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -169,6 +260,13 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         shuffle.bc3_transform(torch.zeros(40, dtype=torch.uint8, device=cuda)[8:], 0,
                               False, False)
+    with pytest.raises(ValueError):
+        shuffle.bc2_transform(torch.zeros(40, dtype=torch.uint8, device=cuda)[8:], 0,
+                              False)
+    with pytest.raises(ValueError):
+        shuffle.bc5_transform(torch.zeros(40, dtype=torch.uint8, device=cuda)[8:], True)
+    with pytest.raises(ValueError):
+        shuffle.bc4_transform(torch.zeros(20, dtype=torch.uint8, device=cuda)[4:], True)
 
 
 def test_short_inputs_on_the_card(cuda):
@@ -181,3 +279,10 @@ def test_short_inputs_on_the_card(cuda):
     for size in range(1, 8):
         assert auto.transform_bc1_auto(bytes(size), LtuEstimation()) == \
             (b"", BC1_FAST_CANDIDATES[-1])
+        assert bc45.transform_bc4_auto(bytes(size), LtuEstimation()) == \
+            (b"", Bc4TransformSettings(False))
+    for size in range(1, 16):
+        assert auto.transform_bc2_auto(bytes(size), LtuEstimation()) == \
+            (b"", BC2_FAST_CANDIDATES[-1])
+        assert bc45.transform_bc5_auto(bytes(size), LtuEstimation()) == \
+            (b"", Bc5TransformSettings(False))

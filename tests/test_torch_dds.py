@@ -98,12 +98,13 @@ def test_non_bc1_dds_raises_as_jax(fmt):
 
 
 def test_non_bc1_header_is_unsupported_on_untransform():
-    """A format of a later slice (BC2 here; BC3 is ported) raises on untransform."""
-    data = jax_testgen.make_dds("BC2", 8, 8)
-    from dxt_lossless_transform_tpu.api import Bc2ManualTransformBuilder
+    """A format of a later slice (BC7 here; BC2-BC5 are ported) raises on
+    untransform."""
+    data = jax_testgen.make_dx10_dds("BC7", 8, 8)
+    from dxt_lossless_transform_tpu.api import Bc7ManualTransformBuilder
 
     transformed = JaxHandler().transform_bundle(
-        data, JaxBundle(bc2=Bc2ManualTransformBuilder()))
+        data, JaxBundle(bc7=Bc7ManualTransformBuilder()))
     with pytest.raises(errors.UnsupportedTransformFormat, match="later slice"):
         DdsHandler("cpu").untransform(transformed)
 

@@ -16,15 +16,17 @@ from dxt_lossless_transform_tpu.settings import (
 )
 from dxt_lossless_transform_tpu_torch import backend, convert, settings
 from dxt_lossless_transform_tpu_torch.api import (
-    Bc1AutoTransformBuilder, Bc1ManualTransformBuilder, Bc3AutoTransformBuilder,
-    Bc3ManualTransformBuilder,
+    Bc1AutoTransformBuilder, Bc1ManualTransformBuilder, Bc2AutoTransformBuilder,
+    Bc2ManualTransformBuilder, Bc3AutoTransformBuilder, Bc3ManualTransformBuilder,
+    Bc4AutoTransformBuilder, Bc4ManualTransformBuilder, Bc5AutoTransformBuilder,
+    Bc5ManualTransformBuilder,
 )
 from dxt_lossless_transform_tpu_torch.errors import DeviceUnavailableError
 from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
 from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
 from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
 from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
-from dxt_lossless_transform_tpu_torch.ops import auto, bc1, bc3
+from dxt_lossless_transform_tpu_torch.ops import auto, bc1, bc2, bc3, bc45
 from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
 from dxt_lossless_transform_tpu_torch.utils import testgen
 
@@ -53,7 +55,8 @@ def test_scan_covers_the_package():
     assert {"backend.py", "ops/cuda/shuffle.py", "ops/cuda/regions.py",
             "estimate/cuda_ltu.py", "formats/handlers.py", "api.py", "ops/bc3.py",
             "ops/auto.py", "formats/bundle.py", "formats/embed.py", "convert.py",
-            "settings.py", "errors.py", "utils/testgen.py"} <= names
+            "settings.py", "errors.py", "utils/testgen.py", "ops/bc2.py",
+            "ops/bc45.py"} <= names
 
 
 def test_import_builds_nothing_and_imports_no_triton():
@@ -107,6 +110,28 @@ ENTRY_POINTS = {
     "DdsHandler.untransform bc3": lambda: DdsHandler().untransform(
         DdsHandler("cpu").transform_bundle(
             DDS3, TransformBundle(bc3=Bc3ManualTransformBuilder()))),
+    "bc2.transform": lambda: bc2.transform(DATA),
+    "bc2.untransform": lambda: bc2.untransform(DATA),
+    "auto.transform_bc2_auto": lambda: auto.transform_bc2_auto(DATA, LtuEstimation()),
+    "bc2 manual builder": lambda: Bc2ManualTransformBuilder().transform(DATA),
+    "bc2 auto builder": lambda: Bc2AutoTransformBuilder(LtuEstimation()).transform(DATA),
+    "bc45.transform_bc4": lambda: bc45.transform_bc4(DATA),
+    "bc45.untransform_bc4": lambda: bc45.untransform_bc4(DATA),
+    "bc45.transform_bc4_auto": lambda: bc45.transform_bc4_auto(DATA, LtuEstimation()),
+    "bc4 manual builder": lambda: Bc4ManualTransformBuilder().transform(DATA),
+    "bc4 auto builder": lambda: Bc4AutoTransformBuilder(LtuEstimation()).transform(DATA),
+    "bc45.transform_bc5": lambda: bc45.transform_bc5(DATA),
+    "bc45.untransform_bc5": lambda: bc45.untransform_bc5(DATA),
+    "bc45.transform_bc5_auto": lambda: bc45.transform_bc5_auto(DATA, LtuEstimation()),
+    "bc5 manual builder": lambda: Bc5ManualTransformBuilder().transform(DATA),
+    "bc5 auto builder": lambda: Bc5AutoTransformBuilder(LtuEstimation()).transform(DATA),
+    "DdsHandler.transform_bundle bc2": lambda: DdsHandler().transform_bundle(
+        testgen.make_dds("BC2", 16, 16), TransformBundle(
+            bc2=Bc2AutoTransformBuilder(LtuEstimation()))),
+    "DdsHandler.untransform bc5": lambda: DdsHandler().untransform(
+        DdsHandler("cpu").transform_bundle(testgen.make_dds("BC5", 16, 16),
+                                           TransformBundle(
+                                               bc5=Bc5ManualTransformBuilder()))),
 }
 
 
@@ -129,6 +154,14 @@ def test_cpu_tensors_take_the_plain_versions():
     t3 = shuffle.bc3_transform(x, 2, True, True)
     assert torch.equal(shuffle.bc3_untransform(t3, 2, True, True), x)
     regions.bc3_regions(x, (True, False), ((1, True), (0, False)))
+    t2 = shuffle.bc2_transform(x, 3, True)
+    assert torch.equal(shuffle.bc2_untransform(t2, 3, True), x)
+    regions.bc2_regions(x, ((2, False), (0, True)))
+    for split in (True, False):
+        assert torch.equal(shuffle.bc4_untransform(shuffle.bc4_transform(x, split),
+                                                   split), x)
+        assert torch.equal(shuffle.bc5_untransform(shuffle.bc5_transform(x, split),
+                                                   split), x)
     assert all(count == 0 for count in backend.LAUNCHES.values())
 
 
@@ -149,7 +182,8 @@ def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
     path = backend.library_path()
     assert path.parent == REPO / "build" / "cuda"
     assert path.name.startswith("libdlt_kernels_") and path.suffix == ".so"
-    assert [p.name for p in backend.sources()] == ["bc1_kernels.cu", "bc3_kernels.cu"]
+    assert [p.name for p in backend.sources()] == ["bc1_kernels.cu", "bc2_kernels.cu",
+                                                   "bc3_kernels.cu", "bc45_kernels.cu"]
     # every source and header is in the hash
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -157,7 +191,7 @@ def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
         (csrc / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(backend, "CSRC", csrc)
     assert backend.library_path() == path
-    for name in ("common.cuh", "bc3_kernels.cu"):
+    for name in ("common.cuh", "bc3_kernels.cu", "bc2_kernels.cu", "bc45_kernels.cu"):
         (csrc / name).write_bytes((csrc / name).read_bytes() + b"\n")
         changed = backend.library_path()
         assert changed != path
@@ -176,8 +210,23 @@ def test_convert_bc3_from_reference():
         list(settings.Bc3TransformSettings.all_combinations())
     assert convert.from_reference(jax_settings.Bc3TransformSettings()) == \
         settings.Bc3TransformSettings()
-    with pytest.raises(TypeError):  # BC2 comes with a later slice
-        convert.from_reference(jax_settings.Bc2TransformSettings())
+    with pytest.raises(TypeError):  # BC7 comes with a later slice
+        convert.from_reference(jax_settings.Bc7TransformSettings())
+
+
+def test_convert_bc2_bc4_bc5_from_reference():
+    from dxt_lossless_transform_tpu import settings as jax_settings
+
+    assert convert.from_reference(jax_settings.BC2_FAST_CANDIDATES) == \
+        settings.BC2_FAST_CANDIDATES
+    assert convert.from_reference(jax_settings.BC2_COMPREHENSIVE_CANDIDATES) == \
+        settings.BC2_COMPREHENSIVE_CANDIDATES
+    for fmt in ("Bc2", "Bc4", "Bc5"):
+        jax_cls = getattr(jax_settings, f"{fmt}TransformSettings")
+        port_cls = getattr(settings, f"{fmt}TransformSettings")
+        assert [convert.from_reference(s) for s in jax_cls.all_combinations()] == \
+            list(port_cls.all_combinations())
+        assert convert.from_reference(jax_cls()) == port_cls()
 
 
 def test_convert_from_reference():
@@ -226,7 +275,8 @@ def test_build_writes_the_hash_named_library_once(tmp_path, monkeypatch):
     assert [p.name for p in path.parent.iterdir()] == [path.name]  # no temp left
     assert backend.build() == (path, "")  # already built: nvcc is not called again
     # one nvcc call for every source
-    assert (bindir / "log").read_text() == "call bc1_kernels.cu bc3_kernels.cu \n"
+    assert (bindir / "log").read_text() == \
+        "call bc1_kernels.cu bc2_kernels.cu bc3_kernels.cu bc45_kernels.cu \n"
 
 
 def test_build_failure_raises_and_leaves_nothing(tmp_path, monkeypatch):
