@@ -6,29 +6,38 @@ NVIDIA card.
 
 Phases, each printed as a JSON line with its wall time:
 
-1. device: the card as ``nvidia-smi`` names it, its power limit, the PyTorch build;
-2. build: the one ``nvcc`` call that builds the fourteen kernel entry points from
-   the four sources ``csrc/bc1_kernels.cu``, ``bc2_kernels.cu``, ``bc3_kernels.cu``
-   and ``bc45_kernels.cu`` into one library under ``build/cuda/`` (skipped when that
-   library is already built);
+1. device: the card as ``nvidia-smi`` names it, its power limit, the PyTorch build,
+   and the zstd library that the BC7/BC6H identity guard loads (its path and
+   ``ZSTD_versionNumber()``);
+2. build: the one ``nvcc`` call that builds the sixteen kernel entry points from
+   the five sources ``csrc/bc1_kernels.cu``, ``bc2_kernels.cu``, ``bc3_kernels.cu``,
+   ``bc45_kernels.cu`` and ``bc7_kernels.cu`` into one library under
+   ``build/cuda/`` (skipped when that library is already built);
 3. check: each kernel against its plain PyTorch version, both on the card, byte for
    byte and for scores as exact integers: every setting (8 for BC1 and BC2, 16 for
    BC3, 2 for BC4 and BC5), n in {1, 3, 2048, 1,398,103} blocks, the FAST and
    COMPREHENSIVE candidate sets; the count kernel also on offsets beyond its
    4096-byte halo, on a 40-offset ladder and on 70,000 rows (more than a launch's
-   grid.y holds); inputs shorter than one block through every auto-search;
+   grid.y holds); inputs shorter than one block through every auto-search; the
+   BC7/BC6H mode-sort kernels for all 4 settings of both formats, n in {1, 2, 3,
+   4095, 4096, 4097, 1,398,103}, on realistic BC7 blocks and on random blocks with
+   some byte 0 forced to 0; the identity guard's two outcomes on a small input;
+   empty and unaligned input through both mode-sort auto-searches;
 4. main: the production path through the entry points a user calls, one path per
-   format: a 4096x4096 DDS file of each of BC1-BC5, each with its full 13-level mip
-   chain (1,398,103 blocks; payloads of 11,184,824 bytes for BC1 and BC4 and
-   22,369,648 for BC2, BC3 and BC5), auto-transformed under the LTU estimator (with
-   the FAST and the COMPREHENSIVE candidates for BC1-BC3), then untransformed. The
-   files must come back byte-identical, and the picks, the exact integer scores and
-   the transformed files' sha256 must equal the JAX package's (constants below).
-   The launch counts are set to 0 just before each path and read just after it;
-   every kernel of the path must have been launched in it;
+   format: a 4096x4096 DDS file of each of BC1-BC5, BC7 and BC6H, each with its full
+   13-level mip chain (1,398,103 blocks; payloads of 11,184,824 bytes for BC1 and
+   BC4 and 22,369,648 for the others), auto-transformed under the LTU estimator
+   (with the FAST and the COMPREHENSIVE candidates for BC1-BC3; BC7 and BC6H also
+   through the manual default, sort and planes), then untransformed. The files must
+   come back byte-identical, and the picks, the exact integer scores, the identity
+   guard's decision and the transformed files' sha256 must equal the JAX package's
+   (constants below). The launch counts are set to 0 just before each path and read
+   just after it; every kernel of the path must have been launched in it;
 5. times: CUDA-event medians of each kernel at the main path's shapes beside its
-   plain version and its bound, and the wall time of one transform and one
-   untransform of each file, with the host<->device copies shown apart.
+   plain version and its bound (the mode-sort kernels in every setting, with the
+   ``.t().contiguous()`` call that computes the planes-only layout), and the wall
+   time of one transform and one untransform of each file, with the host<->device
+   copies, the search and the identity guard's zstd time shown apart.
 
 The last three lines are the ``nvidia-smi`` line, a JSON line with every kernel's
 numbers and ``{"ok": true, "device": {...}}``. Any mismatch, build failure or
@@ -100,7 +109,25 @@ REFERENCE = {
                      "sha256": "cf0e3da0aae5f402f259ec56ce09db98dcd845dfc4f3efd9325c162cec9c30df"}},
     "BC5": {"auto": {"scores": [134414433, 134414431], "pick": (False,),
                      "sha256": "a7fcd80c34fdb565a8040fea963d909e6092bc10182d80f4a67f89ba35fdddf8"}},
+    # BC7 and BC6H: the FAST candidates (identity, sort, planes, sort+planes), each
+    # scored on its whole transformed stream; the guard's decision on the exact
+    # pick and the shipped (sort, planes); "manual" is the default, sort and planes
+    "BC7": {"auto": {"scores": [537045101, 553517981, 528576344, 520098018],
+                     "pick": (True, True), "guard": "kept", "shipped": (True, True),
+                     "sha256": "449ef473e483f1b69656bc5e96219ff59d45462b3361adedb9651d28b1a1b96d"},
+            "manual": {"sha256": "449ef473e483f1b69656bc5e96219ff59d45462b3361adedb9651d28b1a1b96d"}},
+    "BC6H": {"auto": {"scores": [537068095, 553808485, 537068097, 553778264],
+                      "pick": (False, False), "guard": "not applied",
+                      "shipped": (False, False),
+                      "sha256": "242eab760742c1d7a58c66bd5267c83a606f457d58ee77ae5f1b57312500f313"},
+             "manual": {"sha256": "cbcd79b983acffc1ba82e8471e00cac9c681eb0a7e6d3816ec6fc23d3439568c"}},
 }
+# the BC7 and BC6H files: DX10 headers, BC7's payload realistic, BC6H's uniform
+# random blocks
+MODE_SORT = ("BC7", "BC6H")
+MODE_SORT_SHA256 = {
+    "BC7": "aa2b2dfc9902e6e846d115579d2e5f4d6f3405e4ace17deaed619a8d0f2fa949",
+    "BC6H": "4bda99af0ec06fb96c93b34e07f7394919281f1caeb87dda5fd480a89f6144bc"}
 
 CSRC = "dxt_lossless_transform_tpu_torch/csrc/"
 # kernel -> (source, the TPU kernel it replaces)
@@ -133,11 +160,21 @@ KERNELS = {
                           "dxt_lossless_transform_tpu/ops/pallas/shuffle.py:471"),
     "dlt_bc5_untransform": ("bc45_kernels.cu",
                             "dxt_lossless_transform_tpu/ops/pallas/shuffle.py:501"),
+    # also planes.py:46, :77 and :139 (split_planes_tpu, split_planes_flat_tpu,
+    # weave_cols_tpu)
+    "dlt_bc7_transform": ("bc7_kernels.cu",
+                          "dxt_lossless_transform_tpu/ops/pallas/planes.py:280"),
+    # also planes.py:218 and :186 (merge_planes_tpu, split_cols_tpu)
+    "dlt_bc7_untransform": ("bc7_kernels.cu",
+                            "dxt_lossless_transform_tpu/ops/pallas/planes.py:116"),
 }
 # the kernels of each format's path: its shuffles, its region kernel if it has one,
-# and the count kernel that scores every auto-search
+# and the count kernel that scores every auto-search; BC6H shares BC7's kernels
 PATH_KERNELS = {fmt: [name for name in KERNELS if name.startswith(f"dlt_{fmt.lower()}_")]
-                + ["dlt_ltu_counts"] for fmt in FORMATS}
+                + ["dlt_ltu_counts"] for fmt in FORMATS + ("BC7",)}
+PATH_KERNELS["BC6H"] = PATH_KERNELS["BC7"]
+# the mode-sort kernels' block counts in the check phase
+MODE_SORT_SIZES = (1, 2, 3, 4095, 4096, 4097, BLOCKS)
 # rows for the count kernel's many-rows case: more than one launch's grid.y (65,535)
 MANY_ROWS = 70_000
 # The count kernel's far instantiation: offsets beyond its 4096-byte halo, and a
@@ -158,6 +195,9 @@ INT32_LANES_PER_SM = 64
 # compares. The bounds use these.
 OPS_PAIR = 27
 OPS_GRAM, OPS_COMPARE = 4, 5
+# and, from csrc/bc7_kernels.cu, 24 per block to find its mode id, rank it (match,
+# two population counts, table reads and adds) and pack its nibble, when sorting
+OPS_MODE_SORT = 24
 # Integer instructions the compiled count kernel issues (python3
 # scripts/sass_ops.py, sm_90a): 13 in its compare loop and 19 more per position.
 # They give the count kernel's issue time, which the times phase prints beside its
@@ -196,24 +236,31 @@ def main() -> int:
     from dxt_lossless_transform_tpu_torch import backend
     from dxt_lossless_transform_tpu_torch.api import (
         Bc1AutoTransformBuilder, Bc2AutoTransformBuilder, Bc3AutoTransformBuilder,
-        Bc4AutoTransformBuilder, Bc5AutoTransformBuilder,
+        Bc4AutoTransformBuilder, Bc5AutoTransformBuilder, Bc6hAutoTransformBuilder,
+        Bc6hManualTransformBuilder, Bc7AutoTransformBuilder, Bc7ManualTransformBuilder,
     )
-    from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
+    from dxt_lossless_transform_tpu_torch.errors import (
+        Bc6hValidationError, Bc7ValidationError,
+    )
+    from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu, zstd
     from dxt_lossless_transform_tpu_torch.estimate.ltu import (
         DEFAULT_OFFSETS, LtuEstimation, coverage_scores, offset_weight,
     )
     from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
     from dxt_lossless_transform_tpu_torch.formats.embed import TransformHeader
     from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
-    from dxt_lossless_transform_tpu_torch.ops import auto, bc45
-    from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
+    from dxt_lossless_transform_tpu_torch.ops import auto, bc45, bc6h, bc7
+    from dxt_lossless_transform_tpu_torch.ops.cuda import planes, regions, shuffle
     from dxt_lossless_transform_tpu_torch.settings import (
         BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
         BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
-        Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
-        Bc4TransformSettings, Bc5TransformSettings,
+        BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, Bc1TransformSettings,
+        Bc2TransformSettings, Bc3TransformSettings, Bc4TransformSettings,
+        Bc5TransformSettings, Bc7TransformSettings,
     )
-    from dxt_lossless_transform_tpu_torch.utils.testgen import make_dds
+    from dxt_lossless_transform_tpu_torch.utils.testgen import (
+        bc7_realistic, bc_blocks, make_dds, make_dx10_dds,
+    )
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
@@ -221,6 +268,8 @@ def main() -> int:
 
     # ---- 1. device ------------------------------------------------------------------
     t0 = time.perf_counter()
+    # the library the BC7/BC6H identity guard compresses with, first
+    zstd_library, zstd_version = zstd.library_path(), zstd.version()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -237,7 +286,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda, memory_rate=rate,
          memory_rate_of=rate_of, sms=sms, max_sm_clock_mhz=sm_clock_mhz,
          max_sm_clock_read=clock,
-         int32_ops_rate=int_rate)
+         int32_ops_rate=int_rate, zstd_library=zstd_library, zstd_version=zstd_version)
 
     # ---- 2. build -------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -406,8 +455,67 @@ def main() -> int:
         for size in range(1, BLOCK_SIZE[fmt]):
             if search(bytes(size)) != (b"", last):
                 fail(f"{fmt} auto-transform of {size} bytes")
+    # the BC7/BC6H mode-sort kernels: every setting of both formats, on realistic BC7
+    # blocks and on random blocks with byte 0 forced to 0 (BC7's invalid id 8) in
+    # about one block in eight
+    ms_dds = {"BC7": make_dx10_dds("BC7", SIZE, SIZE, MIPS, seed=SEED),
+              "BC6H": make_dx10_dds("BC6H", SIZE, SIZE, MIPS,
+                                    payload=bc_blocks(BLOCKS, 16, SEED))}
+    for fmt, data in ms_dds.items():
+        if hashlib.sha256(data).hexdigest() != MODE_SORT_SHA256[fmt]:
+            fail(f"make_dx10_dds gave another {fmt} file than the reference run")
+    ms_payload = {fmt: data[0x94:] for fmt, data in ms_dds.items()}
+    ms_fmt = {"BC7": planes.BC7, "BC6H": planes.BC6H}
+    settings_4 = tuple((s.sort_by_mode, s.split_byte_planes)
+                       for s in Bc7TransformSettings.all_combinations())
+    for n in MODE_SORT_SIZES:
+        random_blocks = rng.integers(0, 256, (n, 16), np.uint8)
+        random_blocks[rng.random(n) < 0.125, 0] = 0
+        kinds = {"realistic": ms_payload["BC7"] if n == BLOCKS else bc7_realistic(n, n),
+                 "random": random_blocks.tobytes()}
+        for data_kind, host in kinds.items():
+            x = backend.upload(host, dev)
+            for fmt, fmt_id in ms_fmt.items():
+                for sort, split in settings_4:
+                    what = f"{fmt} n={n} {data_kind} sort={sort} planes={split}"
+                    t = planes.bc7_transform(x, fmt_id, sort, split)
+                    compare("dlt_bc7_transform", t,
+                            planes.bc7_transform_plain(x, fmt_id, sort, split), what)
+                    u = planes.bc7_untransform(t, n, sort, split)
+                    compare("dlt_bc7_untransform", u,
+                            planes.bc7_untransform_plain(t, n, sort, split), what)
+                    compare("dlt_bc7_untransform", u, x, f"{what} round trip")
+    # the identity guard's two outcomes on a small input: a realistic sort+planes
+    # winner is kept, a planes-only winner on random blocks goes back to the identity
+    guard_checks = {}
+    identity, full = Bc7TransformSettings(False, False), Bc7TransformSettings(True, True)
+    for data_kind, host, settings, want in (
+            ("realistic", bc7_realistic(5000, SEED), full, "kept"),
+            ("random", rng.integers(0, 256, 16 * 5000, np.uint8).tobytes(),
+             Bc7TransformSettings(False, True), "identity")):
+        out = backend.download(bc7.transform_tensor(backend.upload(host, dev), settings))
+        shipped = bc7.ltu_identity_guard(host, out, settings, BC7_FAST_CANDIDATES)
+        got = ("kept" if shipped == (out, settings) else
+               "identity" if shipped == (host, identity) else "neither")
+        guard_checks[data_kind] = got
+        if got != want:
+            fail(f"identity guard on a {data_kind} input: {got}, expected {want}")
+    # the mode-sort searches: empty input gives the last candidate, unaligned input
+    # the format's validation error
+    for search, cand, error in (
+            (bc7.transform_bc7_auto, BC7_FAST_CANDIDATES, Bc7ValidationError),
+            (bc6h.transform_bc6h_auto, BC6H_FAST_CANDIDATES, Bc6hValidationError)):
+        if search(b"", LtuEstimation()) != (b"", cand[-1]):
+            fail(f"{search.__name__} of empty input")
+        for size in (1, 15, 17):
+            try:
+                search(bytes(size), LtuEstimation())
+            except error:
+                continue
+            fail(f"{search.__name__} of {size} bytes did not raise {error.__name__}")
     emit("check", t0, block_counts=checked, max_abs_err=max_err,
          far_counts=far_counts, many_rows=MANY_ROWS, many_rows_count_sum=many_rows_sum,
+         mode_sort_block_counts=list(MODE_SORT_SIZES), guard=guard_checks,
          launches=dict(backend.LAUNCHES))
 
     # ---- 4. the main path, through the entry points ---------------------------------
@@ -425,11 +533,16 @@ def main() -> int:
             bc3=Bc3AutoTransformBuilder.new_ultra(LtuEstimation())),
         ("BC4", "auto"): TransformBundle(bc4=Bc4AutoTransformBuilder(LtuEstimation())),
         ("BC5", "auto"): TransformBundle(bc5=Bc5AutoTransformBuilder(LtuEstimation())),
+        ("BC7", "auto"): TransformBundle(bc7=Bc7AutoTransformBuilder(LtuEstimation())),
+        ("BC7", "manual"): TransformBundle(bc7=Bc7ManualTransformBuilder()),
+        ("BC6H", "auto"): TransformBundle(bc6h=Bc6hAutoTransformBuilder(LtuEstimation())),
+        ("BC6H", "manual"): TransformBundle(bc6h=Bc6hManualTransformBuilder()),
     }
+    dds.update(ms_dds)
     wall = {}
     outs = {}
     path_launches = {}
-    for fmt in FORMATS:
+    for fmt in FORMATS + MODE_SORT:
         # each format's path: its counts set to 0 just before and read just after
         sync()
         backend.reset_launch_counts()
@@ -458,10 +571,44 @@ def main() -> int:
                 for name in KERNELS}
     results = {}
     xs = {fmt: backend.upload(data, dev) for fmt, data in payload.items()}
+    xs.update({fmt: backend.upload(data, dev) for fmt, data in ms_payload.items()})
+    ms_cand = {"BC7": BC7_FAST_CANDIDATES, "BC6H": BC6H_FAST_CANDIDATES}
     n = BLOCKS
     for (fmt, label), out in outs.items():
         ref = REFERENCE[fmt][label]
         header = TransformHeader.from_bytes(out)
+        digest = hashlib.sha256(out).hexdigest()
+        if fmt in MODE_SORT:
+            shipped = getattr(header, f"{fmt.lower()}_settings")()
+            shipped_key = (shipped.sort_by_mode, shipped.split_byte_planes)
+            results[f"{fmt}/{label}"] = {"shipped": list(shipped_key), "sha256": digest,
+                                         "bytes": len(out)}
+            if digest != ref["sha256"]:
+                fail(f"{fmt} {label}: transformed file sha256 differs from the JAX "
+                     f"package's")
+            if label == "manual":
+                if shipped_key != (True, True):
+                    fail(f"{fmt} manual default shipped {shipped_key}")
+                continue
+            cand = ms_cand[fmt]
+            scores, streams = bc7.candidate_streams(xs[fmt], ms_fmt[fmt], LtuEstimation(),
+                                                    cand, fmt)
+            scores = [int(v) for v in scores]
+            pick = cand[int(np.argmin(scores))]
+            pick_key = (pick.sort_by_mode, pick.split_byte_planes)
+            guard = ("not applied" if pick_key == (False, False) else
+                     "kept" if shipped_key == pick_key else "identity")
+            # printed, not held: they may shift with the machine's libzstd
+            sizes = zstd.ZstdEstimation(1).estimate_batch(
+                [backend.download(streams[c.sort_by_mode, c.split_byte_planes])
+                 for c in cand])
+            results[f"{fmt}/{label}"].update(scores=scores, pick=list(pick_key),
+                                             guard=guard, zstd1_sizes=sizes)
+            for key, got in (("scores", scores), ("pick", pick_key), ("guard", guard),
+                             ("shipped", shipped_key)):
+                if got != ref[key]:
+                    fail(f"{fmt} {label}: {key} {got} != reference {ref[key]}")
+            continue
         if fmt in ("BC1", "BC2"):
             cand = {("BC1", "fast"): BC1_FAST_CANDIDATES,
                     ("BC1", "comprehensive"): BC1_COMPREHENSIVE_CANDIDATES,
@@ -486,7 +633,6 @@ def main() -> int:
                                              tuple(settings.all_combinations()), ep * n,
                                              kernel)
         scores = [int(v) for v in scores]
-        digest = hashlib.sha256(out).hexdigest()
         results[f"{fmt}/{label}"] = {"pick": list(pick_key), "scores": scores,
                                      "sha256": digest}
         if scores != ref["scores"]:
@@ -496,7 +642,8 @@ def main() -> int:
         if digest != ref["sha256"]:
             fail(f"{fmt} {label}: transformed file sha256 differs from the JAX package's")
     emit("main", t0, file_bytes={fmt: len(d) for fmt, d in dds.items()},
-         payload_bytes={fmt: len(p) for fmt, p in payload.items()}, blocks=BLOCKS,
+         payload_bytes={fmt: len(p) for fmt, p in {**payload, **ms_payload}.items()},
+         blocks=BLOCKS,
          launches=path_launches, results=results, wall=wall)
 
     # ---- 5. times ----------------------------------------------------------------------
@@ -590,6 +737,35 @@ def main() -> int:
             lambda: handler.transform_bundle(dds[fmt], bundles[fmt, fast]))
         copies[f"{fmt}_untransform_file_s"] = host_s(
             lambda: handler.untransform(outs[fmt, fast]))
+    # BC7 and BC6H: the search alone (three transform launches into the candidate
+    # rows and two scoring calls, unsorted and sorted rows), the identity guard as
+    # the search runs it (BC6H: not applied), zstd-1 of the winner and the payload,
+    # the download of the winner, and the manual default's transform and untransform
+    for fmt in MODE_SORT:
+        xt, cand, data = xs[fmt], ms_cand[fmt], ms_payload[fmt]
+        scores, streams = bc7.candidate_streams(xt, ms_fmt[fmt], LtuEstimation(), cand,
+                                                fmt)
+        pick = cand[int(np.argmin(scores))]
+        winner = streams[pick.sort_by_mode, pick.split_byte_planes]
+        out = backend.download(winner)
+        full_out = backend.download(streams[True, True])
+        copies[f"{fmt}_h2d_payload_s"] = host_s(lambda: backend.upload(data, dev))
+        copies[f"{fmt}_d2h_winner_s"] = host_s(lambda: backend.download(winner))
+        copies[f"{fmt}_search_s"] = host_s(lambda: bc7.candidate_streams(
+            xt, ms_fmt[fmt], LtuEstimation(), cand, fmt))
+        copies[f"{fmt}_guard_s"] = host_s(
+            lambda: bc7.ltu_identity_guard(data, out, pick, cand))
+        copies[f"{fmt}_zstd1_pair_s"] = host_s(
+            lambda: zstd.ZstdEstimation(1).estimate_batch([full_out, data]))
+        copies[f"{fmt}_slice_s"] = host_s(lambda: dds[fmt][0x94:0x94 + len(data)])
+        copies[f"{fmt}_transform_auto_file_s"] = host_s(
+            lambda: handler.transform_bundle(dds[fmt], bundles[fmt, "auto"]))
+        copies[f"{fmt}_untransform_auto_file_s"] = host_s(
+            lambda: handler.untransform(outs[fmt, "auto"]))
+        copies[f"{fmt}_transform_manual_file_s"] = host_s(
+            lambda: handler.transform_bundle(dds[fmt], bundles[fmt, "manual"]))
+        copies[f"{fmt}_untransform_manual_file_s"] = host_s(
+            lambda: handler.untransform(outs[fmt, "manual"]))
 
     n = BLOCKS
     timed = {}
@@ -669,6 +845,40 @@ def main() -> int:
             plain_ms=event_ms(lambda: u_plain(t45, True), 5), bytes=moved, ops=0)
         rows = torch.stack([t_kernel(x45, True)[:ep * n], t_kernel(x45, False)[:ep * n]])
         timed[f"dlt_ltu_counts/{fmt.lower()}_endpoints"] = time_counts(rows, ep * n)
+    # BC7 and BC6H: each setting that launches, on each file with its format; the
+    # planes-only layout beside the one PyTorch call that computes it
+    msl = (n + 1) // 2
+    for fmt in MODE_SORT:
+        xm, fmt_id = xs[fmt], ms_fmt[fmt]
+        for sort, split in settings_4:
+            if not (sort or split):
+                continue
+            label = f"{fmt.lower()}_{'sort_' if sort else ''}{'planes' if split else 'blocks'}"
+            tm = planes.bc7_transform(xm, fmt_id, sort, split)
+            moved = 32 * n + (msl if sort else 0)
+            ops = OPS_MODE_SORT * n if sort else 0
+            timed[f"dlt_bc7_transform/{label}"] = dict(
+                ms=event_ms(lambda: planes.bc7_transform(xm, fmt_id, sort, split), 20),
+                plain_ms=event_ms(
+                    lambda: planes.bc7_transform_plain(xm, fmt_id, sort, split), 5),
+                bytes=moved, ops=ops)
+            timed[f"dlt_bc7_untransform/{label}"] = dict(
+                ms=event_ms(lambda: planes.bc7_untransform(tm, n, sort, split), 20),
+                plain_ms=event_ms(
+                    lambda: planes.bc7_untransform_plain(tm, n, sort, split), 5),
+                bytes=moved, ops=ops)
+            if not sort:
+                timed[f"dlt_bc7_transform/{label}"]["library_ms"] = event_ms(
+                    lambda: xm.view(n, 16).t().contiguous(), 20)
+                timed[f"dlt_bc7_untransform/{label}"]["library_ms"] = event_ms(
+                    lambda: tm.view(16, n).t().contiguous(), 20)
+        # the search's two scoring calls: the unsorted and the sorted rows
+        _, streams = bc7.candidate_streams(xm, fmt_id, LtuEstimation(),
+                                           ms_cand[fmt], fmt)
+        for sort in (False, True):
+            rows = torch.stack([streams[sort, split] for split in (False, True)])
+            timed[f"dlt_ltu_counts/{fmt.lower()}_{'sorted' if sort else 'unsorted'}"] = \
+                time_counts(rows, rows.shape[1])
     for entry in timed.values():
         bytes_ms = entry["bytes"] / rate * 1e3
         ops_ms = entry["ops"] / int_rate * 1e3
@@ -680,17 +890,19 @@ def main() -> int:
               "host s: medians of 5", run_seconds=time.perf_counter() - run_start)
 
     # ---- 6. the contract lines ----------------------------------------------------------
-    # the row of each kernel: its COMPREHENSIVE shape where it has one, and the count
-    # kernel on the BC1 COMPREHENSIVE colour rows, as in earlier runs
+    # the row of each kernel: its COMPREHENSIVE shape where it has one, the count
+    # kernel on the BC1 COMPREHENSIVE colour rows, as in earlier runs, and the
+    # mode-sort kernels in the BC7 file's shipped setting, sort and planes
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        entry = timed.get(name) or timed[f"{name}/comprehensive"]
+        entry = (timed.get(name) or timed.get(f"{name}/bc7_sort_planes")
+                 or timed[f"{name}/comprehensive"])
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": entry["ms"], "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
-            "library_ms": None})
+            "library_ms": entry.get("library_ms")})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,5 @@
-"""BC1-BC5 builders (counterpart of ``dxt_lossless_transform_tpu/api.py:26-176``).
+"""BC1-BC7 and BC6H builders (counterpart of ``dxt_lossless_transform_tpu/api.py:26-221``
+and ``:290-333``).
 
 An auto builder searches for the best settings with a pluggable estimator and hands
 back the untransform recipe as a manual builder; a manual builder transforms with
@@ -14,10 +15,11 @@ import torch
 
 from .estimate.base import NoEstimation, SizeEstimation
 from .ops import auto as ops_auto, bc1 as ops_bc1, bc2 as ops_bc2, bc3 as ops_bc3
-from .ops import bc45 as ops_bc45
+from .ops import bc45 as ops_bc45, bc6h as ops_bc6h, bc7 as ops_bc7
 from .settings import (
     Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
-    Bc4TransformSettings, Bc5TransformSettings, YCoCgVariant,
+    Bc4TransformSettings, Bc5TransformSettings, Bc6hTransformSettings,
+    Bc7TransformSettings, YCoCgVariant,
 )
 
 
@@ -59,6 +61,16 @@ class _EndpointManualBuilder(_ManualBuilder):
 
     def split_endpoints(self, flag: bool):
         return self._with(split_endpoints=bool(flag))
+
+
+class _ModeSortManualBuilder(_ManualBuilder):
+    """A manual builder of BC7 or BC6H: mode sort and byte planes."""
+
+    def sort_by_mode(self, flag: bool):
+        return self._with(sort_by_mode=bool(flag))
+
+    def split_byte_planes(self, flag: bool):
+        return self._with(split_byte_planes=bool(flag))
 
 
 class _AutoBuilder:
@@ -142,3 +154,25 @@ class Bc5ManualTransformBuilder(_EndpointManualBuilder):
 class Bc5AutoTransformBuilder(_AutoBuilder):
     _search = staticmethod(ops_bc45.transform_bc5_auto)
     _manual = Bc5ManualTransformBuilder
+
+
+class Bc7ManualTransformBuilder(_ModeSortManualBuilder):
+    _settings_cls = Bc7TransformSettings
+    _transform = staticmethod(ops_bc7.transform)
+    _untransform = staticmethod(ops_bc7.untransform)
+
+
+class Bc7AutoTransformBuilder(_AutoBuilder):
+    _search = staticmethod(ops_bc7.transform_bc7_auto)
+    _manual = Bc7ManualTransformBuilder
+
+
+class Bc6hManualTransformBuilder(_ModeSortManualBuilder):
+    _settings_cls = Bc6hTransformSettings
+    _transform = staticmethod(ops_bc6h.transform)
+    _untransform = staticmethod(ops_bc6h.untransform)
+
+
+class Bc6hAutoTransformBuilder(_AutoBuilder):
+    _search = staticmethod(ops_bc6h.transform_bc6h_auto)
+    _manual = Bc6hManualTransformBuilder

@@ -1,9 +1,10 @@
 """Device selection, the CUDA kernel library, host<->device copies and launch counts.
 
 The kernels live in the CUDA C++ sources ``csrc/*.cu`` (``bc1_kernels.cu`` with the
-LTU count kernel, ``bc2_kernels.cu``, ``bc3_kernels.cu``, ``bc45_kernels.cu``), which
-share ``csrc/common.cuh`` and have plain ``extern "C"`` entry points. At first use, :func:`library` compiles all of
-them with one ``nvcc`` call into one shared library under ``build/cuda/`` at the
+LTU count kernel, ``bc2_kernels.cu``, ``bc3_kernels.cu``, ``bc45_kernels.cu``,
+``bc7_kernels.cu`` with the BC7/BC6H mode sort), which share ``csrc/common.cuh``
+and have plain ``extern "C"`` entry points. At first use, :func:`library` compiles
+all of them with one ``nvcc`` call into one shared library under ``build/cuda/`` at the
 repository root and loads it with :mod:`ctypes`. The file name carries a hash of
 every source and header and of the flags, and the library is written under a
 temporary name and renamed into place, so that processes building at the same time
@@ -64,6 +65,10 @@ _SIGNATURES = {
     "dlt_bc4_untransform": (_P, _P, _I, _I, _P),
     "dlt_bc5_transform": (_P, _P, _I, _I, _P),
     "dlt_bc5_untransform": (_P, _P, _I, _I, _P),
+    # (in, out, n_blocks, fmt, sort, planes, stream)
+    "dlt_bc7_transform": (_P, _P, _I, _I, _I, _I, _P),
+    # (in, out, n_blocks, sort, planes, stream)
+    "dlt_bc7_untransform": (_P, _P, _I, _I, _I, _P),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.

@@ -1,8 +1,9 @@
 // Device code shared by the kernel sources (bc1_kernels.cu, bc2_kernels.cu,
-// bc3_kernels.cu, bc45_kernels.cu): the YCoCg-R colour-pair arithmetic, the launch
-// shape, the writer of the candidate colour regions that the BC1, BC2 and BC3
-// region kernels build, and the loads and stores of the 8-byte alpha section that
-// BC3, BC4 and BC5 blocks share.
+// bc3_kernels.cu, bc45_kernels.cu, bc7_kernels.cu): the YCoCg-R colour-pair
+// arithmetic, the launch shape, the writer of the candidate colour regions that the
+// BC1, BC2 and BC3 region kernels build, the loads and stores of the 8-byte alpha
+// section that BC3, BC4 and BC5 blocks share, and the block-wide copies of byte
+// ranges at any alignment that the BC7/BC6H mode-sort kernels use.
 //
 // Everything here has internal linkage, so each source gets its own copy and the
 // one shared library links without clashes.
@@ -142,6 +143,44 @@ __device__ __forceinline__ uint2 load_alpha_section(const uint8_t* in, int64_t b
   const uint16_t* idx = reinterpret_cast<const uint16_t*>(in) + 3 * b;
   return make_uint2(ep | (static_cast<uint32_t>(idx[0]) << 16),
                     static_cast<uint32_t>(idx[1]) | (static_cast<uint32_t>(idx[2]) << 16));
+}
+
+// ---- byte ranges at any alignment, between shared and global memory ---------------
+// The mode-sort layouts put streams at offsets such as ceil(n/2) + p*n, which may
+// have any alignment. These copies move whole aligned 4-byte words in global memory,
+// each assembled from two 4-byte words of the shared buffer with a funnel shift;
+// only the up to 3 bytes at either end of the global range move one by one. Every
+// thread of the thread block takes part; neighbouring threads take neighbouring
+// words.
+
+// Copies len bytes from shared `src` (4-byte aligned, and readable for 4 bytes past
+// src + len) to global `dst`.
+__device__ __forceinline__ void store_bytes(uint8_t* dst, const uint8_t* src, int len) {
+  const int head = min(len, static_cast<int>((4u - (reinterpret_cast<uintptr_t>(dst) & 3u)) & 3u));
+  const int words = (len - head) >> 2;
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst + head);
+  // word j of d holds bytes head + 4j .. head + 4j + 3 of src
+  for (int j = threadIdx.x; j < words; j += blockDim.x) {
+    d[j] = __funnelshift_r(s[j], s[j + 1], 8 * head);
+  }
+  for (int k = threadIdx.x; k < head; k += blockDim.x) dst[k] = src[k];
+  for (int k = head + 4 * words + threadIdx.x; k < len; k += blockDim.x) dst[k] = src[k];
+}
+
+// Copies len bytes from global `src` to shared `dst` (4-byte aligned). `src` may
+// have any alignment; the aligned words read are those that hold a byte of
+// [src, src + len), so the range's allocation must start 4-byte aligned.
+__device__ __forceinline__ void load_bytes(uint8_t* dst, const uint8_t* src, int len) {
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 3u);
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src - mis);
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+  const int words = len >> 2;
+  // word j of d holds bytes mis + 4j .. mis + 4j + 3 of the aligned words at s
+  for (int j = threadIdx.x; j < words; j += blockDim.x) {
+    d[j] = mis ? __funnelshift_r(s[j], s[j + 1], 8 * mis) : s[j];
+  }
+  for (int k = 4 * words + threadIdx.x; k < len; k += blockDim.x) dst[k] = src[k];
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 """Typed errors of the ops layer (counterpart of ``dxt_lossless_transform_tpu/errors.py``,
-cut down to what BC1-BC5 need), plus the error for a missing card.
+cut down to what BC1-BC7 and BC6H need), plus the errors for a missing card and a
+missing zstd library.
 
 Validation errors subclass :class:`ValueError` and auto-transform errors
 :class:`RuntimeError`, as in the reference package.
@@ -50,6 +51,16 @@ class Bc5ValidationError(ValidationError):
         super().__init__("BC5", length, divisor, message)
 
 
+class Bc7ValidationError(ValidationError):
+    def __init__(self, length: int, divisor: int = 16, message: str = ""):
+        super().__init__("BC7", length, divisor, message)
+
+
+class Bc6hValidationError(ValidationError):
+    def __init__(self, length: int, divisor: int = 16, message: str = ""):
+        super().__init__("BC6H", length, divisor, message)
+
+
 class AutoTransformError(DltError, RuntimeError):
     """The candidate search failed, typically because the estimator raised."""
 
@@ -60,3 +71,11 @@ class AutoTransformError(DltError, RuntimeError):
 
 class DeviceUnavailableError(DltError, RuntimeError):
     """A CUDA device was asked for (the default) but none is available."""
+
+
+class ZstdUnavailableError(DltError, RuntimeError):
+    """The zstd library (``libzstd.so.1``) could not be loaded."""
+
+    def __init__(self, library: str, reason: str):
+        self.library = library
+        super().__init__(f"cannot load the zstd library {library}: {reason}")

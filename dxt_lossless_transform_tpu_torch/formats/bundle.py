@@ -1,6 +1,6 @@
-"""TransformBundle with its BC1-BC5 slots (counterpart of
-``dxt_lossless_transform_tpu/formats/bundle.py:35-71``). The other formats' slots
-come with their slices of the port."""
+"""TransformBundle with its BC1-BC7 and BC6H slots (counterpart of
+``dxt_lossless_transform_tpu/formats/bundle.py:35-71``). The RGB formats' slot comes
+with their slice of the port."""
 
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ from ..api import (
     Bc1AutoTransformBuilder, Bc1ManualTransformBuilder, Bc2AutoTransformBuilder,
     Bc2ManualTransformBuilder, Bc3AutoTransformBuilder, Bc3ManualTransformBuilder,
     Bc4AutoTransformBuilder, Bc4ManualTransformBuilder, Bc5AutoTransformBuilder,
-    Bc5ManualTransformBuilder,
+    Bc5ManualTransformBuilder, Bc6hAutoTransformBuilder, Bc6hManualTransformBuilder,
+    Bc7AutoTransformBuilder, Bc7ManualTransformBuilder,
 )
 from .embed import TransformFormat, TransformHeader
 from .errors import NoBuilderForFormat
@@ -22,9 +23,11 @@ Bc2Builder = Union[Bc2AutoTransformBuilder, Bc2ManualTransformBuilder]
 Bc3Builder = Union[Bc3AutoTransformBuilder, Bc3ManualTransformBuilder]
 Bc4Builder = Union[Bc4AutoTransformBuilder, Bc4ManualTransformBuilder]
 Bc5Builder = Union[Bc5AutoTransformBuilder, Bc5ManualTransformBuilder]
+Bc7Builder = Union[Bc7AutoTransformBuilder, Bc7ManualTransformBuilder]
+Bc6hBuilder = Union[Bc6hAutoTransformBuilder, Bc6hManualTransformBuilder]
 
-LATER_SLICE = ("; this PyTorch port handles BC1-BC5 so far, and BC6H, BC7 and the "
-               "RGB formats come in later slices")
+LATER_SLICE = ("; this PyTorch port handles BC1-BC7 and BC6H so far, and the RGB "
+               "formats come in a later slice")
 
 # format -> (bundle slot, header constructor)
 _SLOTS = {
@@ -33,6 +36,8 @@ _SLOTS = {
     TransformFormat.BC3: ("bc3", TransformHeader.for_bc3),
     TransformFormat.BC4: ("bc4", TransformHeader.for_bc4),
     TransformFormat.BC5: ("bc5", TransformHeader.for_bc5),
+    TransformFormat.BC7: ("bc7", TransformHeader.for_bc7),
+    TransformFormat.BC6H: ("bc6h", TransformHeader.for_bc6h),
 }
 
 
@@ -44,12 +49,16 @@ class TransformBundle:
                  bc2: Optional[Bc2Builder] = None,
                  bc3: Optional[Bc3Builder] = None,
                  bc4: Optional[Bc4Builder] = None,
-                 bc5: Optional[Bc5Builder] = None):
+                 bc5: Optional[Bc5Builder] = None,
+                 bc7: Optional[Bc7Builder] = None,
+                 bc6h: Optional[Bc6hBuilder] = None):
         self.bc1 = bc1
         self.bc2 = bc2
         self.bc3 = bc3
         self.bc4 = bc4
         self.bc5 = bc5
+        self.bc7 = bc7
+        self.bc6h = bc6h
 
     def dispatch_transform(self, fmt: TransformFormat, payload: bytes,
                            device: Union[str, torch.device] = "cuda"):

@@ -1,14 +1,16 @@
 """The 4-byte transform header, written over the container magic.
 
-Counterpart of ``dxt_lossless_transform_tpu/formats/embed.py`` with BC1-BC5
-packing (:94-110, :139-177). On disk it is one little-endian u32:
+Counterpart of ``dxt_lossless_transform_tpu/formats/embed.py`` with BC1-BC5, BC7
+and BC6H packing (:94-110, :139-200). On disk it is one little-endian u32:
 
     bits 0-3:  transform format tag
     bits 4-31: format-specific data; for BC1, BC2 and BC3:
                bits 0-1 header version (0), bit 2 split colour endpoints,
                bits 3-4 decorrelation variant (0=Variant1, 1=Variant2, 2=Variant3,
                3=None), and for BC3 bit 5 split alpha endpoints;
-               for BC4 and BC5: bits 0-1 header version (0), bit 2 split endpoints
+               for BC4 and BC5: bits 0-1 header version (0), bit 2 split endpoints;
+               for BC7 and BC6H: bits 0-1 header version (0), bit 2 sort by
+               mode, bit 3 split byte planes
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from dataclasses import dataclass
 
 from ..settings import (
     Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
-    Bc4TransformSettings, Bc5TransformSettings, YCoCgVariant,
+    Bc4TransformSettings, Bc5TransformSettings, Bc6hTransformSettings,
+    Bc7TransformSettings, YCoCgVariant,
 )
 from .errors import CorruptedEmbeddedData, UnknownTransformFormat
 
@@ -63,11 +66,26 @@ def _unpack_bc1_like(data: int) -> tuple:
     return _BITS_TO_VARIANT[(data >> 3) & 0x3], bool((data >> 2) & 1)
 
 
-def _unpack_split_endpoints(fmt: str, data: int) -> bool:
-    """BC4/BC5 -> split_endpoints; raises for a header version other than 0."""
+def _check_version(fmt: str, data: int) -> None:
     if data & 0x3:
         raise CorruptedEmbeddedData(f"unsupported {fmt} header version {data & 0x3}")
+
+
+def _unpack_split_endpoints(fmt: str, data: int) -> bool:
+    """BC4/BC5 -> split_endpoints; raises for a header version other than 0."""
+    _check_version(fmt, data)
     return bool((data >> 2) & 1)
+
+
+def _pack_mode_sort(settings) -> int:
+    return (int(settings.sort_by_mode) << 2) | (int(settings.split_byte_planes) << 3)
+
+
+def _unpack_mode_sort(fmt: str, data: int) -> tuple:
+    """BC7/BC6H -> (sort_by_mode, split_byte_planes); raises for a header version
+    other than 0."""
+    _check_version(fmt, data)
+    return bool((data >> 2) & 1), bool((data >> 3) & 1)
 
 
 @dataclass(frozen=True)
@@ -128,3 +146,17 @@ class TransformHeader:
 
     def bc5_settings(self) -> Bc5TransformSettings:
         return Bc5TransformSettings(_unpack_split_endpoints("BC5", self.data))
+
+    @staticmethod
+    def for_bc7(settings: Bc7TransformSettings) -> "TransformHeader":
+        return TransformHeader(TransformFormat.BC7, _pack_mode_sort(settings))
+
+    def bc7_settings(self) -> Bc7TransformSettings:
+        return Bc7TransformSettings(*_unpack_mode_sort("BC7", self.data))
+
+    @staticmethod
+    def for_bc6h(settings: Bc6hTransformSettings) -> "TransformHeader":
+        return TransformHeader(TransformFormat.BC6H, _pack_mode_sort(settings))
+
+    def bc6h_settings(self) -> Bc6hTransformSettings:
+        return Bc6hTransformSettings(*_unpack_mode_sort("BC6H", self.data))

@@ -1,11 +1,13 @@
 """Transform dispatch and the DDS handler (counterpart of
 ``dxt_lossless_transform_tpu/formats/handlers.py:40-90`` and ``:123-175``, for
-BC1-BC5).
+BC1-BC7 and BC6H).
 
 Transform: copy the headers, transform the texture payload (every mip and surface in
 one call), copy trailing bytes, and write the 4-byte transform header over the DDS
 magic. Untransform: read the header, parse the DDS header ignoring the magic,
-restore the magic, and invert the payload.
+restore the magic, and invert the payload. Every transform keeps the payload's size
+except the BC7/BC6H mode sort, which puts a ceil(n/2)-byte mode stream in front
+(:func:`transformed_payload_len`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Union
 import torch
 
 from ..ops import bc1 as ops_bc1, bc2 as ops_bc2, bc3 as ops_bc3, bc45 as ops_bc45
+from ..ops import bc6h as ops_bc6h, bc7 as ops_bc7
 from .bundle import LATER_SLICE, TransformBundle
 from .dds import DDS_MAGIC, DdsFormat, parse_dds, parse_dds_ignore_magic
 from .embed import TRANSFORM_HEADER_SIZE, TransformFormat, TransformHeader
@@ -65,7 +68,19 @@ _UNTRANSFORM = {
     TransformFormat.BC3: (ops_bc3.untransform, TransformHeader.bc3_settings),
     TransformFormat.BC4: (ops_bc45.untransform_bc4, TransformHeader.bc4_settings),
     TransformFormat.BC5: (ops_bc45.untransform_bc5, TransformHeader.bc5_settings),
+    TransformFormat.BC7: (ops_bc7.untransform, TransformHeader.bc7_settings),
+    TransformFormat.BC6H: (ops_bc6h.untransform, TransformHeader.bc6h_settings),
 }
+_MODE_SORT = (TransformFormat.BC7, TransformFormat.BC6H)
+
+
+def transformed_payload_len(header: TransformHeader, original_len: int) -> int:
+    """The transformed payload's size for an ``original_len``-byte texture."""
+    if header.format == TransformFormat.BC7:
+        return ops_bc7.transformed_len(original_len, header.bc7_settings())
+    if header.format == TransformFormat.BC6H:
+        return ops_bc7.transformed_len(original_len, header.bc6h_settings())
+    return original_len
 
 
 def dispatch_untransform(header: TransformHeader, payload: bytes,
@@ -73,10 +88,17 @@ def dispatch_untransform(header: TransformHeader, payload: bytes,
     """Decode the settings from the header and run the untransform."""
     if header.format not in _UNTRANSFORM:
         raise UnsupportedTransformFormat(header.format, LATER_SLICE)
+    untransform, settings_of = _UNTRANSFORM[header.format]
+    if header.format in _MODE_SORT:
+        settings = settings_of(header)
+        try:
+            ops_bc7.original_len(len(payload), settings)
+        except ValueError:
+            raise InvalidDataAlignment(len(payload), _ALIGNMENT[header.format]) from None
+        return untransform(payload, settings, device)
     if len(payload) % _ALIGNMENT[header.format]:
         raise InvalidDataAlignment(len(payload), _ALIGNMENT[header.format])
-    untransform, settings = _UNTRANSFORM[header.format]
-    return untransform(payload, settings(header), device)
+    return untransform(payload, settings_of(header), device)
 
 
 class DdsHandler:
@@ -98,8 +120,9 @@ class DdsHandler:
             raise InputTooShortForStatedTextureSize(end, len(data))
         payload, header = dispatch_transform(fmt, data[start:end], bundle, self.device)
         out = header.to_bytes() + data[TRANSFORM_HEADER_SIZE:start] + payload + data[end:]
-        if len(out) != len(data):
-            raise OutputSizeMismatch(len(data), len(out))
+        expected = len(data) + transformed_payload_len(header, end - start) - (end - start)
+        if len(out) != expected:
+            raise OutputSizeMismatch(expected, len(out))
         return out
 
     def untransform(self, data: bytes) -> bytes:
@@ -109,7 +132,8 @@ class DdsHandler:
         info = parse_dds_ignore_magic(data)
         if info is None:
             raise InvalidRestoredFileHeader("not a parseable (transformed) DDS file")
-        start, end = info.data_offset, info.data_offset + info.data_length
+        start = info.data_offset
+        end = start + transformed_payload_len(header, info.data_length)
         if len(data) < end:
             raise InputTooShortForStatedTextureSize(end, len(data))
         payload = dispatch_untransform(header, data[start:end], self.device)

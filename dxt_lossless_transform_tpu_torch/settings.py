@@ -1,10 +1,11 @@
-"""BC1-BC5 transform settings and the auto-search candidate sets.
+"""BC1-BC7 and BC6H transform settings and the auto-search candidate sets.
 
 Counterpart of ``dxt_lossless_transform_tpu/settings.py`` (``YCoCgVariant``, the
-``Bc1``-``Bc5TransformSettings`` dataclasses, :33-118, and the BC1, BC2 and BC3
-candidate tuples, :133-226), kept as this package's own copy so that the port
-imports nothing of the JAX package. The candidate orders are the reference's: the
-most likely winner comes last, and ties go to the first minimum.
+``Bc1``-``Bc5TransformSettings`` dataclasses, :33-118, the BC1, BC2 and BC3
+candidate tuples, :133-226, and the BC7 and BC6H settings and candidates, :118-145,
+:226-236 and :268-290), kept as this package's own copy so that the port imports
+nothing of the JAX package. The candidate orders are the reference's: the most
+likely winner comes last, and ties go to the first minimum.
 """
 
 from __future__ import annotations
@@ -93,6 +94,36 @@ class Bc5TransformSettings:
             yield Bc5TransformSettings(split)
 
 
+@dataclass(frozen=True)
+class Bc7TransformSettings:
+    """Whether the blocks are stable-sorted by mode id within 4096-block chunks
+    (with a packed 4-bit mode stream in front), and whether the block bytes are
+    written as 16 byte planes. Both off is the identity."""
+
+    sort_by_mode: bool = True
+    split_byte_planes: bool = True
+
+    @staticmethod
+    def all_combinations() -> Iterator["Bc7TransformSettings"]:
+        for sort in (True, False):
+            for planes in (True, False):
+                yield Bc7TransformSettings(sort, planes)
+
+
+@dataclass(frozen=True)
+class Bc6hTransformSettings:
+    """The two knobs of BC7; only the map from byte 0 to the mode id differs."""
+
+    sort_by_mode: bool = True
+    split_byte_planes: bool = True
+
+    @staticmethod
+    def all_combinations() -> Iterator["Bc6hTransformSettings"]:
+        for sort in (True, False):
+            for planes in (True, False):
+                yield Bc6hTransformSettings(sort, planes)
+
+
 BC1_FAST_CANDIDATES: Tuple[Bc1TransformSettings, ...] = (
     Bc1TransformSettings(YCoCgVariant.NONE, False),
     Bc1TransformSettings(YCoCgVariant.NONE, True),
@@ -155,3 +186,18 @@ BC3_COMPREHENSIVE_CANDIDATES: Tuple[Bc3TransformSettings, ...] = tuple(
         (YCoCgVariant.VARIANT1, False, False),
     )
 )
+
+# BC7 and BC6H: identity first, the full mode-aware layout last. The reference has
+# no BC6H COMPREHENSIVE set: its BC6H search always takes the FAST one.
+BC7_FAST_CANDIDATES: Tuple[Bc7TransformSettings, ...] = (
+    Bc7TransformSettings(False, False),
+    Bc7TransformSettings(True, False),
+    Bc7TransformSettings(False, True),
+    Bc7TransformSettings(True, True),
+)
+
+BC7_COMPREHENSIVE_CANDIDATES: Tuple[Bc7TransformSettings, ...] = BC7_FAST_CANDIDATES
+
+BC6H_FAST_CANDIDATES: Tuple[Bc6hTransformSettings, ...] = tuple(
+    Bc6hTransformSettings(c.sort_by_mode, c.split_byte_planes)
+    for c in BC7_FAST_CANDIDATES)

@@ -1,7 +1,7 @@
-"""Deterministic BC1-BC5 test data and DDS files.
+"""Deterministic BC1-BC7 and BC6H test data and DDS files.
 
-This package's copy of the BC1-BC5 parts of
-``dxt_lossless_transform_tpu/utils/testgen.py`` (:25-73, :88-122, :144-183):
+This package's copy of the BC1-BC7 and BC6H parts of
+``dxt_lossless_transform_tpu/utils/testgen.py`` (:25-73, :88-122, :124-183):
 the same seeds give the same bytes, which the tests check. ``chip_smoke.py`` uses
 it, since it cannot import the JAX package.
 """
@@ -20,8 +20,10 @@ _DDSD_MIPMAPCOUNT = 0x20000
 _DDPF_FOURCC = 0x4
 _FOURCC = {"BC1": b"DXT1", "BC2": b"DXT3", "BC3": b"DXT5", "BC4": b"BC4U",
            "BC5": b"ATI2"}
-_DXGI = {"BC1": 71, "BC2": 74, "BC3": 77, "BC4": 80, "BC5": 83}
-_BLOCK_SIZE = {"BC1": 8, "BC2": 16, "BC3": 16, "BC4": 8, "BC5": 16}
+_DXGI = {"BC1": 71, "BC2": 74, "BC3": 77, "BC4": 80, "BC5": 83, "BC6H": 95,
+         "BC7": 98}
+_BLOCK_SIZE = {"BC1": 8, "BC2": 16, "BC3": 16, "BC4": 8, "BC5": 16, "BC6H": 16,
+               "BC7": 16}
 
 
 def from_rgb(r, g, b) -> np.ndarray:
@@ -89,16 +91,32 @@ def bc3_realistic(num_blocks: int, seed: int = 0) -> bytes:
     return words.tobytes()
 
 
-# BC4 and BC5 payloads are uniform-random blocks, as in the reference
+def bc7_realistic(num_blocks: int, seed: int = 0) -> bytes:
+    """Mode-clustered BC7 blocks: a mix of modes 4, 5 and 6 in byte 0 and payload
+    bytes near a shared base, offset by the mode."""
+    rng = np.random.default_rng(seed)
+    modes = rng.choice([4, 5, 6], size=num_blocks, p=[0.2, 0.3, 0.5])
+    blocks = np.zeros((num_blocks, 16), np.uint8)
+    blocks[:, 0] = (1 << modes).astype(np.uint8)
+    base = rng.integers(0, 256, 16, np.uint8)
+    noise = rng.integers(0, 24, (num_blocks, 16), np.uint8)
+    blocks[:, 1:] = (base[None, 1:] + noise[:, 1:]
+                     + (modes[:, None] * 31)).astype(np.uint8)
+    return blocks.tobytes()
+
+
+# BC4 and BC5 payloads are uniform-random blocks and BC6H's are BC7's, as in the
+# reference
 _REALISTIC = {"BC1": bc1_realistic, "BC2": bc2_realistic, "BC3": bc3_realistic,
               "BC4": lambda n, seed: bc_blocks(n, 8, seed),
-              "BC5": lambda n, seed: bc_blocks(n, 16, seed)}
+              "BC5": lambda n, seed: bc_blocks(n, 16, seed),
+              "BC6H": bc7_realistic, "BC7": bc7_realistic}
 
 
-def _check_format(fmt: str) -> None:
-    if fmt not in _FOURCC:
+def _check_format(fmt: str, formats=_FOURCC) -> None:
+    if fmt not in formats:
         raise ValueError(f"unsupported synthetic format {fmt}: this package makes "
-                         f"{', '.join(_FOURCC)}")
+                         f"{', '.join(formats)}")
 
 
 def _chain_blocks(width: int, height: int, mipmaps: int) -> int:
@@ -134,8 +152,9 @@ def make_dds(fmt: str, width: int, height: int, mipmaps: int = 1, seed: int = 0,
 def make_dx10_dds(fmt: str, width: int, height: int, mipmaps: int = 1,
                   seed: int = 0, trailing: bytes = b"",
                   payload: bytes = None) -> bytes:
-    """A DX10-header BC1-BC5 DDS file (payload at 0x94)."""
-    _check_format(fmt)
+    """A DX10-header BC1-BC7 or BC6H DDS file (payload at 0x94), the only container
+    form of BC6H and BC7."""
+    _check_format(fmt, _DXGI)
     n = _chain_blocks(width, height, mipmaps)
     if payload is None:
         payload = _REALISTIC[fmt](n, seed)

@@ -15,8 +15,11 @@ CUDA-event medians of N launches, the 50 MB L2 flushed before each, as
 ``dlt_bc3_transform`` and ``dlt_bc3_untransform`` (variant 1, split alpha, split
 colour) and ``dlt_bc3_regions`` (COMPREHENSIVE). For both files it takes the host
 wall time of the whole FAST auto-transform of the file through ``DdsHandler`` and of
-its untransform (medians of 5, ``file_s``). Prints the ``nvidia-smi`` line and one
-JSON object.
+its untransform (medians of 5, ``file_s``). Where the checkout has the BC7/BC6H
+slice (``ops/cuda/planes.py``), it also times ``dlt_bc7_transform`` and
+``dlt_bc7_untransform`` (sort and planes) on the 4096x4096 BC7 DX10 file of
+``chip_smoke.py`` and that file's LTU auto-transform and untransform. Prints the
+``nvidia-smi`` line and one JSON object.
 """
 
 from __future__ import annotations
@@ -112,6 +115,22 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - start)
         return statistics.median(times)
+
+    try:
+        from dxt_lossless_transform_tpu_torch.api import Bc7AutoTransformBuilder
+        from dxt_lossless_transform_tpu_torch.ops.cuda import planes
+        from dxt_lossless_transform_tpu_torch.utils.testgen import make_dx10_dds
+    except ImportError:  # a checkout from before the BC7/BC6H slice
+        planes = None
+    if planes is not None:
+        dds["BC7"] = make_dx10_dds("BC7", 4096, 4096, 13, seed=7)
+        bundles["BC7"] = TransformBundle(bc7=Bc7AutoTransformBuilder(LtuEstimation()))
+        x7 = backend.upload(dds["BC7"][0x94:], dev)
+        t7 = planes.bc7_transform(x7, planes.BC7, True, True)
+        ms["dlt_bc7_transform"] = event_ms(
+            lambda: planes.bc7_transform(x7, planes.BC7, True, True))
+        ms["dlt_bc7_untransform"] = event_ms(
+            lambda: planes.bc7_untransform(t7, n, True, True))
 
     file_s = {}
     for fmt, data in dds.items():

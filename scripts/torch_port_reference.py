@@ -11,7 +11,19 @@ streams, as ``ops/bc45.py`` does), the pick (first minimum), and the sha256 of t
 file that the JAX package's ``DdsHandler`` writes with that pick through its manual
 builder. For BC2, BC4 and BC5 it also runs the JAX package's own auto-search on
 the payload and prints whether its pick agrees (``jax_pick_agrees``): above 2**24
-its device scorer sums in f32, so it may differ on a near tie. Runs on the CPU:
+its device scorer sums in f32, so it may differ on a near tie.
+
+For BC7 and BC6H it builds the DX10 files of the smoke run (BC7: the JAX package's
+``bc7_realistic`` payload; BC6H: uniform random blocks, ``bc_blocks``) and prints each
+FAST candidate's whole transformed stream's exact score (the native exact twin
+``runtime.ltu_estimate``) and the JAX package's own f32 scores (its
+``LtuEstimation.estimate_batch``), the exact pick and JAX's, the zstd-1 sizes of
+every candidate's stream through the native runtime, the identity guard's decision
+on the exact pick (``kept``, ``identity`` or ``not applied``), the shipped
+settings, the sha256 of the file the JAX package's ``DdsHandler`` writes with them,
+whether the JAX package's own auto builder writes the same file
+(``jax_shipped_agrees``), and the sha256 of the manual default (sort and planes).
+Runs on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py [--formats BC2 BC4]
 """
@@ -29,9 +41,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from dxt_lossless_transform_tpu import runtime  # noqa: E402
 from dxt_lossless_transform_tpu.api import (  # noqa: E402
     Bc1ManualTransformBuilder, Bc2ManualTransformBuilder, Bc3ManualTransformBuilder,
-    Bc4ManualTransformBuilder, Bc5ManualTransformBuilder,
+    Bc4ManualTransformBuilder, Bc5ManualTransformBuilder, Bc6hAutoTransformBuilder,
+    Bc6hManualTransformBuilder, Bc7AutoTransformBuilder, Bc7ManualTransformBuilder,
 )
 from dxt_lossless_transform_tpu.estimate.ltu import LtuEstimation  # noqa: E402
 from dxt_lossless_transform_tpu.estimate.ltu import (  # noqa: E402
@@ -41,15 +55,21 @@ from dxt_lossless_transform_tpu.formats.bundle import TransformBundle  # noqa: E
 from dxt_lossless_transform_tpu.formats.handlers import DdsHandler  # noqa: E402
 from dxt_lossless_transform_tpu.ops import auto as jax_auto, bc45 as jax_bc45  # noqa: E402
 from dxt_lossless_transform_tpu.ops.auto import _host_colour_regions  # noqa: E402
+from dxt_lossless_transform_tpu.oracle import bc6h as oracle_bc6h  # noqa: E402
+from dxt_lossless_transform_tpu.oracle import bc7 as oracle_bc7  # noqa: E402
 from dxt_lossless_transform_tpu.oracle.bc4 import _ep_streams  # noqa: E402
 from dxt_lossless_transform_tpu.settings import (  # noqa: E402
     BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
     BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
-    Bc4TransformSettings, Bc5TransformSettings,
+    BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, Bc4TransformSettings,
+    Bc5TransformSettings,
 )
-from dxt_lossless_transform_tpu.utils.testgen import make_dds  # noqa: E402
+from dxt_lossless_transform_tpu.utils.testgen import (  # noqa: E402
+    bc_blocks, make_dds, make_dx10_dds,
+)
 
 SIZE, MIPS, SEED = 4096, 13, 7
+BLOCKS = 1398103  # blocks of a 4096x4096 chain of 13 levels
 
 
 def _score(row: bytes) -> int:
@@ -57,6 +77,8 @@ def _score(row: bytes) -> int:
 
 
 def _key(settings) -> list:
+    if hasattr(settings, "sort_by_mode"):
+        return [settings.sort_by_mode, settings.split_byte_planes]
     if hasattr(settings, "split_endpoints"):
         return [settings.split_endpoints]
     return ([int(settings.decorrelation_mode)]
@@ -164,8 +186,55 @@ def bc45(fmt: str) -> dict:
     return result
 
 
+def mode_sort(fmt: str) -> dict:
+    if fmt == "BC7":
+        dds = make_dx10_dds("BC7", SIZE, SIZE, MIPS, seed=SEED)
+        oracle, cand = oracle_bc7, BC7_FAST_CANDIDATES
+        manual, auto = Bc7ManualTransformBuilder, Bc7AutoTransformBuilder
+    else:
+        dds = make_dx10_dds("BC6H", SIZE, SIZE, MIPS,
+                            payload=bc_blocks(BLOCKS, 16, SEED))
+        oracle, cand = oracle_bc6h, BC6H_FAST_CANDIDATES
+        manual, auto = Bc6hManualTransformBuilder, Bc6hAutoTransformBuilder
+    payload = dds[0x94:]
+    streams = [oracle.transform(payload, c) for c in cand]
+    scores = [runtime.ltu_estimate(row) for row in streams]
+    jax_scores = [float(v) for v in LtuEstimation().estimate_batch(streams)]
+    best = int(np.argmin(scores))
+    sizes = runtime.zstd_estimate_batch(streams, 1)
+    ident = cand.index(next(c for c in cand
+                            if not c.sort_by_mode and not c.split_byte_planes))
+    if best == ident:
+        guard, shipped = "not applied", ident
+    else:
+        guard, shipped = (("kept", best) if sizes[best] < sizes[ident]
+                          else ("identity", ident))
+    handler = DdsHandler()
+    slot = fmt.lower()
+    out = handler.transform_bundle(dds, TransformBundle(**{slot: manual(cand[shipped])}))
+    start = time.perf_counter()
+    jax_out = handler.transform_bundle(
+        dds, TransformBundle(**{slot: auto(LtuEstimation())}))
+    return {
+        "blocks": len(payload) // 16, "payload_bytes": len(payload),
+        "file_sha256": hashlib.sha256(dds).hexdigest(),
+        "auto": {
+            "scores": scores, "pick": _key(cand[best]), "jax_scores": jax_scores,
+            "jax_pick": _key(cand[int(np.argmin(jax_scores))]),
+            "jax_pick_agrees": int(np.argmin(jax_scores)) == best,
+            "zstd1_sizes": sizes, "guard": guard, "shipped": _key(cand[shipped]),
+            "sha256": hashlib.sha256(out).hexdigest(),
+            "jax_shipped_agrees": jax_out == out,
+            "jax_search_s": round(time.perf_counter() - start, 1),
+            "transformed_bytes": len(out)},
+        "manual_default_sha256": hashlib.sha256(handler.transform_bundle(
+            dds, TransformBundle(**{slot: manual()}))).hexdigest(),
+    }
+
+
 FORMATS = {"BC1": bc1, "BC2": bc2, "BC3": bc3, "BC4": lambda: bc45("BC4"),
-           "BC5": lambda: bc45("BC5")}
+           "BC5": lambda: bc45("BC5"), "BC7": lambda: mode_sort("BC7"),
+           "BC6H": lambda: mode_sort("BC6H")}
 
 
 def main() -> None:

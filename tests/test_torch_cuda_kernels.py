@@ -1,4 +1,4 @@
-"""The fourteen CUDA kernels against their plain versions, on the card.
+"""The sixteen CUDA kernel entry points against their plain versions, on the card.
 
 Marked ``cuda``: without a CUDA device they skip. On a machine with one (and
 without JAX, which ``tests/conftest.py`` imports):
@@ -13,13 +13,14 @@ import torch
 from dxt_lossless_transform_tpu_torch import backend
 from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
 from dxt_lossless_transform_tpu_torch.estimate.ltu import DEFAULT_OFFSETS, offset_weight
-from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
-from dxt_lossless_transform_tpu_torch.ops import auto, bc45
+from dxt_lossless_transform_tpu_torch.ops.cuda import planes, regions, shuffle
+from dxt_lossless_transform_tpu_torch.ops import auto, bc45, bc6h, bc7
 from dxt_lossless_transform_tpu_torch.settings import (
     BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
     BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
     Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
-    Bc4TransformSettings, Bc5TransformSettings,
+    BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, Bc4TransformSettings,
+    Bc5TransformSettings,
 )
 
 pytestmark = pytest.mark.cuda
@@ -238,6 +239,8 @@ def test_each_wrapper_counts_its_launches(cuda):
     regions.bc2_regions(x, ((1, True),))
     shuffle.bc4_untransform(shuffle.bc4_transform(x, True), True)
     shuffle.bc5_untransform(shuffle.bc5_transform(x, False), False)
+    planes.bc7_untransform(planes.bc7_transform(x, planes.BC6H, True, True), 32, True,
+                           True)
     torch.cuda.synchronize()
     assert backend.LAUNCHES == {"dlt_bc1_transform": 1, "dlt_bc1_untransform": 1,
                                 "dlt_bc1_regions": 1, "dlt_ltu_counts": 1,
@@ -245,7 +248,8 @@ def test_each_wrapper_counts_its_launches(cuda):
                                 "dlt_bc3_regions": 1, "dlt_bc2_transform": 1,
                                 "dlt_bc2_untransform": 1, "dlt_bc2_regions": 1,
                                 "dlt_bc4_transform": 1, "dlt_bc4_untransform": 1,
-                                "dlt_bc5_transform": 1, "dlt_bc5_untransform": 1}
+                                "dlt_bc5_transform": 1, "dlt_bc5_untransform": 1,
+                                "dlt_bc7_transform": 1, "dlt_bc7_untransform": 1}
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -267,6 +271,12 @@ def test_wrappers_check_their_inputs(cuda):
         shuffle.bc5_transform(torch.zeros(40, dtype=torch.uint8, device=cuda)[8:], True)
     with pytest.raises(ValueError):
         shuffle.bc4_transform(torch.zeros(20, dtype=torch.uint8, device=cuda)[4:], True)
+    with pytest.raises(ValueError):  # the transform reads 16-byte blocks
+        planes.bc7_transform(torch.zeros(40, dtype=torch.uint8, device=cuda)[8:], 0,
+                             True, True)
+    with pytest.raises(ValueError):  # the untransform reads aligned words
+        planes.bc7_untransform(torch.zeros(36, dtype=torch.uint8, device=cuda)[2:], 2,
+                               True, True)
 
 
 def test_short_inputs_on_the_card(cuda):
@@ -286,3 +296,82 @@ def test_short_inputs_on_the_card(cuda):
             (b"", BC2_FAST_CANDIDATES[-1])
         assert bc45.transform_bc5_auto(bytes(size), LtuEstimation()) == \
             (b"", Bc5TransformSettings(False))
+
+
+# the sizes of the CPU tests, and two more chunks' worth with a ragged tail
+BC7_SIZES = [1, 2, 3, 4095, 4096, 4097, 8197, 70001]
+
+
+def _bc7_blocks(n, dev, kind):
+    rng = np.random.default_rng(n)
+    if kind == "random":
+        blocks = rng.integers(0, 256, (n, 16), np.uint8)
+        blocks[rng.random(n) < 0.125, 0] = 0  # BC7's invalid id 8
+    else:
+        modes = rng.choice([4, 5, 6], size=n, p=[0.2, 0.3, 0.5])
+        blocks = rng.integers(0, 24, (n, 16), np.uint8)
+        blocks[:, 0] = (1 << modes).astype(np.uint8)
+    return torch.from_numpy(blocks.reshape(-1)).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["random", "realistic"])
+@pytest.mark.parametrize("n", BC7_SIZES)
+@pytest.mark.parametrize("planes_", [True, False], ids=["planes", "blocks"])
+@pytest.mark.parametrize("sort", [True, False], ids=["sort", "nosort"])
+@pytest.mark.parametrize("fmt", [planes.BC7, planes.BC6H], ids=["bc7", "bc6h"])
+def test_bc7_kernels(cuda, fmt, sort, planes_, n, kind):
+    x = _bc7_blocks(n, cuda, kind)
+    t = planes.bc7_transform(x, fmt, sort, planes_)
+    assert torch.equal(t, planes.bc7_transform_plain(x, fmt, sort, planes_))
+    u = planes.bc7_untransform(t, n, sort, planes_)
+    assert torch.equal(u, planes.bc7_untransform_plain(t, n, sort, planes_))
+    assert torch.equal(u, x)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 5])
+def test_bc7_transform_into_unaligned_rows(cuda, offset):
+    """The search writes each candidate into a row of one tensor: any alignment."""
+    n = 4099
+    x = _bc7_blocks(n, cuda, "realistic")
+    length = planes.transformed_len(n, True)
+    buf = torch.full((length + 16,), 0xAB, dtype=torch.uint8, device=cuda)
+    planes.bc7_transform(x, planes.BC7, True, True, out=buf[offset:offset + length])
+    assert torch.equal(buf[offset:offset + length],
+                       planes.bc7_transform_plain(x, planes.BC7, True, True))
+    assert bool((buf[:offset] == 0xAB).all()) and bool((buf[offset + length:] == 0xAB).all())
+
+
+@pytest.mark.parametrize("fmt", ["BC7", "BC6H"])
+def test_bc7_auto_on_the_card(cuda, fmt):
+    """The search on the card: the same scores, pick and bytes as its plain versions
+    on the CPU."""
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+
+    search, fmt_id, cand = {"BC7": (bc7.transform_bc7_auto, planes.BC7,
+                                    BC7_FAST_CANDIDATES),
+                            "BC6H": (bc6h.transform_bc6h_auto, planes.BC6H,
+                                     BC6H_FAST_CANDIDATES)}[fmt]
+    for kind in ("random", "realistic"):
+        data = _bc7_blocks(30001, "cpu", kind).numpy().tobytes()
+        assert search(data, LtuEstimation()) == search(data, LtuEstimation(),
+                                                       device="cpu")
+        x = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        on_card, _ = bc7.candidate_streams(x.to(cuda), fmt_id, LtuEstimation(), cand, fmt)
+        on_cpu, _ = bc7.candidate_streams(x, fmt_id, LtuEstimation(), cand, fmt)
+        assert on_card.tolist() == on_cpu.tolist()
+
+
+def test_bc7_short_inputs_on_the_card(cuda):
+    from dxt_lossless_transform_tpu_torch.errors import (
+        Bc6hValidationError, Bc7ValidationError,
+    )
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+
+    assert bc7.transform_bc7_auto(b"", LtuEstimation()) == (b"", BC7_FAST_CANDIDATES[-1])
+    assert bc6h.transform_bc6h_auto(b"", LtuEstimation()) == \
+        (b"", BC6H_FAST_CANDIDATES[-1])
+    for size in (1, 15, 17):
+        with pytest.raises(Bc7ValidationError):
+            bc7.transform_bc7_auto(bytes(size), LtuEstimation())
+        with pytest.raises(Bc6hValidationError):
+            bc6h.transform_bc6h_auto(bytes(size), LtuEstimation())

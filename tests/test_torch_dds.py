@@ -98,13 +98,13 @@ def test_non_bc1_dds_raises_as_jax(fmt):
 
 
 def test_non_bc1_header_is_unsupported_on_untransform():
-    """A format of a later slice (BC7 here; BC2-BC5 are ported) raises on
-    untransform."""
-    data = jax_testgen.make_dx10_dds("BC7", 8, 8)
-    from dxt_lossless_transform_tpu.api import Bc7ManualTransformBuilder
+    """A format of a later slice (RGBA8888 here; BC2-BC7 and BC6H are ported) raises
+    on untransform."""
+    data = jax_testgen.make_uncompressed_dds("rgba8888", 8, 8)
+    from dxt_lossless_transform_tpu.api import RgbManualTransformBuilder
 
     transformed = JaxHandler().transform_bundle(
-        data, JaxBundle(bc7=Bc7ManualTransformBuilder()))
+        data, JaxBundle(rgba8888=RgbManualTransformBuilder("rgba8888")))
     with pytest.raises(errors.UnsupportedTransformFormat, match="later slice"):
         DdsHandler("cpu").untransform(transformed)
 

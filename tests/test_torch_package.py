@@ -19,15 +19,16 @@ from dxt_lossless_transform_tpu_torch.api import (
     Bc1AutoTransformBuilder, Bc1ManualTransformBuilder, Bc2AutoTransformBuilder,
     Bc2ManualTransformBuilder, Bc3AutoTransformBuilder, Bc3ManualTransformBuilder,
     Bc4AutoTransformBuilder, Bc4ManualTransformBuilder, Bc5AutoTransformBuilder,
-    Bc5ManualTransformBuilder,
+    Bc5ManualTransformBuilder, Bc6hAutoTransformBuilder, Bc6hManualTransformBuilder,
+    Bc7AutoTransformBuilder, Bc7ManualTransformBuilder,
 )
 from dxt_lossless_transform_tpu_torch.errors import DeviceUnavailableError
 from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
 from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
 from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
 from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
-from dxt_lossless_transform_tpu_torch.ops import auto, bc1, bc2, bc3, bc45
-from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
+from dxt_lossless_transform_tpu_torch.ops import auto, bc1, bc2, bc3, bc45, bc6h, bc7
+from dxt_lossless_transform_tpu_torch.ops.cuda import planes, regions, shuffle
 from dxt_lossless_transform_tpu_torch.utils import testgen
 
 REPO = Path(__file__).resolve().parent.parent
@@ -56,7 +57,8 @@ def test_scan_covers_the_package():
             "estimate/cuda_ltu.py", "formats/handlers.py", "api.py", "ops/bc3.py",
             "ops/auto.py", "formats/bundle.py", "formats/embed.py", "convert.py",
             "settings.py", "errors.py", "utils/testgen.py", "ops/bc2.py",
-            "ops/bc45.py"} <= names
+            "ops/bc45.py", "ops/bc7.py", "ops/bc6h.py", "ops/cuda/planes.py",
+            "estimate/zstd.py"} <= names
 
 
 def test_import_builds_nothing_and_imports_no_triton():
@@ -72,6 +74,8 @@ def test_import_builds_nothing_and_imports_no_triton():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('triton', 'jax', 'zstandard', 'dxt_lossless_transform_tpu')]\n"
         "assert not bad, bad\n"
+        "from dxt_lossless_transform_tpu_torch.estimate import zstd\n"
+        "assert zstd._lib is None\n"
         "print('ok')\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -132,6 +136,26 @@ ENTRY_POINTS = {
         DdsHandler("cpu").transform_bundle(testgen.make_dds("BC5", 16, 16),
                                            TransformBundle(
                                                bc5=Bc5ManualTransformBuilder()))),
+    "bc7.transform": lambda: bc7.transform(DATA),
+    "bc7.untransform": lambda: bc7.untransform(DATA),
+    "bc7.transform identity": lambda: bc7.transform(
+        DATA, settings.Bc7TransformSettings(False, False)),
+    "bc7.transform_bc7_auto": lambda: bc7.transform_bc7_auto(DATA, LtuEstimation()),
+    "bc7 manual builder": lambda: Bc7ManualTransformBuilder().transform(DATA),
+    "bc7 auto builder": lambda: Bc7AutoTransformBuilder(LtuEstimation()).transform(DATA),
+    "bc6h.transform": lambda: bc6h.transform(DATA),
+    "bc6h.untransform": lambda: bc6h.untransform(DATA),
+    "bc6h.transform_bc6h_auto": lambda: bc6h.transform_bc6h_auto(DATA, LtuEstimation()),
+    "bc6h manual builder": lambda: Bc6hManualTransformBuilder().transform(DATA),
+    "bc6h auto builder": lambda: Bc6hAutoTransformBuilder(
+        LtuEstimation()).transform(DATA),
+    "DdsHandler.transform_bundle bc7": lambda: DdsHandler().transform_bundle(
+        testgen.make_dx10_dds("BC7", 16, 16), TransformBundle(
+            bc7=Bc7AutoTransformBuilder(LtuEstimation()))),
+    "DdsHandler.untransform bc6h": lambda: DdsHandler().untransform(
+        DdsHandler("cpu").transform_bundle(testgen.make_dx10_dds("BC6H", 16, 16),
+                                           TransformBundle(
+                                               bc6h=Bc6hManualTransformBuilder()))),
 }
 
 
@@ -162,6 +186,12 @@ def test_cpu_tensors_take_the_plain_versions():
                                                    split), x)
         assert torch.equal(shuffle.bc5_untransform(shuffle.bc5_transform(x, split),
                                                    split), x)
+    for fmt in (planes.BC7, planes.BC6H):
+        for sort in (True, False):
+            for split in (True, False):
+                t7 = planes.bc7_transform(x, fmt, sort, split)
+                assert torch.equal(planes.bc7_untransform(t7, x.numel() // 16, sort,
+                                                          split), x)
     assert all(count == 0 for count in backend.LAUNCHES.values())
 
 
@@ -183,7 +213,8 @@ def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
     assert path.parent == REPO / "build" / "cuda"
     assert path.name.startswith("libdlt_kernels_") and path.suffix == ".so"
     assert [p.name for p in backend.sources()] == ["bc1_kernels.cu", "bc2_kernels.cu",
-                                                   "bc3_kernels.cu", "bc45_kernels.cu"]
+                                                   "bc3_kernels.cu", "bc45_kernels.cu",
+                                                   "bc7_kernels.cu"]
     # every source and header is in the hash
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -191,7 +222,8 @@ def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
         (csrc / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(backend, "CSRC", csrc)
     assert backend.library_path() == path
-    for name in ("common.cuh", "bc3_kernels.cu", "bc2_kernels.cu", "bc45_kernels.cu"):
+    for name in ("common.cuh", "bc3_kernels.cu", "bc2_kernels.cu", "bc45_kernels.cu",
+                 "bc7_kernels.cu"):
         (csrc / name).write_bytes((csrc / name).read_bytes() + b"\n")
         changed = backend.library_path()
         assert changed != path
@@ -210,8 +242,8 @@ def test_convert_bc3_from_reference():
         list(settings.Bc3TransformSettings.all_combinations())
     assert convert.from_reference(jax_settings.Bc3TransformSettings()) == \
         settings.Bc3TransformSettings()
-    with pytest.raises(TypeError):  # BC7 comes with a later slice
-        convert.from_reference(jax_settings.Bc7TransformSettings())
+    with pytest.raises(TypeError):  # the RGB formats come with a later slice
+        convert.from_reference(jax_settings.RgbTransformSettings())
 
 
 def test_convert_bc2_bc4_bc5_from_reference():
@@ -276,7 +308,8 @@ def test_build_writes_the_hash_named_library_once(tmp_path, monkeypatch):
     assert backend.build() == (path, "")  # already built: nvcc is not called again
     # one nvcc call for every source
     assert (bindir / "log").read_text() == \
-        "call bc1_kernels.cu bc2_kernels.cu bc3_kernels.cu bc45_kernels.cu \n"
+        "call bc1_kernels.cu bc2_kernels.cu bc3_kernels.cu bc45_kernels.cu " \
+        "bc7_kernels.cu \n"
 
 
 def test_build_failure_raises_and_leaves_nothing(tmp_path, monkeypatch):
@@ -294,3 +327,28 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(backend, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(DeviceUnavailableError, match="nvcc"):
         backend.build()
+
+
+def test_imports_without_zstandard_and_loads_zstd_only_when_asked():
+    """The package imports where no ``zstandard`` module can be found; the system
+    zstd library is loaded by the first :class:`ZstdEstimation` only."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] == 'zstandard':\n"
+        "            raise ImportError('no zstandard here')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import dxt_lossless_transform_tpu_torch as p, importlib, pkgutil\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from dxt_lossless_transform_tpu_torch.estimate import zstd\n"
+        "assert zstd._lib is None\n"
+        "assert zstd.ZstdEstimation(1).estimate(bytes(1000)) > 0\n"
+        "assert 'zstandard' not in sys.modules\n"
+        "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
