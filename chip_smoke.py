@@ -9,10 +9,10 @@ Phases, each printed as a JSON line with its wall time:
 1. device: the card as ``nvidia-smi`` names it, its power limit, the PyTorch build,
    and the zstd library that the BC7/BC6H identity guard loads (its path and
    ``ZSTD_versionNumber()``);
-2. build: the one ``nvcc`` call that builds the sixteen kernel entry points from
-   the five sources ``csrc/bc1_kernels.cu``, ``bc2_kernels.cu``, ``bc3_kernels.cu``,
-   ``bc45_kernels.cu`` and ``bc7_kernels.cu`` into one library under
-   ``build/cuda/`` (skipped when that library is already built);
+2. build: the one ``nvcc`` call that builds the eighteen kernel entry points from
+   the six sources ``csrc/bc1_kernels.cu``, ``bc2_kernels.cu``, ``bc3_kernels.cu``,
+   ``bc45_kernels.cu``, ``bc7_kernels.cu`` and ``rgb_kernels.cu`` into one library
+   under ``build/cuda/`` (skipped when that library is already built);
 3. check: each kernel against its plain PyTorch version, both on the card, byte for
    byte and for scores as exact integers: every setting (8 for BC1 and BC2, 16 for
    BC3, 2 for BC4 and BC5), n in {1, 3, 2048, 1,398,103} blocks, the FAST and
@@ -22,22 +22,36 @@ Phases, each printed as a JSON line with its wall time:
    BC7/BC6H mode-sort kernels for all 4 settings of both formats, n in {1, 2, 3,
    4095, 4096, 4097, 1,398,103}, on realistic BC7 blocks and on random blocks with
    some byte 0 forced to 0; the identity guard's two outcomes on a small input;
-   empty and unaligned input through both mode-sort auto-searches;
+   empty and unaligned input through both mode-sort auto-searches; the RGB channel
+   kernels for the three non-identity settings of RGBA8888, BGRA8888 and BGR888,
+   both directions, n in {1, 2, 3, 4, 5, 4095, 4096, 4097, 16,777,216} pixels, with
+   input and output rows at byte offsets 1-3 into larger tensors, and the count
+   kernel on their candidate rows at odd n; empty, unaligned and shorter-than-a-pixel
+   input through the RGB auto-search;
 4. main: the production path through the entry points a user calls, one path per
    format: a 4096x4096 DDS file of each of BC1-BC5, BC7 and BC6H, each with its full
    13-level mip chain (1,398,103 blocks; payloads of 11,184,824 bytes for BC1 and
    BC4 and 22,369,648 for the others), auto-transformed under the LTU estimator
    (with the FAST and the COMPREHENSIVE candidates for BC1-BC3; BC7 and BC6H also
-   through the manual default, sort and planes), then untransformed. The files must
-   come back byte-identical, and the picks, the exact integer scores, the identity
+   through the manual default, sort and planes), then untransformed; and a
+   4096x4096 RGBA8888, BGRA8888 and BGR888 file each (one level, payloads of
+   67,108,864, 67,108,864 and 50,331,648 bytes), written to a temporary directory
+   and transformed file to file through ``transform_file_with_multiple_handlers``
+   with the RGB auto builders under LTU, then through ``TransformBundle.default_all()``
+   (decorrelate and split), each untransformed file to file. The files must come
+   back byte-identical, and the picks, the exact integer scores, the identity
    guard's decision and the transformed files' sha256 must equal the JAX package's
    (constants below). The launch counts are set to 0 just before each path and read
-   just after it; every kernel of the path must have been launched in it;
+   just after it; every kernel of the path must have been launched in it (an RGB
+   file's load path launches nothing when the identity wins);
 5. times: CUDA-event medians of each kernel at the main path's shapes beside its
    plain version and its bound (the mode-sort kernels in every setting, with the
-   ``.t().contiguous()`` call that computes the planes-only layout), and the wall
-   time of one transform and one untransform of each file, with the host<->device
-   copies, the search and the identity guard's zstd time shown apart.
+   ``.t().contiguous()`` call that computes the planes-only layout; the RGB kernels
+   in every setting of each layout, with the same call for the split-only layout;
+   the count kernel on each RGB file's four candidate rows), and the wall time of
+   one transform and one untransform of each file, with the host<->device copies,
+   the search, the identity guard's zstd time and the RGB files' reads and writes
+   shown apart.
 
 The last three lines are the ``nvidia-smi`` line, a JSON line with every kernel's
 numbers and ``{"ok": true, "device": {...}}``. Any mismatch, build failure or
@@ -54,7 +68,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 TIME_LIMIT_S = 1100
 
@@ -128,6 +144,36 @@ MODE_SORT = ("BC7", "BC6H")
 MODE_SORT_SHA256 = {
     "BC7": "aa2b2dfc9902e6e846d115579d2e5f4d6f3405e4ace17deaed619a8d0f2fa949",
     "BC6H": "4bda99af0ec06fb96c93b34e07f7394919281f1caeb87dda5fd480a89f6144bc"}
+# The uncompressed files: make_uncompressed_dds(layout, 4096, 4096, seed=7), one
+# level. The FAST candidates (identity, decorrelate, split, decorrelate+split), each
+# scored on its whole transformed stream; the pick as (decorrelate, split);
+# "default_all" is the sha256 of the file TransformBundle.default_all() writes
+# (decorrelate and split). The JAX package's own search picks the same on all three.
+RGB = ("RGBA8888", "BGRA8888", "BGR888")
+RGB_PIXELS = SIZE * SIZE
+RGB_SHA256 = {
+    "RGBA8888": "e03b0fe4687eaaeb92c0b79b1e3213a1e5f8b4cbfba5e9a262e24376af0dad80",
+    "BGRA8888": "3103925193010c8cf3e2ce8940f7223efd7a27a74ae4cb732a7f6d11f1e91bc0",
+    "BGR888": "ed7065f9efc4c6f9b872568707f1cba674ad21dc225b75e6215c987e7ae9facd"}
+RGB_REFERENCE = {
+    "RGBA8888": {"scores": [1596437097, 1598482730, 1206520930, 1207306008],
+                 "pick": (False, True),
+                 "sha256": "9656b21a6ae1f0bfeaf5c609ebf53061c49f1d14781dc38b72874419e465f43c",
+                 "default_all": "17fe343433e4af1a43ee955ef1762f2a549cc229212a8431845a7972f144a868"},
+    "BGRA8888": {"scores": [1596437097, 1598482730, 1206520930, 1207306008],
+                 "pick": (False, True),
+                 "sha256": "c611b81764cdc77c6085bb645447f2ac0c1ce9d6187e7427eaab54928fdda3f3",
+                 "default_all": "78e4f2bf21281426f2c0ea6ff44aa3dc7138a8076dbfa77fe1b1181a809a2f5d"},
+    "BGR888": {"scores": [1207619722, 1207718637, 1206520834, 1207305912],
+               "pick": (False, True),
+               "sha256": "567fbfea0e8f38033639fc7714f4845943db092cd2fb805bac2c431532f48409",
+               "default_all": "45b33b526b029d5c15d11b800b8abcd4226c7bd606fc7346c40ee10f32b9e2b4"},
+}
+# the RGB kernels' pixel counts in the check phase, and their non-identity settings
+RGB_SIZES = (1, 2, 3, 4, 5, 4095, 4096, 4097, RGB_PIXELS)
+RGB_SETTINGS = ((True, True), (True, False), (False, True))
+# (input, output) byte offsets of the checked rows
+RGB_OFFSETS = ((0, 0), (1, 2), (2, 3), (3, 1))
 
 CSRC = "dxt_lossless_transform_tpu_torch/csrc/"
 # kernel -> (source, the TPU kernel it replaces)
@@ -167,12 +213,19 @@ KERNELS = {
     # also planes.py:218 and :186 (merge_planes_tpu, split_cols_tpu)
     "dlt_bc7_untransform": ("bc7_kernels.cu",
                             "dxt_lossless_transform_tpu/ops/pallas/planes.py:116"),
+    # also channels.py:158 (split_bgr_tpu)
+    "dlt_rgb_transform": ("rgb_kernels.cu",
+                          "dxt_lossless_transform_tpu/ops/pallas/channels.py:58"),
+    # also channels.py:197 (merge_bgr_tpu)
+    "dlt_rgb_untransform": ("rgb_kernels.cu",
+                            "dxt_lossless_transform_tpu/ops/pallas/channels.py:92"),
 }
 # the kernels of each format's path: its shuffles, its region kernel if it has one,
 # and the count kernel that scores every auto-search; BC6H shares BC7's kernels
 PATH_KERNELS = {fmt: [name for name in KERNELS if name.startswith(f"dlt_{fmt.lower()}_")]
                 + ["dlt_ltu_counts"] for fmt in FORMATS + ("BC7",)}
 PATH_KERNELS["BC6H"] = PATH_KERNELS["BC7"]
+RGB_KERNELS = ("dlt_rgb_transform", "dlt_rgb_untransform", "dlt_ltu_counts")
 # the mode-sort kernels' block counts in the check phase
 MODE_SORT_SIZES = (1, 2, 3, 4095, 4096, 4097, BLOCKS)
 # rows for the count kernel's many-rows case: more than one launch's grid.y (65,535)
@@ -238,28 +291,30 @@ def main() -> int:
         Bc1AutoTransformBuilder, Bc2AutoTransformBuilder, Bc3AutoTransformBuilder,
         Bc4AutoTransformBuilder, Bc5AutoTransformBuilder, Bc6hAutoTransformBuilder,
         Bc6hManualTransformBuilder, Bc7AutoTransformBuilder, Bc7ManualTransformBuilder,
+        RgbAutoTransformBuilder,
     )
     from dxt_lossless_transform_tpu_torch.errors import (
-        Bc6hValidationError, Bc7ValidationError,
+        Bc6hValidationError, Bc7ValidationError, RgbValidationError,
     )
     from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu, zstd
     from dxt_lossless_transform_tpu_torch.estimate.ltu import (
         DEFAULT_OFFSETS, LtuEstimation, coverage_scores, offset_weight,
     )
+    from dxt_lossless_transform_tpu_torch.formats import file_io
     from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
     from dxt_lossless_transform_tpu_torch.formats.embed import TransformHeader
     from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
-    from dxt_lossless_transform_tpu_torch.ops import auto, bc45, bc6h, bc7
-    from dxt_lossless_transform_tpu_torch.ops.cuda import planes, regions, shuffle
+    from dxt_lossless_transform_tpu_torch.ops import auto, bc45, bc6h, bc7, rgb
+    from dxt_lossless_transform_tpu_torch.ops.cuda import channels, planes, regions, shuffle
     from dxt_lossless_transform_tpu_torch.settings import (
         BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
         BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
-        BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, Bc1TransformSettings,
-        Bc2TransformSettings, Bc3TransformSettings, Bc4TransformSettings,
-        Bc5TransformSettings, Bc7TransformSettings,
+        BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, RGB_FAST_CANDIDATES,
+        Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
+        Bc4TransformSettings, Bc5TransformSettings, Bc7TransformSettings,
     )
     from dxt_lossless_transform_tpu_torch.utils.testgen import (
-        bc7_realistic, bc_blocks, make_dds, make_dx10_dds,
+        bc7_realistic, bc_blocks, make_dds, make_dx10_dds, make_uncompressed_dds,
     )
 
     dev = torch.device("cuda", 0)
@@ -513,9 +568,74 @@ def main() -> int:
             except error:
                 continue
             fail(f"{search.__name__} of {size} bytes did not raise {error.__name__}")
+    # the RGB channel kernels: the non-identity settings of each layout, both
+    # directions, input and output rows at byte offsets 1-3 into larger tensors (the
+    # bytes around them must stay as they were); the main files' payloads at n =
+    # 16,777,216
+    rgb_dds = {fmt: make_uncompressed_dds(fmt.lower(), SIZE, SIZE, seed=SEED)
+               for fmt in RGB}
+    for fmt, data in rgb_dds.items():
+        if hashlib.sha256(data).hexdigest() != RGB_SHA256[fmt]:
+            fail(f"make_uncompressed_dds gave another {fmt} file than the reference run")
+    rgb_payload = {fmt: data[0x80:] for fmt, data in rgb_dds.items()}
+    rgb_cases = 0
+    for fmt in RGB:
+        layout = fmt.lower()
+        stride = channels.LAYOUTS[layout][0]
+        for n_px in RGB_SIZES:
+            length = stride * n_px
+            x0 = backend.upload(rgb_payload[fmt] if n_px == RGB_PIXELS else
+                                rng.integers(0, 256, length, np.uint8).tobytes(), dev)
+            for dec, split in RGB_SETTINGS:
+                args = (*channels.LAYOUTS[layout], dec, split)
+                for in_off, out_off in RGB_OFFSETS:
+                    what = (f"{fmt} n={n_px} dec={dec} split={split} offsets "
+                            f"{in_off}/{out_off}")
+                    x = torch.empty(length + 8, dtype=torch.uint8,
+                                    device=dev)[in_off:in_off + length].copy_(x0)
+                    buf = torch.full((length + 8,), 0xAB, dtype=torch.uint8, device=dev)
+                    t = channels.rgb_transform(x, *args,
+                                               out=buf[out_off:out_off + length])
+                    compare("dlt_rgb_transform", t,
+                            channels.rgb_transform_plain(x, *args), what)
+                    back = torch.full((length + 8,), 0xCD, dtype=torch.uint8, device=dev)
+                    u = channels.rgb_untransform(t, *args,
+                                                 out=back[in_off:in_off + length])
+                    compare("dlt_rgb_untransform", u,
+                            channels.rgb_untransform_plain(t, *args), what)
+                    compare("dlt_rgb_untransform", u, x, f"{what} round trip")
+                    sync()
+                    if not (bool((buf[:out_off] == 0xAB).all())
+                            and bool((buf[out_off + length:] == 0xAB).all())
+                            and bool((back[:in_off] == 0xCD).all())
+                            and bool((back[in_off + length:] == 0xCD).all())):
+                        fail(f"RGB kernels wrote outside their rows: {what}")
+                    rgb_cases += 1
+            if n_px in (5, 4097):
+                # the search's candidate rows, which start unaligned for odd n
+                _, rows = rgb.candidate_rows(x0, layout, LtuEstimation(),
+                                             RGB_FAST_CANDIDATES)
+                rows = torch.stack(list(rows.values()))
+                for valid in (length, length - 5):
+                    compare_counts(rows, valid, ks, f"{fmt} rows n={n_px} valid={valid}")
+    # the RGB search's edge cases: empty input gives the last candidate, a length
+    # that is no whole number of pixels (also below one pixel) raises
+    for fmt in RGB:
+        layout = fmt.lower()
+        stride = channels.LAYOUTS[layout][0]
+        if rgb.transform_rgb_auto(b"", layout, LtuEstimation()) != \
+                (b"", RGB_FAST_CANDIDATES[-1]):
+            fail(f"{fmt} auto-transform of empty input")
+        for size in list(range(1, stride)) + [stride + 1, 3 * stride + 2]:
+            try:
+                rgb.transform_rgb_auto(bytes(size), layout, LtuEstimation())
+            except RgbValidationError:
+                continue
+            fail(f"{fmt} auto-transform of {size} bytes did not raise RgbValidationError")
     emit("check", t0, block_counts=checked, max_abs_err=max_err,
          far_counts=far_counts, many_rows=MANY_ROWS, many_rows_count_sum=many_rows_sum,
          mode_sort_block_counts=list(MODE_SORT_SIZES), guard=guard_checks,
+         rgb_pixel_counts=list(RGB_SIZES), rgb_cases=rgb_cases,
          launches=dict(backend.LAUNCHES))
 
     # ---- 4. the main path, through the entry points ---------------------------------
@@ -566,6 +686,44 @@ def main() -> int:
                   if count and name not in PATH_KERNELS[fmt]}
         if others:
             fail(f"the {fmt} path launched other formats' kernels: {others}")
+    # the RGB files, file in, file out: the LTU auto builders, then default_all; each
+    # transform and its untransform are one path
+    rgb_bundle = TransformBundle(**{fmt.lower(): RgbAutoTransformBuilder(
+        fmt.lower(), LtuEstimation()) for fmt in RGB})
+    rgb_bundles = {"auto": rgb_bundle, "default_all": TransformBundle.default_all()}
+    # removed at the end of the times phase, or by its finalizer when a phase fails
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmpdir = Path(tmp.name)
+    rgb_outs = {}
+    for fmt in RGB:
+        src = tmpdir / f"{fmt}.dds"
+        src.write_bytes(rgb_dds[fmt])
+        for label, bundle in rgb_bundles.items():
+            dst, back = tmpdir / f"{fmt}.{label}.dlt", tmpdir / f"{fmt}.{label}.back.dds"
+            sync()
+            backend.reset_launch_counts()
+            t = time.perf_counter()
+            file_io.transform_file_with_multiple_handlers([handler], bundle, src, dst)
+            wall[f"{fmt}_transform_{label}_file_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            file_io.untransform_file_with_multiple_handlers([handler], dst, back)
+            wall[f"{fmt}_untransform_{label}_file_s"] = time.perf_counter() - t
+            sync()
+            counts = {name: backend.LAUNCHES[name] for name in RGB_KERNELS}
+            path_launches[f"{fmt}/{label}"] = counts
+            if back.read_bytes() != rgb_dds[fmt]:
+                fail(f"{fmt} {label}: the untransformed file differs from the input")
+            out = rgb_outs[fmt, label] = dst.read_bytes()
+            shipped = TransformHeader.from_bytes(out).rgb_settings()
+            needed = ["dlt_rgb_transform"] + (["dlt_ltu_counts"] if label == "auto" else [])
+            if shipped.decorrelate or shipped.split_channels:
+                needed.append("dlt_rgb_untransform")
+            if any(counts[name] == 0 for name in needed):
+                fail(f"a kernel of the {fmt} {label} path was not launched on it: {counts}")
+            others = {name: count for name, count in backend.LAUNCHES.items()
+                      if count and name not in RGB_KERNELS}
+            if others:
+                fail(f"the {fmt} {label} path launched other formats' kernels: {others}")
     # each kernel's launches on the main path: the count kernel's over every path
     launches = {name: sum(counts.get(name, 0) for counts in path_launches.values())
                 for name in KERNELS}
@@ -641,9 +799,32 @@ def main() -> int:
             fail(f"{fmt} {label}: pick {pick} != reference {ref['pick']}")
         if digest != ref["sha256"]:
             fail(f"{fmt} {label}: transformed file sha256 differs from the JAX package's")
-    emit("main", t0, file_bytes={fmt: len(d) for fmt, d in dds.items()},
-         payload_bytes={fmt: len(p) for fmt, p in {**payload, **ms_payload}.items()},
-         blocks=BLOCKS,
+    rgb_xs = {fmt: backend.upload(data, dev) for fmt, data in rgb_payload.items()}
+    for fmt in RGB:
+        ref = RGB_REFERENCE[fmt]
+        scores, _ = rgb.candidate_rows(rgb_xs[fmt], fmt.lower(), LtuEstimation(),
+                                       RGB_FAST_CANDIDATES)
+        scores = [int(v) for v in scores]
+        pick = RGB_FAST_CANDIDATES[int(np.argmin(scores))]
+        pick_key = (pick.decorrelate, pick.split_channels)
+        shipped = TransformHeader.from_bytes(rgb_outs[fmt, "auto"]).rgb_settings()
+        shipped_key = (shipped.decorrelate, shipped.split_channels)
+        digest = hashlib.sha256(rgb_outs[fmt, "auto"]).hexdigest()
+        default_digest = hashlib.sha256(rgb_outs[fmt, "default_all"]).hexdigest()
+        results[f"{fmt}/auto"] = {"scores": scores, "pick": list(pick_key),
+                                  "shipped": list(shipped_key), "sha256": digest}
+        results[f"{fmt}/default_all"] = {"sha256": default_digest}
+        for key, got, want in (("scores", scores, ref["scores"]),
+                               ("pick", pick_key, ref["pick"]),
+                               ("shipped", shipped_key, ref["pick"]),
+                               ("sha256", digest, ref["sha256"]),
+                               ("default_all sha256", default_digest, ref["default_all"])):
+            if got != want:
+                fail(f"{fmt}: {key} {got} != reference {want}")
+    emit("main", t0, file_bytes={fmt: len(d) for fmt, d in {**dds, **rgb_dds}.items()},
+         payload_bytes={fmt: len(p) for fmt, p in
+                        {**payload, **ms_payload, **rgb_payload}.items()},
+         blocks=BLOCKS, rgb_pixels=RGB_PIXELS,
          launches=path_launches, results=results, wall=wall)
 
     # ---- 5. times ----------------------------------------------------------------------
@@ -766,6 +947,34 @@ def main() -> int:
             lambda: handler.transform_bundle(dds[fmt], bundles[fmt, "manual"]))
         copies[f"{fmt}_untransform_manual_file_s"] = host_s(
             lambda: handler.untransform(outs[fmt, "manual"]))
+    # the RGB files, file to file: reading the input (mmap and copy out) and writing
+    # the output, the payload's upload, the search alone (three transform launches
+    # into the candidate rows, the identity row's copy and one scoring call), the
+    # download of the winner, the handler's slice and join, and the whole transform
+    # and untransform through the file API, with the auto builders and default_all
+    for fmt in RGB:
+        layout, data, xt = fmt.lower(), rgb_payload[fmt], rgb_xs[fmt]
+        src, dst, back = (tmpdir / f"{fmt}.dds", tmpdir / f"{fmt}.time.dlt",
+                          tmpdir / f"{fmt}.time.back.dds")
+        out = rgb_outs[fmt, "auto"]
+        _, rows = rgb.candidate_rows(xt, layout, LtuEstimation(), RGB_FAST_CANDIDATES)
+        winner = rows[RGB_REFERENCE[fmt]["pick"]]
+        copies[f"{fmt}_read_file_s"] = host_s(lambda: file_io._read_mmap(src))
+        copies[f"{fmt}_write_file_s"] = host_s(lambda: dst.write_bytes(out))
+        copies[f"{fmt}_h2d_payload_s"] = host_s(lambda: backend.upload(data, dev))
+        copies[f"{fmt}_search_s"] = host_s(lambda: rgb.candidate_rows(
+            xt, layout, LtuEstimation(), RGB_FAST_CANDIDATES))
+        copies[f"{fmt}_d2h_winner_s"] = host_s(lambda: backend.download(winner))
+        copies[f"{fmt}_slice_s"] = host_s(lambda: rgb_dds[fmt][0x80:0x80 + len(data)])
+        copies[f"{fmt}_assemble_s"] = host_s(
+            lambda: out[:4] + rgb_dds[fmt][4:0x80] + out[0x80:] + b"")
+        for label, bundle in rgb_bundles.items():
+            copies[f"{fmt}_transform_{label}_file_s"] = host_s(
+                lambda: file_io.transform_file_with_multiple_handlers(
+                    [handler], bundle, src, dst))
+            copies[f"{fmt}_untransform_{label}_file_s"] = host_s(
+                lambda: file_io.untransform_file_with_multiple_handlers(
+                    [handler], dst, back))
 
     n = BLOCKS
     timed = {}
@@ -879,23 +1088,54 @@ def main() -> int:
             rows = torch.stack([streams[sort, split] for split in (False, True)])
             timed[f"dlt_ltu_counts/{fmt.lower()}_{'sorted' if sort else 'unsorted'}"] = \
                 time_counts(rows, rows.shape[1])
+    # RGB: both entry points in each non-identity setting of each layout at the main
+    # files' 16,777,216 pixels, the split-only layout beside the one PyTorch call that
+    # computes it; bytes S*n each way, and two per-byte SIMD ops per 4 pixels for the
+    # lifting; the count kernel on each file's four candidate rows
+    for fmt in RGB:
+        layout, xr = fmt.lower(), rgb_xs[fmt]
+        stride = channels.LAYOUTS[layout][0]
+        for dec, split in RGB_SETTINGS:
+            args = (*channels.LAYOUTS[layout], dec, split)
+            label = f"{layout}_{'dec_' if dec else ''}{'split' if split else 'interleaved'}"
+            tr = channels.rgb_transform(xr, *args)
+            moved, ops = 2 * stride * RGB_PIXELS, (2 * RGB_PIXELS // 4 if dec else 0)
+            timed[f"dlt_rgb_transform/{label}"] = dict(
+                ms=event_ms(lambda: channels.rgb_transform(xr, *args), 20),
+                plain_ms=event_ms(lambda: channels.rgb_transform_plain(xr, *args), 5),
+                bytes=moved, ops=ops)
+            timed[f"dlt_rgb_untransform/{label}"] = dict(
+                ms=event_ms(lambda: channels.rgb_untransform(tr, *args), 20),
+                plain_ms=event_ms(lambda: channels.rgb_untransform_plain(tr, *args), 5),
+                bytes=moved, ops=ops)
+            if not dec:
+                timed[f"dlt_rgb_transform/{label}"]["library_ms"] = event_ms(
+                    lambda: xr.view(RGB_PIXELS, stride).t().contiguous(), 20)
+                timed[f"dlt_rgb_untransform/{label}"]["library_ms"] = event_ms(
+                    lambda: tr.view(stride, RGB_PIXELS).t().contiguous(), 20)
+        _, rows = rgb.candidate_rows(xr, layout, LtuEstimation(), RGB_FAST_CANDIDATES)
+        rows = torch.stack(list(rows.values()))
+        timed[f"dlt_ltu_counts/{layout}"] = time_counts(rows, rows.shape[1])
     for entry in timed.values():
         bytes_ms = entry["bytes"] / rate * 1e3
         ops_ms = entry["ops"] / int_rate * 1e3
         entry["bound_ms"] = max(bytes_ms, ops_ms)
         entry["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
 
+    tmp.cleanup()
     emit("times", t0, kernels=timed, host=copies,
          note="kernel ms: CUDA-event medians with L2 flushed before each launch; "
               "host s: medians of 5", run_seconds=time.perf_counter() - run_start)
 
     # ---- 6. the contract lines ----------------------------------------------------------
     # the row of each kernel: its COMPREHENSIVE shape where it has one, the count
-    # kernel on the BC1 COMPREHENSIVE colour rows, as in earlier runs, and the
-    # mode-sort kernels in the BC7 file's shipped setting, sort and planes
+    # kernel on the BC1 COMPREHENSIVE colour rows, as in earlier runs, the mode-sort
+    # kernels in the BC7 file's shipped setting, sort and planes, and the RGB kernels
+    # in the RGBA8888 file's shipped setting, split only
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         entry = (timed.get(name) or timed.get(f"{name}/bc7_sort_planes")
+                 or timed.get(f"{name}/rgba8888_split")
                  or timed[f"{name}/comprehensive"])
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source, "replaces": replaces,

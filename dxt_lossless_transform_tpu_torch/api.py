@@ -1,5 +1,5 @@
-"""BC1-BC7 and BC6H builders (counterpart of ``dxt_lossless_transform_tpu/api.py:26-221``
-and ``:290-333``).
+"""BC1-BC7, BC6H and RGB builders (counterpart of
+``dxt_lossless_transform_tpu/api.py:26-333``).
 
 An auto builder searches for the best settings with a pluggable estimator and hands
 back the untransform recipe as a manual builder; a manual builder transforms with
@@ -15,11 +15,11 @@ import torch
 
 from .estimate.base import NoEstimation, SizeEstimation
 from .ops import auto as ops_auto, bc1 as ops_bc1, bc2 as ops_bc2, bc3 as ops_bc3
-from .ops import bc45 as ops_bc45, bc6h as ops_bc6h, bc7 as ops_bc7
+from .ops import bc45 as ops_bc45, bc6h as ops_bc6h, bc7 as ops_bc7, rgb as ops_rgb
 from .settings import (
     Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
     Bc4TransformSettings, Bc5TransformSettings, Bc6hTransformSettings,
-    Bc7TransformSettings, YCoCgVariant,
+    Bc7TransformSettings, RgbTransformSettings, YCoCgVariant,
 )
 
 
@@ -176,3 +176,50 @@ class Bc6hManualTransformBuilder(_ModeSortManualBuilder):
 class Bc6hAutoTransformBuilder(_AutoBuilder):
     _search = staticmethod(ops_bc6h.transform_bc6h_auto)
     _manual = Bc6hManualTransformBuilder
+
+
+def _check_layout(layout: str) -> str:
+    if layout not in ops_rgb.LAYOUTS:
+        raise ValueError(f"unknown pixel layout {layout!r}")
+    return layout
+
+
+class RgbManualTransformBuilder(_ManualBuilder):
+    """Manual builder of the uncompressed formats; ``layout`` is ``"rgba8888"``,
+    ``"bgra8888"`` or ``"bgr888"``."""
+
+    _settings_cls = RgbTransformSettings
+
+    def __init__(self, layout: str, settings: Optional[RgbTransformSettings] = None):
+        self.layout = _check_layout(layout)
+        super().__init__(settings)
+
+    def decorrelate(self, flag: bool):
+        return self._with(decorrelate=bool(flag))
+
+    def split_channels(self, flag: bool):
+        return self._with(split_channels=bool(flag))
+
+    def transform(self, data: bytes, device: Union[str, torch.device] = "cuda") -> bytes:
+        return ops_rgb.transform(data, self.layout, self._settings, device)
+
+    def untransform(self, data: bytes,
+                    device: Union[str, torch.device] = "cuda") -> bytes:
+        return ops_rgb.untransform(data, self.layout, self._settings, device)
+
+
+class RgbAutoTransformBuilder(_AutoBuilder):
+    """Auto builder of the uncompressed formats: the estimator picks the layout."""
+
+    def __init__(self, layout: str, estimator: Optional[SizeEstimation] = None):
+        super().__init__(estimator)
+        self.layout = _check_layout(layout)
+
+    @classmethod
+    def new_ultra(cls, layout: str, estimator: SizeEstimation):
+        return cls(layout, estimator).use_all_decorrelation_modes(True)
+
+    def transform(self, data: bytes, device: Union[str, torch.device] = "cuda"):
+        out, settings = ops_rgb.transform_rgb_auto(data, self.layout, self._estimator,
+                                                   self._use_all, device=device)
+        return out, RgbManualTransformBuilder(self.layout, settings)

@@ -2,9 +2,10 @@
 
 The kernels live in the CUDA C++ sources ``csrc/*.cu`` (``bc1_kernels.cu`` with the
 LTU count kernel, ``bc2_kernels.cu``, ``bc3_kernels.cu``, ``bc45_kernels.cu``,
-``bc7_kernels.cu`` with the BC7/BC6H mode sort), which share ``csrc/common.cuh``
-and have plain ``extern "C"`` entry points. At first use, :func:`library` compiles
-all of them with one ``nvcc`` call into one shared library under ``build/cuda/`` at the
+``bc7_kernels.cu`` with the BC7/BC6H mode sort, ``rgb_kernels.cu`` with the RGB
+channel split and merge), which share ``csrc/common.cuh`` and have plain
+``extern "C"`` entry points. At first use, :func:`library` compiles all of them
+with one ``nvcc`` call into one shared library under ``build/cuda/`` at the
 repository root and loads it with :mod:`ctypes`. The file name carries a hash of
 every source and header and of the flags, and the library is written under a
 temporary name and renamed into place, so that processes building at the same time
@@ -69,6 +70,9 @@ _SIGNATURES = {
     "dlt_bc7_transform": (_P, _P, _I, _I, _I, _I, _P),
     # (in, out, n_blocks, sort, planes, stream)
     "dlt_bc7_untransform": (_P, _P, _I, _I, _I, _P),
+    # (in, out, n_pixels, stride, ri, gi, bi, dec, split, stream)
+    "dlt_rgb_transform": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "dlt_rgb_untransform": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.

@@ -20,7 +20,7 @@ from .estimate.zstd import ZstdEstimation
 from .settings import (
     Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
     Bc4TransformSettings, Bc5TransformSettings, Bc6hTransformSettings,
-    Bc7TransformSettings, YCoCgVariant,
+    Bc7TransformSettings, RgbTransformSettings, YCoCgVariant,
 )
 
 _FORMATS = ("Bc1", "Bc2", "Bc3", "Bc4", "Bc5", "Bc7", "Bc6h")
@@ -40,8 +40,8 @@ _MODE_SORT = {"Bc7TransformSettings": Bc7TransformSettings,
 
 
 def from_reference(obj):
-    """The port's counterpart of a JAX-package ``Bc1``-``Bc7`` or
-    ``Bc6hTransformSettings``, ``YCoCgVariant``, tuple or list of those, manual or
+    """The port's counterpart of a JAX-package ``Bc1``-``Bc7``, ``Bc6h`` or
+    ``RgbTransformSettings``, ``YCoCgVariant``, tuple or list of those, manual or
     auto builder of those formats, ``LtuEstimation``, ``ZstdEstimation`` or
     ``NoEstimation``."""
     name = type(obj).__name__
@@ -58,6 +58,15 @@ def from_reference(obj):
         return _ENDPOINTS[name](bool(obj.split_endpoints))
     if name in _MODE_SORT:
         return _MODE_SORT[name](bool(obj.sort_by_mode), bool(obj.split_byte_planes))
+    if name == "RgbTransformSettings":
+        return RgbTransformSettings(bool(obj.decorrelate), bool(obj.split_channels))
+    if name == "RgbManualTransformBuilder":
+        return api.RgbManualTransformBuilder(obj.layout,
+                                             from_reference(obj.get_settings()))
+    if name == "RgbAutoTransformBuilder":
+        return api.RgbAutoTransformBuilder(
+            obj.layout, from_reference(obj._estimator)).use_all_decorrelation_modes(
+                obj._use_all)
     if name == "YCoCgVariant":
         return YCoCgVariant(int(obj))
     if name == "LtuEstimation" and hasattr(obj, "offsets"):

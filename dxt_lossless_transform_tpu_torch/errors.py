@@ -1,6 +1,6 @@
-"""Typed errors of the ops layer (counterpart of ``dxt_lossless_transform_tpu/errors.py``,
-cut down to what BC1-BC7 and BC6H need), plus the errors for a missing card and a
-missing zstd library.
+"""Typed errors of the ops layer (counterpart of
+``dxt_lossless_transform_tpu/errors.py``, cut down to what BC1-BC7, BC6H and the RGB
+formats need), plus the errors for a missing card and a missing zstd library.
 
 Validation errors subclass :class:`ValueError` and auto-transform errors
 :class:`RuntimeError`, as in the reference package.
@@ -59,6 +59,14 @@ class Bc7ValidationError(ValidationError):
 class Bc6hValidationError(ValidationError):
     def __init__(self, length: int, divisor: int = 16, message: str = ""):
         super().__init__("BC6H", length, divisor, message)
+
+
+class RgbValidationError(ValidationError):
+    """``layout`` is the pixel layout (``"rgba8888"``, ``"bgra8888"`` or
+    ``"bgr888"``) and ``divisor`` its pixel size."""
+
+    def __init__(self, layout: str, length: int, divisor: int, message: str = ""):
+        super().__init__(layout, length, divisor, message)
 
 
 class AutoTransformError(DltError, RuntimeError):

@@ -1,9 +1,10 @@
-"""TransformBundle with its BC1-BC7 and BC6H slots (counterpart of
-``dxt_lossless_transform_tpu/formats/bundle.py:35-71``). The RGB formats' slot comes
-with their slice of the port."""
+"""TransformBundle with a slot for each format (counterpart of
+``dxt_lossless_transform_tpu/formats/bundle.py:31-98``), and ``default_all``, the
+manual default of every format."""
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Union
 
 import torch
@@ -13,10 +14,11 @@ from ..api import (
     Bc2ManualTransformBuilder, Bc3AutoTransformBuilder, Bc3ManualTransformBuilder,
     Bc4AutoTransformBuilder, Bc4ManualTransformBuilder, Bc5AutoTransformBuilder,
     Bc5ManualTransformBuilder, Bc6hAutoTransformBuilder, Bc6hManualTransformBuilder,
-    Bc7AutoTransformBuilder, Bc7ManualTransformBuilder,
+    Bc7AutoTransformBuilder, Bc7ManualTransformBuilder, RgbAutoTransformBuilder,
+    RgbManualTransformBuilder,
 )
 from .embed import TransformFormat, TransformHeader
-from .errors import NoBuilderForFormat
+from .errors import NoBuilderForFormat, UnsupportedTransformFormat
 
 Bc1Builder = Union[Bc1AutoTransformBuilder, Bc1ManualTransformBuilder]
 Bc2Builder = Union[Bc2AutoTransformBuilder, Bc2ManualTransformBuilder]
@@ -25,11 +27,9 @@ Bc4Builder = Union[Bc4AutoTransformBuilder, Bc4ManualTransformBuilder]
 Bc5Builder = Union[Bc5AutoTransformBuilder, Bc5ManualTransformBuilder]
 Bc7Builder = Union[Bc7AutoTransformBuilder, Bc7ManualTransformBuilder]
 Bc6hBuilder = Union[Bc6hAutoTransformBuilder, Bc6hManualTransformBuilder]
+RgbBuilder = Union[RgbAutoTransformBuilder, RgbManualTransformBuilder]
 
-LATER_SLICE = ("; this PyTorch port handles BC1-BC7 and BC6H so far, and the RGB "
-               "formats come in a later slice")
-
-# format -> (bundle slot, header constructor)
+# format -> (bundle slot, header constructor of the settings)
 _SLOTS = {
     TransformFormat.BC1: ("bc1", TransformHeader.for_bc1),
     TransformFormat.BC2: ("bc2", TransformHeader.for_bc2),
@@ -38,6 +38,9 @@ _SLOTS = {
     TransformFormat.BC5: ("bc5", TransformHeader.for_bc5),
     TransformFormat.BC7: ("bc7", TransformHeader.for_bc7),
     TransformFormat.BC6H: ("bc6h", TransformHeader.for_bc6h),
+    **{fmt: (fmt.name.lower(), partial(TransformHeader.for_rgb, fmt))
+       for fmt in (TransformFormat.RGBA8888, TransformFormat.BGRA8888,
+                   TransformFormat.BGR888)},
 }
 
 
@@ -51,7 +54,10 @@ class TransformBundle:
                  bc4: Optional[Bc4Builder] = None,
                  bc5: Optional[Bc5Builder] = None,
                  bc7: Optional[Bc7Builder] = None,
-                 bc6h: Optional[Bc6hBuilder] = None):
+                 bc6h: Optional[Bc6hBuilder] = None,
+                 rgba8888: Optional[RgbBuilder] = None,
+                 bgra8888: Optional[RgbBuilder] = None,
+                 bgr888: Optional[RgbBuilder] = None):
         self.bc1 = bc1
         self.bc2 = bc2
         self.bc3 = bc3
@@ -59,13 +65,32 @@ class TransformBundle:
         self.bc5 = bc5
         self.bc7 = bc7
         self.bc6h = bc6h
+        self.rgba8888 = rgba8888
+        self.bgra8888 = bgra8888
+        self.bgr888 = bgr888
+
+    @staticmethod
+    def default_all() -> "TransformBundle":
+        """The manual default settings of every format (JAX ``bundle.py:42-57``)."""
+        return TransformBundle(
+            bc1=Bc1ManualTransformBuilder(),
+            bc2=Bc2ManualTransformBuilder(),
+            bc3=Bc3ManualTransformBuilder(),
+            bc4=Bc4ManualTransformBuilder(),
+            bc5=Bc5ManualTransformBuilder(),
+            bc7=Bc7ManualTransformBuilder(),
+            bc6h=Bc6hManualTransformBuilder(),
+            rgba8888=RgbManualTransformBuilder("rgba8888"),
+            bgra8888=RgbManualTransformBuilder("bgra8888"),
+            bgr888=RgbManualTransformBuilder("bgr888"),
+        )
 
     def dispatch_transform(self, fmt: TransformFormat, payload: bytes,
                            device: Union[str, torch.device] = "cuda"):
         """Transform ``payload`` on ``device``; returns
         ``(transformed, TransformHeader)``."""
         if fmt not in _SLOTS:
-            raise NoBuilderForFormat(fmt, LATER_SLICE)
+            raise UnsupportedTransformFormat(fmt)
         slot, header = _SLOTS[fmt]
         builder = getattr(self, slot)
         if builder is None:

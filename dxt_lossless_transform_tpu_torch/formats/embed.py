@@ -1,7 +1,7 @@
 """The 4-byte transform header, written over the container magic.
 
-Counterpart of ``dxt_lossless_transform_tpu/formats/embed.py`` with BC1-BC5, BC7
-and BC6H packing (:94-110, :139-200). On disk it is one little-endian u32:
+Counterpart of ``dxt_lossless_transform_tpu/formats/embed.py`` with BC1-BC5, BC7,
+BC6H and RGB packing (:94-110, :139-218). On disk it is one little-endian u32:
 
     bits 0-3:  transform format tag
     bits 4-31: format-specific data; for BC1, BC2 and BC3:
@@ -10,7 +10,9 @@ and BC6H packing (:94-110, :139-200). On disk it is one little-endian u32:
                3=None), and for BC3 bit 5 split alpha endpoints;
                for BC4 and BC5: bits 0-1 header version (0), bit 2 split endpoints;
                for BC7 and BC6H: bits 0-1 header version (0), bit 2 sort by
-               mode, bit 3 split byte planes
+               mode, bit 3 split byte planes;
+               for RGBA8888, BGRA8888 and BGR888: bits 0-1 header version (0),
+               bit 2 decorrelate, bit 3 split channels
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from dataclasses import dataclass
 from ..settings import (
     Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
     Bc4TransformSettings, Bc5TransformSettings, Bc6hTransformSettings,
-    Bc7TransformSettings, YCoCgVariant,
+    Bc7TransformSettings, RgbTransformSettings, YCoCgVariant,
 )
 from .errors import CorruptedEmbeddedData, UnknownTransformFormat
 
@@ -160,3 +162,17 @@ class TransformHeader:
 
     def bc6h_settings(self) -> Bc6hTransformSettings:
         return Bc6hTransformSettings(*_unpack_mode_sort("BC6H", self.data))
+
+    @staticmethod
+    def for_rgb(fmt: TransformFormat, settings: RgbTransformSettings) -> "TransformHeader":
+        """``fmt`` is one of the three uncompressed formats; any other raises
+        :class:`UnknownTransformFormat`, as in the JAX package."""
+        if fmt not in (TransformFormat.RGBA8888, TransformFormat.BGRA8888,
+                       TransformFormat.BGR888):
+            raise UnknownTransformFormat(fmt)
+        data = (int(settings.decorrelate) << 2) | (int(settings.split_channels) << 3)
+        return TransformHeader(fmt, data)
+
+    def rgb_settings(self) -> RgbTransformSettings:
+        _check_version("RGB", self.data)
+        return RgbTransformSettings(bool((self.data >> 2) & 1), bool((self.data >> 3) & 1))

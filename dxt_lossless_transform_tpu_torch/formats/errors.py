@@ -21,6 +21,12 @@ class InvalidRestoredFileHeader(FormatHandlerError):
     pass
 
 
+class OutputBufferTooSmall(FormatHandlerError):
+    def __init__(self, required: int, actual: int):
+        super().__init__(f"output buffer too small: required {required}, actual {actual}")
+        self.required, self.actual = required, actual
+
+
 class InputTooShort(FormatHandlerError):
     def __init__(self, required: int, actual: int):
         super().__init__(f"input too short: required {required}, actual {actual}")
@@ -35,8 +41,8 @@ class InputTooShortForStatedTextureSize(FormatHandlerError):
 
 
 class NoBuilderForFormat(FormatHandlerError):
-    def __init__(self, fmt, detail: str = ""):
-        super().__init__(f"bundle has no builder for format {fmt}{detail}")
+    def __init__(self, fmt):
+        super().__init__(f"bundle has no builder for format {fmt}")
         self.format = fmt
 
 
@@ -55,10 +61,10 @@ class UnknownTransformFormat(TransformError):
 
 
 class UnsupportedTransformFormat(TransformError):
-    """The format tag is known but this package does not transform it (yet)."""
+    """The format tag is recognised but no transform is implemented for it."""
 
-    def __init__(self, fmt, detail: str = ""):
-        super().__init__(f"transform format {fmt} is not supported{detail}")
+    def __init__(self, fmt):
+        super().__init__(f"transform format {fmt} is reserved but not yet supported")
         self.format = fmt
 
 
@@ -67,6 +73,11 @@ class InvalidDataAlignment(TransformError):
         super().__init__(
             f"texture data size {size} is not divisible by {required_divisor}")
         self.size, self.required_divisor = size, required_divisor
+
+
+class NoSupportedHandler(TransformError):
+    def __init__(self):
+        super().__init__("no handler can process this file")
 
 
 class CorruptedEmbeddedData(TransformError):

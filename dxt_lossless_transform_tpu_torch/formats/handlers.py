@@ -1,25 +1,26 @@
-"""Transform dispatch and the DDS handler (counterpart of
-``dxt_lossless_transform_tpu/formats/handlers.py:40-90`` and ``:123-175``, for
-BC1-BC7 and BC6H).
+"""Transform dispatch, the handler protocol and the DDS handler (counterpart of
+``dxt_lossless_transform_tpu/formats/handlers.py``, for every format).
 
 Transform: copy the headers, transform the texture payload (every mip and surface in
 one call), copy trailing bytes, and write the 4-byte transform header over the DDS
 magic. Untransform: read the header, parse the DDS header ignoring the magic,
 restore the magic, and invert the payload. Every transform keeps the payload's size
 except the BC7/BC6H mode sort, which puts a ceil(n/2)-byte mode stream in front
-(:func:`transformed_payload_len`).
+(:func:`transformed_payload_len`). Detection: :meth:`DdsHandler.can_handle` and
+:meth:`DdsHandler.can_handle_untransform`, which the multi-handler functions of
+:mod:`.api` ask.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Protocol, Union, runtime_checkable
 
 import torch
 
 from ..ops import bc1 as ops_bc1, bc2 as ops_bc2, bc3 as ops_bc3, bc45 as ops_bc45
-from ..ops import bc6h as ops_bc6h, bc7 as ops_bc7
-from .bundle import LATER_SLICE, TransformBundle
-from .dds import DDS_MAGIC, DdsFormat, parse_dds, parse_dds_ignore_magic
+from ..ops import bc6h as ops_bc6h, bc7 as ops_bc7, rgb as ops_rgb
+from .bundle import TransformBundle
+from .dds import DDS_MAGIC, DdsFormat, likely_dds, parse_dds, parse_dds_ignore_magic
 from .embed import TRANSFORM_HEADER_SIZE, TransformFormat, TransformHeader
 from .errors import (
     InputTooShort,
@@ -28,6 +29,7 @@ from .errors import (
     InvalidInputFileHeader,
     InvalidRestoredFileHeader,
     OutputSizeMismatch,
+    UnknownTransformFormat,
     UnsupportedTransformFormat,
 )
 
@@ -61,6 +63,13 @@ def dispatch_transform(fmt: TransformFormat, payload: bytes, bundle: TransformBu
     return bundle.dispatch_transform(fmt, payload, device)
 
 
+def _rgb_untransform(layout: str):
+    """The untransform of one pixel layout, as (data, settings, device) -> bytes."""
+    def untransform(data, settings, device):
+        return ops_rgb.untransform(data, layout, settings, device)
+    return untransform
+
+
 # format -> (untransform, the header's settings accessor)
 _UNTRANSFORM = {
     TransformFormat.BC1: (ops_bc1.untransform, TransformHeader.bc1_settings),
@@ -70,6 +79,9 @@ _UNTRANSFORM = {
     TransformFormat.BC5: (ops_bc45.untransform_bc5, TransformHeader.bc5_settings),
     TransformFormat.BC7: (ops_bc7.untransform, TransformHeader.bc7_settings),
     TransformFormat.BC6H: (ops_bc6h.untransform, TransformHeader.bc6h_settings),
+    **{fmt: (_rgb_untransform(fmt.name.lower()), TransformHeader.rgb_settings)
+       for fmt in (TransformFormat.RGBA8888, TransformFormat.BGRA8888,
+                   TransformFormat.BGR888)},
 }
 _MODE_SORT = (TransformFormat.BC7, TransformFormat.BC6H)
 
@@ -87,7 +99,7 @@ def dispatch_untransform(header: TransformHeader, payload: bytes,
                          device: Union[str, torch.device] = "cuda") -> bytes:
     """Decode the settings from the header and run the untransform."""
     if header.format not in _UNTRANSFORM:
-        raise UnsupportedTransformFormat(header.format, LATER_SLICE)
+        raise UnsupportedTransformFormat(header.format)
     untransform, settings_of = _UNTRANSFORM[header.format]
     if header.format in _MODE_SORT:
         settings = settings_of(header)
@@ -99,6 +111,15 @@ def dispatch_untransform(header: TransformHeader, payload: bytes,
     if len(payload) % _ALIGNMENT[header.format]:
         raise InvalidDataAlignment(len(payload), _ALIGNMENT[header.format])
     return untransform(payload, settings_of(header), device)
+
+
+@runtime_checkable
+class FileFormatHandler(Protocol):
+    """A container format's handler: it carves out the payload, transforms or
+    untransforms it, and writes or reads the 4-byte header."""
+
+    def transform_bundle(self, data: bytes, bundle: TransformBundle) -> bytes: ...
+    def untransform(self, data: bytes) -> bytes: ...
 
 
 class DdsHandler:
@@ -138,3 +159,18 @@ class DdsHandler:
             raise InputTooShortForStatedTextureSize(end, len(data))
         payload = dispatch_untransform(header, data[start:end], self.device)
         return DDS_MAGIC.to_bytes(4, "little") + data[4:start] + payload + data[end:]
+
+    # detection (JAX handlers.py:164-177)
+
+    def can_handle(self, data: bytes, file_extension: Optional[str] = None) -> bool:
+        return likely_dds(data)
+
+    def can_handle_untransform(self, data: bytes,
+                               file_extension: Optional[str] = None) -> bool:
+        if len(data) < TRANSFORM_HEADER_SIZE:
+            return False
+        try:
+            TransformHeader.from_bytes(data)
+        except UnknownTransformFormat:
+            return False
+        return parse_dds_ignore_magic(data) is not None

@@ -1,11 +1,12 @@
-"""BC1-BC7 and BC6H transform settings and the auto-search candidate sets.
+"""BC1-BC7, BC6H and RGB transform settings and the auto-search candidate sets.
 
 Counterpart of ``dxt_lossless_transform_tpu/settings.py`` (``YCoCgVariant``, the
 ``Bc1``-``Bc5TransformSettings`` dataclasses, :33-118, the BC1, BC2 and BC3
-candidate tuples, :133-226, and the BC7 and BC6H settings and candidates, :118-145,
-:226-236 and :268-290), kept as this package's own copy so that the port imports
-nothing of the JAX package. The candidate orders are the reference's: the most
-likely winner comes last, and ties go to the first minimum.
+candidate tuples, :133-226, the BC7 and BC6H settings and candidates, :118-145,
+:226-236 and :268-290, and ``RgbTransformSettings`` with ``RGB_FAST_CANDIDATES``,
+:239-265), kept as this package's own copy so that the port imports nothing of the
+JAX package. The candidate orders are the reference's: the most likely winner
+comes last, and ties go to the first minimum.
 """
 
 from __future__ import annotations
@@ -124,6 +125,22 @@ class Bc6hTransformSettings:
                 yield Bc6hTransformSettings(sort, planes)
 
 
+@dataclass(frozen=True)
+class RgbTransformSettings:
+    """RGBA8888, BGRA8888 and BGR888: the r' = r - g, b' = b - g (mod 256) lifting,
+    and whether the pixels are split into one plane per channel. Both off is the
+    identity."""
+
+    decorrelate: bool = True
+    split_channels: bool = True
+
+    @staticmethod
+    def all_combinations() -> Iterator["RgbTransformSettings"]:
+        for dec in (True, False):
+            for split in (True, False):
+                yield RgbTransformSettings(dec, split)
+
+
 BC1_FAST_CANDIDATES: Tuple[Bc1TransformSettings, ...] = (
     Bc1TransformSettings(YCoCgVariant.NONE, False),
     Bc1TransformSettings(YCoCgVariant.NONE, True),
@@ -201,3 +218,11 @@ BC7_COMPREHENSIVE_CANDIDATES: Tuple[Bc7TransformSettings, ...] = BC7_FAST_CANDID
 BC6H_FAST_CANDIDATES: Tuple[Bc6hTransformSettings, ...] = tuple(
     Bc6hTransformSettings(c.sort_by_mode, c.split_byte_planes)
     for c in BC7_FAST_CANDIDATES)
+
+# RGB: identity first, the decorrelated channel planes last
+RGB_FAST_CANDIDATES: Tuple[RgbTransformSettings, ...] = (
+    RgbTransformSettings(False, False),
+    RgbTransformSettings(True, False),
+    RgbTransformSettings(False, True),
+    RgbTransformSettings(True, True),
+)

@@ -1,7 +1,7 @@
-"""Deterministic BC1-BC7 and BC6H test data and DDS files.
+"""Deterministic BC1-BC7, BC6H and uncompressed-RGB test data and DDS files.
 
-This package's copy of the BC1-BC7 and BC6H parts of
-``dxt_lossless_transform_tpu/utils/testgen.py`` (:25-73, :88-122, :124-183):
+This package's copy of the BC1-BC7, BC6H and RGB parts of
+``dxt_lossless_transform_tpu/utils/testgen.py`` (:25-73, :88-122, :124-212):
 the same seeds give the same bytes, which the tests check. ``chip_smoke.py`` uses
 it, since it cannot import the JAX package.
 """
@@ -171,3 +171,37 @@ def make_dx10_dds(fmt: str, width: int, height: int, mipmaps: int = 1,
     struct.pack_into("<5I", header, 0x80, _DXGI[fmt], 3, 0, 1, 0)
     struct.pack_into("<I", header, 0x6C, 0x1000)
     return bytes(header) + payload + trailing
+
+
+# pixel layout -> (bits per pixel, R, G, B and A masks)
+_RGB_MASKS = {"rgba8888": (32, (0x000000FF, 0x0000FF00, 0x00FF0000, 0xFF000000)),
+              "bgra8888": (32, (0x00FF0000, 0x0000FF00, 0x000000FF, 0xFF000000)),
+              "bgr888": (24, (0x00FF0000, 0x0000FF00, 0x000000FF, 0))}
+
+
+def make_uncompressed_dds(layout: str, width: int, height: int,
+                          seed: int = 0) -> bytes:
+    """A legacy-header uncompressed DDS file of one level, detected by its channel
+    masks: ``layout`` is ``"rgba8888"``, ``"bgra8888"`` or ``"bgr888"``. Its pixels
+    are a vertical gradient with noise around a random base colour, alpha 255."""
+    bit_count, masks = _RGB_MASKS[layout]
+    rng = np.random.default_rng(seed)
+    base = rng.integers(40, 200, 3)
+    px = np.empty((height, width, bit_count // 8), np.uint8)
+    yy = np.linspace(0, 40, height)[:, None]
+    for c in range(3):
+        px[..., c] = np.clip(base[c] + yy + rng.normal(0, 3, (height, width)),
+                             0, 255).astype(np.uint8)
+    if bit_count == 32:
+        px[..., 3] = 255
+    header = bytearray(0x80)
+    header[0:4] = b"DDS "
+    # 0x100F = CAPS | HEIGHT | WIDTH | PITCH | PIXELFORMAT, with the pitch written
+    struct.pack_into("<7I", header, 4, 124, 0x100F, height, width,
+                     width * (bit_count // 8), 0, 1)
+    flags = 0x40 | (0x1 if masks[3] else 0)  # DDPF_RGB, with ALPHAPIXELS for alpha
+    struct.pack_into("<3I", header, 0x4C, 32, flags, 0)
+    struct.pack_into("<I", header, 0x58, bit_count)
+    struct.pack_into("<4I", header, 0x5C, *masks)
+    struct.pack_into("<I", header, 0x6C, 0x1000)
+    return bytes(header) + px.tobytes()

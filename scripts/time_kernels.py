@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the BC1- and BC3-path kernels and files of a checkout of the PyTorch port
-on one card, in a fresh process, so that two versions of the port can be compared
-in turns within one call (parent, change, change, parent).
+"""Time the BC1-, BC3-, BC7- and RGBA8888-path kernels and files of a checkout of
+the PyTorch port on one card, in a fresh process, so that two versions of the port
+can be compared in turns within one call (parent, change, change, parent).
 
     python3 scripts/time_kernels.py [--root DIR] [--iters N]
 
@@ -18,8 +18,12 @@ wall time of the whole FAST auto-transform of the file through ``DdsHandler`` an
 its untransform (medians of 5, ``file_s``). Where the checkout has the BC7/BC6H
 slice (``ops/cuda/planes.py``), it also times ``dlt_bc7_transform`` and
 ``dlt_bc7_untransform`` (sort and planes) on the 4096x4096 BC7 DX10 file of
-``chip_smoke.py`` and that file's LTU auto-transform and untransform. Prints the
-``nvidia-smi`` line and one JSON object.
+``chip_smoke.py`` and that file's LTU auto-transform and untransform. Where it has
+the RGB slice (``ops/cuda/channels.py``), it also times ``dlt_rgb_transform`` and
+``dlt_rgb_untransform`` (split only, the file's LTU pick, and decorrelate+split, the
+default) on the 4096x4096 RGBA8888 file of ``chip_smoke.py`` (16,777,216 pixels)
+and that file's LTU auto-transform and untransform. Prints the ``nvidia-smi`` line
+and one JSON object.
 """
 
 from __future__ import annotations
@@ -131,6 +135,26 @@ def main() -> int:
             lambda: planes.bc7_transform(x7, planes.BC7, True, True))
         ms["dlt_bc7_untransform"] = event_ms(
             lambda: planes.bc7_untransform(t7, n, True, True))
+
+    try:
+        from dxt_lossless_transform_tpu_torch.api import RgbAutoTransformBuilder
+        from dxt_lossless_transform_tpu_torch.ops.cuda import channels
+        from dxt_lossless_transform_tpu_torch.utils.testgen import make_uncompressed_dds
+    except ImportError:  # a checkout from before the RGB slice
+        channels = None
+    if channels is not None:
+        dds["RGBA8888"] = make_uncompressed_dds("rgba8888", 4096, 4096, seed=7)
+        bundles["RGBA8888"] = TransformBundle(
+            rgba8888=RgbAutoTransformBuilder("rgba8888", LtuEstimation()))
+        xr = backend.upload(dds["RGBA8888"][0x80:], dev)
+        for dec in (False, True):
+            rgb_args = (*channels.LAYOUTS["rgba8888"], dec, True)
+            tr = channels.rgb_transform(xr, *rgb_args)
+            label = "dec_split" if dec else "split"
+            ms[f"dlt_rgb_transform/{label}"] = event_ms(
+                lambda: channels.rgb_transform(xr, *rgb_args))
+            ms[f"dlt_rgb_untransform/{label}"] = event_ms(
+                lambda: channels.rgb_untransform(tr, *rgb_args))
 
     file_s = {}
     for fmt, data in dds.items():

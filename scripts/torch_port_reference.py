@@ -23,7 +23,15 @@ on the exact pick (``kept``, ``identity`` or ``not applied``), the shipped
 settings, the sha256 of the file the JAX package's ``DdsHandler`` writes with them,
 whether the JAX package's own auto builder writes the same file
 (``jax_shipped_agrees``), and the sha256 of the manual default (sort and planes).
-Runs on the CPU:
+
+For RGBA8888, BGRA8888 and BGR888 it builds the 4096x4096 single-level files of the
+smoke run (``utils.testgen.make_uncompressed_dds(layout, 4096, 4096, seed=7)``) and
+prints each of the four candidates' (``RGB_FAST_CANDIDATES``) whole transformed
+stream's exact score (``runtime.ltu_estimate``) and the JAX package's own f32
+scores, the exact pick and JAX's (``jax_pick_agrees``), the sha256 of the file the
+JAX package's ``DdsHandler`` writes with the exact pick, whether its own auto builder
+writes the same file (``jax_shipped_agrees``), and the sha256 of the file that
+``TransformBundle.default_all()`` gives (decorrelate and split). Runs on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py [--formats BC2 BC4]
 """
@@ -46,6 +54,7 @@ from dxt_lossless_transform_tpu.api import (  # noqa: E402
     Bc1ManualTransformBuilder, Bc2ManualTransformBuilder, Bc3ManualTransformBuilder,
     Bc4ManualTransformBuilder, Bc5ManualTransformBuilder, Bc6hAutoTransformBuilder,
     Bc6hManualTransformBuilder, Bc7AutoTransformBuilder, Bc7ManualTransformBuilder,
+    RgbAutoTransformBuilder, RgbManualTransformBuilder,
 )
 from dxt_lossless_transform_tpu.estimate.ltu import LtuEstimation  # noqa: E402
 from dxt_lossless_transform_tpu.estimate.ltu import (  # noqa: E402
@@ -57,15 +66,16 @@ from dxt_lossless_transform_tpu.ops import auto as jax_auto, bc45 as jax_bc45  #
 from dxt_lossless_transform_tpu.ops.auto import _host_colour_regions  # noqa: E402
 from dxt_lossless_transform_tpu.oracle import bc6h as oracle_bc6h  # noqa: E402
 from dxt_lossless_transform_tpu.oracle import bc7 as oracle_bc7  # noqa: E402
+from dxt_lossless_transform_tpu.oracle import rgb as oracle_rgb  # noqa: E402
 from dxt_lossless_transform_tpu.oracle.bc4 import _ep_streams  # noqa: E402
 from dxt_lossless_transform_tpu.settings import (  # noqa: E402
     BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
     BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
-    BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, Bc4TransformSettings,
-    Bc5TransformSettings,
+    BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, RGB_FAST_CANDIDATES,
+    Bc4TransformSettings, Bc5TransformSettings,
 )
 from dxt_lossless_transform_tpu.utils.testgen import (  # noqa: E402
-    bc_blocks, make_dds, make_dx10_dds,
+    bc_blocks, make_dds, make_dx10_dds, make_uncompressed_dds,
 )
 
 SIZE, MIPS, SEED = 4096, 13, 7
@@ -77,6 +87,8 @@ def _score(row: bytes) -> int:
 
 
 def _key(settings) -> list:
+    if hasattr(settings, "split_channels"):
+        return [settings.decorrelate, settings.split_channels]
     if hasattr(settings, "sort_by_mode"):
         return [settings.sort_by_mode, settings.split_byte_planes]
     if hasattr(settings, "split_endpoints"):
@@ -232,9 +244,39 @@ def mode_sort(fmt: str) -> dict:
     }
 
 
+def rgb(layout: str) -> dict:
+    dds = make_uncompressed_dds(layout, SIZE, SIZE, seed=SEED)
+    payload = dds[0x80:]
+    cand = RGB_FAST_CANDIDATES
+    streams = [oracle_rgb.transform(payload, layout, c) for c in cand]
+    scores = [runtime.ltu_estimate(row) for row in streams]
+    jax_scores = [float(v) for v in LtuEstimation().estimate_batch(streams)]
+    del streams
+    best, jax_best = int(np.argmin(scores)), int(np.argmin(jax_scores))
+    handler = DdsHandler()
+    out = handler.transform_bundle(dds, TransformBundle(
+        **{layout: RgbManualTransformBuilder(layout, cand[best])}))
+    start = time.perf_counter()
+    jax_out = handler.transform_bundle(dds, TransformBundle(
+        **{layout: RgbAutoTransformBuilder(layout, LtuEstimation())}))
+    return {
+        "pixels": SIZE * SIZE, "payload_bytes": len(payload),
+        "file_sha256": hashlib.sha256(dds).hexdigest(),
+        "auto": {
+            "scores": scores, "pick": _key(cand[best]), "jax_scores": jax_scores,
+            "jax_pick": _key(cand[jax_best]), "jax_pick_agrees": jax_best == best,
+            "sha256": hashlib.sha256(out).hexdigest(),
+            "jax_shipped_agrees": jax_out == out,
+            "jax_search_s": round(time.perf_counter() - start, 1)},
+        "default_all_sha256": hashlib.sha256(handler.transform_bundle(
+            dds, TransformBundle.default_all())).hexdigest(),
+    }
+
+
 FORMATS = {"BC1": bc1, "BC2": bc2, "BC3": bc3, "BC4": lambda: bc45("BC4"),
            "BC5": lambda: bc45("BC5"), "BC7": lambda: mode_sort("BC7"),
-           "BC6H": lambda: mode_sort("BC6H")}
+           "BC6H": lambda: mode_sort("BC6H"), "RGBA8888": lambda: rgb("rgba8888"),
+           "BGRA8888": lambda: rgb("bgra8888"), "BGR888": lambda: rgb("bgr888")}
 
 
 def main() -> None:

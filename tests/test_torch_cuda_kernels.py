@@ -1,4 +1,4 @@
-"""The sixteen CUDA kernel entry points against their plain versions, on the card.
+"""The eighteen CUDA kernel entry points against their plain versions, on the card.
 
 Marked ``cuda``: without a CUDA device they skip. On a machine with one (and
 without JAX, which ``tests/conftest.py`` imports):
@@ -13,8 +13,8 @@ import torch
 from dxt_lossless_transform_tpu_torch import backend
 from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
 from dxt_lossless_transform_tpu_torch.estimate.ltu import DEFAULT_OFFSETS, offset_weight
-from dxt_lossless_transform_tpu_torch.ops.cuda import planes, regions, shuffle
-from dxt_lossless_transform_tpu_torch.ops import auto, bc45, bc6h, bc7
+from dxt_lossless_transform_tpu_torch.ops.cuda import channels, planes, regions, shuffle
+from dxt_lossless_transform_tpu_torch.ops import auto, bc45, bc6h, bc7, rgb
 from dxt_lossless_transform_tpu_torch.settings import (
     BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
     BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
@@ -241,6 +241,8 @@ def test_each_wrapper_counts_its_launches(cuda):
     shuffle.bc5_untransform(shuffle.bc5_transform(x, False), False)
     planes.bc7_untransform(planes.bc7_transform(x, planes.BC6H, True, True), 32, True,
                            True)
+    rgb_args = (*channels.LAYOUTS["bgr888"], True, False)
+    channels.rgb_untransform(channels.rgb_transform(x[:510], *rgb_args), *rgb_args)
     torch.cuda.synchronize()
     assert backend.LAUNCHES == {"dlt_bc1_transform": 1, "dlt_bc1_untransform": 1,
                                 "dlt_bc1_regions": 1, "dlt_ltu_counts": 1,
@@ -249,7 +251,8 @@ def test_each_wrapper_counts_its_launches(cuda):
                                 "dlt_bc2_untransform": 1, "dlt_bc2_regions": 1,
                                 "dlt_bc4_transform": 1, "dlt_bc4_untransform": 1,
                                 "dlt_bc5_transform": 1, "dlt_bc5_untransform": 1,
-                                "dlt_bc7_transform": 1, "dlt_bc7_untransform": 1}
+                                "dlt_bc7_transform": 1, "dlt_bc7_untransform": 1,
+                                "dlt_rgb_transform": 1, "dlt_rgb_untransform": 1}
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -277,6 +280,12 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):  # the untransform reads aligned words
         planes.bc7_untransform(torch.zeros(36, dtype=torch.uint8, device=cuda)[2:], 2,
                                True, True)
+    with pytest.raises(ValueError):  # no layout has this channel map
+        channels.rgb_transform(torch.zeros(12, dtype=torch.uint8, device=cuda), 4, 1, 0,
+                               2, True, True)
+    with pytest.raises(ValueError):  # out on another device
+        channels.rgb_untransform(torch.zeros(12, dtype=torch.uint8, device=cuda), 3, 2, 1,
+                                 0, True, True, out=torch.zeros(12, dtype=torch.uint8))
 
 
 def test_short_inputs_on_the_card(cuda):
@@ -375,3 +384,80 @@ def test_bc7_short_inputs_on_the_card(cuda):
             bc7.transform_bc7_auto(bytes(size), LtuEstimation())
         with pytest.raises(Bc6hValidationError):
             bc6h.transform_bc6h_auto(bytes(size), LtuEstimation())
+
+
+# the pixel counts of the CPU tests, and tiles of 4096 pixels with ragged tails
+RGB_SIZES = [1, 2, 3, 4, 5, 4095, 4096, 4097, 12291, 70001]
+RGB_SETTINGS = [(True, True), (True, False), (False, True), (False, False)]
+
+
+def _pixels(n, stride, dev, offset=0):
+    data = np.random.default_rng(n + offset).integers(0, 256, stride * n + 8, np.uint8)
+    return torch.from_numpy(data).to(dev)[offset:offset + stride * n]
+
+
+@pytest.mark.parametrize("n", RGB_SIZES)
+@pytest.mark.parametrize("dec,split", RGB_SETTINGS)
+@pytest.mark.parametrize("layout", list(channels.LAYOUTS))
+def test_rgb_kernels(cuda, layout, dec, split, n):
+    args = (*channels.LAYOUTS[layout], dec, split)
+    x = _pixels(n, args[0], cuda)
+    t = channels.rgb_transform(x, *args)
+    assert torch.equal(t, channels.rgb_transform_plain(x, *args))
+    u = channels.rgb_untransform(t, *args)
+    assert torch.equal(u, channels.rgb_untransform_plain(t, *args))
+    assert torch.equal(u, x)
+
+
+@pytest.mark.parametrize("out_offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("in_offset", [1, 2, 3])
+@pytest.mark.parametrize("layout", list(channels.LAYOUTS))
+def test_rgb_kernels_at_unaligned_offsets(cuda, layout, in_offset, out_offset):
+    """Input and output rows at byte offsets 1-3 into larger tensors, odd n: the
+    bytes around them stay as they were."""
+    n = 8193
+    stride = channels.LAYOUTS[layout][0]
+    for dec, split in RGB_SETTINGS[:3]:
+        args = (*channels.LAYOUTS[layout], dec, split)
+        x = _pixels(n, stride, cuda, in_offset)
+        for fn, plain in ((channels.rgb_transform, channels.rgb_transform_plain),
+                          (channels.rgb_untransform, channels.rgb_untransform_plain)):
+            buf = torch.full((stride * n + 8,), 0xAB, dtype=torch.uint8, device=cuda)
+            out = buf[out_offset:out_offset + stride * n]
+            fn(x, *args, out=out)
+            assert torch.equal(out, plain(x, *args))
+            assert bool((buf[:out_offset] == 0xAB).all())
+            assert bool((buf[out_offset + stride * n:] == 0xAB).all())
+
+
+@pytest.mark.parametrize("layout", list(channels.LAYOUTS))
+def test_rgb_auto_on_the_card(cuda, layout):
+    """The search on the card: the same scores, pick and bytes as its plain versions
+    on the CPU, on a gradient image and on random pixels, at an odd pixel count."""
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+    from dxt_lossless_transform_tpu_torch.settings import RGB_FAST_CANDIDATES
+    from dxt_lossless_transform_tpu_torch.utils.testgen import make_uncompressed_dds
+
+    stride = channels.LAYOUTS[layout][0]
+    for data in (make_uncompressed_dds(layout, 211, 97, seed=5)[0x80:],
+                 _pixels(211 * 97, stride, "cpu").numpy().tobytes()):
+        assert rgb.transform_rgb_auto(data, layout, LtuEstimation()) == \
+            rgb.transform_rgb_auto(data, layout, LtuEstimation(), device="cpu")
+        x = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        on_card, _ = rgb.candidate_rows(x.to(cuda), layout, LtuEstimation(),
+                                        RGB_FAST_CANDIDATES)
+        on_cpu, _ = rgb.candidate_rows(x, layout, LtuEstimation(), RGB_FAST_CANDIDATES)
+        assert on_card.tolist() == on_cpu.tolist()
+
+
+def test_rgb_edge_cases_on_the_card(cuda):
+    from dxt_lossless_transform_tpu_torch.errors import RgbValidationError
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+    from dxt_lossless_transform_tpu_torch.settings import RGB_FAST_CANDIDATES
+
+    for layout, (stride, *_) in channels.LAYOUTS.items():
+        assert rgb.transform_rgb_auto(b"", layout, LtuEstimation()) == \
+            (b"", RGB_FAST_CANDIDATES[-1])
+        for size in list(range(1, stride)) + [stride + 1]:
+            with pytest.raises(RgbValidationError):
+                rgb.transform_rgb_auto(bytes(size), layout, LtuEstimation())

@@ -98,15 +98,16 @@ def test_non_bc1_dds_raises_as_jax(fmt):
 
 
 def test_non_bc1_header_is_unsupported_on_untransform():
-    """A format of a later slice (RGBA8888 here; BC2-BC7 and BC6H are ported) raises
-    on untransform."""
-    data = jax_testgen.make_uncompressed_dds("rgba8888", 8, 8)
+    """Every format's header is supported on untransform now that the RGB formats
+    are ported: a JAX-written BGR888 file (decorrelated, not split) untransforms in
+    the port to the JAX package's bytes."""
+    data = jax_testgen.make_uncompressed_dds("bgr888", 9, 7)
     from dxt_lossless_transform_tpu.api import RgbManualTransformBuilder
 
     transformed = JaxHandler().transform_bundle(
-        data, JaxBundle(rgba8888=RgbManualTransformBuilder("rgba8888")))
-    with pytest.raises(errors.UnsupportedTransformFormat, match="later slice"):
-        DdsHandler("cpu").untransform(transformed)
+        data, JaxBundle(bgr888=RgbManualTransformBuilder("bgr888").split_channels(False)))
+    assert DdsHandler("cpu").untransform(transformed) == \
+        JaxHandler().untransform(transformed) == data
 
 
 def test_truncated_file_raises_as_jax():

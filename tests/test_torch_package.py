@@ -20,15 +20,17 @@ from dxt_lossless_transform_tpu_torch.api import (
     Bc2ManualTransformBuilder, Bc3AutoTransformBuilder, Bc3ManualTransformBuilder,
     Bc4AutoTransformBuilder, Bc4ManualTransformBuilder, Bc5AutoTransformBuilder,
     Bc5ManualTransformBuilder, Bc6hAutoTransformBuilder, Bc6hManualTransformBuilder,
-    Bc7AutoTransformBuilder, Bc7ManualTransformBuilder,
+    Bc7AutoTransformBuilder, Bc7ManualTransformBuilder, RgbAutoTransformBuilder,
+    RgbManualTransformBuilder,
 )
 from dxt_lossless_transform_tpu_torch.errors import DeviceUnavailableError
 from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
 from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
 from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
 from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
-from dxt_lossless_transform_tpu_torch.ops import auto, bc1, bc2, bc3, bc45, bc6h, bc7
-from dxt_lossless_transform_tpu_torch.ops.cuda import planes, regions, shuffle
+from dxt_lossless_transform_tpu_torch.formats import api as formats_api, file_io
+from dxt_lossless_transform_tpu_torch.ops import auto, bc1, bc2, bc3, bc45, bc6h, bc7, rgb
+from dxt_lossless_transform_tpu_torch.ops.cuda import channels, planes, regions, shuffle
 from dxt_lossless_transform_tpu_torch.utils import testgen
 
 REPO = Path(__file__).resolve().parent.parent
@@ -58,7 +60,8 @@ def test_scan_covers_the_package():
             "ops/auto.py", "formats/bundle.py", "formats/embed.py", "convert.py",
             "settings.py", "errors.py", "utils/testgen.py", "ops/bc2.py",
             "ops/bc45.py", "ops/bc7.py", "ops/bc6h.py", "ops/cuda/planes.py",
-            "estimate/zstd.py"} <= names
+            "estimate/zstd.py", "ops/rgb.py", "ops/cuda/channels.py",
+            "formats/api.py", "formats/file_io.py"} <= names
 
 
 def test_import_builds_nothing_and_imports_no_triton():
@@ -156,6 +159,35 @@ ENTRY_POINTS = {
         DdsHandler("cpu").transform_bundle(testgen.make_dx10_dds("BC6H", 16, 16),
                                            TransformBundle(
                                                bc6h=Bc6hManualTransformBuilder()))),
+    "rgb.transform": lambda: rgb.transform(DATA, "rgba8888"),
+    "rgb.untransform": lambda: rgb.untransform(DATA[:1023], "bgr888"),
+    "rgb.transform identity": lambda: rgb.transform(
+        DATA, "bgra8888", settings.RgbTransformSettings(False, False)),
+    "rgb.transform_rgb_auto": lambda: rgb.transform_rgb_auto(DATA, "rgba8888",
+                                                             LtuEstimation()),
+    "rgb.transform_rgb_auto empty": lambda: rgb.transform_rgb_auto(b"", "bgr888",
+                                                                   LtuEstimation()),
+    "rgb manual builder": lambda: RgbManualTransformBuilder("bgr888").transform(
+        DATA[:1023]),
+    "rgb manual builder untransform": lambda: RgbManualTransformBuilder(
+        "rgba8888").untransform(DATA),
+    "rgb auto builder": lambda: RgbAutoTransformBuilder(
+        "bgra8888", LtuEstimation()).transform(DATA),
+    "DdsHandler.transform_bundle rgba8888": lambda: DdsHandler().transform_bundle(
+        testgen.make_uncompressed_dds("rgba8888", 16, 16), TransformBundle(
+            rgba8888=RgbAutoTransformBuilder("rgba8888", LtuEstimation()))),
+    "DdsHandler.untransform bgr888": lambda: DdsHandler().untransform(
+        DdsHandler("cpu").transform_bundle(testgen.make_uncompressed_dds(
+            "bgr888", 16, 16), TransformBundle.default_all())),
+    "transform_slice_with_multiple_handlers": lambda: (
+        formats_api.transform_slice_with_multiple_handlers(
+            [DdsHandler()], testgen.make_uncompressed_dds("bgra8888", 8, 8),
+            TransformBundle.default_all())),
+    "untransform_slice_with_multiple_handlers": lambda: (
+        formats_api.untransform_slice_with_multiple_handlers(
+            [DdsHandler()], DdsHandler("cpu").transform_bundle(
+                testgen.make_uncompressed_dds("bgr888", 8, 8),
+                TransformBundle.default_all()))),
 }
 
 
@@ -165,6 +197,25 @@ def test_entry_points_default_to_cuda(call):
     _no_cuda()
     with pytest.raises(DeviceUnavailableError):
         ENTRY_POINTS[call]()
+
+
+@pytest.mark.parametrize("direction", ["transform", "untransform"])
+def test_file_entry_points_default_to_cuda(direction, tmp_path):
+    """File in, file out through a ``DdsHandler()`` asks for the card and raises
+    here, before writing anything."""
+    _no_cuda()
+    data = testgen.make_uncompressed_dds("bgr888", 8, 8)
+    if direction == "untransform":
+        data = DdsHandler("cpu").transform_bundle(data, TransformBundle.default_all())
+    src, out = tmp_path / "in.dds", tmp_path / "out.dds"
+    src.write_bytes(data)
+    with pytest.raises(DeviceUnavailableError):
+        if direction == "transform":
+            file_io.transform_file_with_multiple_handlers(
+                [DdsHandler()], TransformBundle.default_all(), src, out)
+        else:
+            file_io.untransform_file_with_multiple_handlers([DdsHandler()], src, out)
+    assert not out.exists()
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -192,6 +243,11 @@ def test_cpu_tensors_take_the_plain_versions():
                 t7 = planes.bc7_transform(x, fmt, sort, split)
                 assert torch.equal(planes.bc7_untransform(t7, x.numel() // 16, sort,
                                                           split), x)
+    for layout in channels.LAYOUTS:
+        for s in settings.RgbTransformSettings.all_combinations():
+            args = (*channels.LAYOUTS[layout], s.decorrelate, s.split_channels)
+            assert torch.equal(channels.rgb_untransform(
+                channels.rgb_transform(x[:960], *args), *args), x[:960])
     assert all(count == 0 for count in backend.LAUNCHES.values())
 
 
@@ -214,7 +270,7 @@ def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
     assert path.name.startswith("libdlt_kernels_") and path.suffix == ".so"
     assert [p.name for p in backend.sources()] == ["bc1_kernels.cu", "bc2_kernels.cu",
                                                    "bc3_kernels.cu", "bc45_kernels.cu",
-                                                   "bc7_kernels.cu"]
+                                                   "bc7_kernels.cu", "rgb_kernels.cu"]
     # every source and header is in the hash
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -223,7 +279,7 @@ def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
     monkeypatch.setattr(backend, "CSRC", csrc)
     assert backend.library_path() == path
     for name in ("common.cuh", "bc3_kernels.cu", "bc2_kernels.cu", "bc45_kernels.cu",
-                 "bc7_kernels.cu"):
+                 "bc7_kernels.cu", "rgb_kernels.cu"):
         (csrc / name).write_bytes((csrc / name).read_bytes() + b"\n")
         changed = backend.library_path()
         assert changed != path
@@ -242,8 +298,9 @@ def test_convert_bc3_from_reference():
         list(settings.Bc3TransformSettings.all_combinations())
     assert convert.from_reference(jax_settings.Bc3TransformSettings()) == \
         settings.Bc3TransformSettings()
-    with pytest.raises(TypeError):  # the RGB formats come with a later slice
-        convert.from_reference(jax_settings.RgbTransformSettings())
+    # the RGB formats came with a later slice: their settings map to the port's
+    assert convert.from_reference(jax_settings.RgbTransformSettings()) == \
+        settings.RgbTransformSettings()
 
 
 def test_convert_bc2_bc4_bc5_from_reference():
@@ -309,7 +366,7 @@ def test_build_writes_the_hash_named_library_once(tmp_path, monkeypatch):
     # one nvcc call for every source
     assert (bindir / "log").read_text() == \
         "call bc1_kernels.cu bc2_kernels.cu bc3_kernels.cu bc45_kernels.cu " \
-        "bc7_kernels.cu \n"
+        "bc7_kernels.cu rgb_kernels.cu \n"
 
 
 def test_build_failure_raises_and_leaves_nothing(tmp_path, monkeypatch):
