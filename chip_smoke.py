@@ -9,10 +9,11 @@ Phases, each printed as a JSON line with its wall time:
 1. device: the card as ``nvidia-smi`` names it, its power limit, the PyTorch build,
    and the zstd library that the BC7/BC6H identity guard loads (its path and
    ``ZSTD_versionNumber()``);
-2. build: the one ``nvcc`` call that builds the eighteen kernel entry points from
-   the six sources ``csrc/bc1_kernels.cu``, ``bc2_kernels.cu``, ``bc3_kernels.cu``,
-   ``bc45_kernels.cu``, ``bc7_kernels.cu`` and ``rgb_kernels.cu`` into one library
-   under ``build/cuda/`` (skipped when that library is already built);
+2. build: the one ``nvcc`` call that builds the twenty kernel entry points from
+   the seven sources ``csrc/bc1_kernels.cu``, ``bc2_kernels.cu``, ``bc3_kernels.cu``,
+   ``bc45_kernels.cu``, ``bc7_kernels.cu``, ``rgb_kernels.cu`` and
+   ``words_kernels.cu`` into one library under ``build/cuda/`` (skipped when that
+   library is already built);
 3. check: each kernel against its plain PyTorch version, both on the card, byte for
    byte and for scores as exact integers: every setting (8 for BC1 and BC2, 16 for
    BC3, 2 for BC4 and BC5), n in {1, 3, 2048, 1,398,103} blocks, the FAST and
@@ -27,7 +28,12 @@ Phases, each printed as a JSON line with its wall time:
    both directions, n in {1, 2, 3, 4, 5, 4095, 4096, 4097, 16,777,216} pixels, with
    input and output rows at byte offsets 1-3 into larger tensors, and the count
    kernel on their candidate rows at odd n; empty, unaligned and shorter-than-a-pixel
-   input through the RGB auto-search;
+   input through the RGB auto-search; the word deinterleave for k in {2, 4} and N in
+   {1, 2, 3, 4095, 4096, 4097, 1,398,103, 2,097,152} (the largest batch's), byte for
+   byte; the per-row count kernel on rows whose lengths run from 0 to the row's
+   (0-3 and odd ones included) with the default, far and 40-offset ladders, on
+   70,000 rows at their own lengths, and against the scalar kernel where every row
+   has one length;
 4. main: the production path through the entry points a user calls, one path per
    format: a 4096x4096 DDS file of each of BC1-BC5, BC7 and BC6H, each with its full
    13-level mip chain (1,398,103 blocks; payloads of 11,184,824 bytes for BC1 and
@@ -44,14 +50,33 @@ Phases, each printed as a JSON line with its wall time:
    (constants below). The launch counts are set to 0 just before each path and read
    just after it; every kernel of the path must have been launched in it (an RGB
    file's load path launches nothing when the identity wins);
-5. times: CUDA-event medians of each kernel at the main path's shapes beside its
+5. batch: the corpus batch pipeline through its processors, the slice's main path:
+   for each of BC1-BC5 32 payloads (the full mip chains of 256², 512², 1024², 2048²,
+   1000x600, 300x200, 2048x1024 and 4x4 in turn, the last one empty; ragged files in
+   every bucket, one below 2048 blocks, the 2048² ones at 349,527 blocks) through
+   ``BatchProcessor(fmt, max_batch=16)`` under LTU, BC1 and BC3 also host-scored with
+   ``ZstdEstimation(1)``; 12 BC7 and 12 BC6H payloads up to the 2048² chain and an
+   empty one through ``ModeSortBatchProcessor``; 4 payloads of each RGB layout up to
+   1024x1024 and an empty one through ``RgbBatchProcessor`` under LTU; every output
+   back through ``UntransformBatchProcessor``. Every file must come back, each result
+   must equal the port's per-file auto-search on the same payload and estimator, and
+   the picks and the sha256 over each format's outputs must equal the JAX package's
+   (constants below; the zstd-dependent ones are printed beside theirs). Each path
+   (a format's batch run and its load path) has its counts set to 0 just before and
+   read just after: one launch of the deinterleave, region, per-row count and
+   untransform kernels per batch, not one per file;
+6. times: CUDA-event medians of each kernel at the main path's shapes beside its
    plain version and its bound (the mode-sort kernels in every setting, with the
    ``.t().contiguous()`` call that computes the planes-only layout; the RGB kernels
    in every setting of each layout, with the same call for the split-only layout;
    the count kernel on each RGB file's four candidate rows), and the wall time of
    one transform and one untransform of each file, with the host<->device copies,
    the search, the identity guard's zstd time and the RGB files' reads and writes
-   shown apart.
+   shown apart; the word deinterleave at the largest batch's N beside its plain
+   version and ``.t().contiguous()``, the per-row count kernel on the BC1 batch's
+   rows, and each format's batch and batched load path against a loop of the
+   per-file entry points, in files/s and MB/s, with host assembly, H2D, kernels,
+   D2H and serialization apart.
 
 The last three lines are the ``nvidia-smi`` line, a JSON line with every kernel's
 numbers and ``{"ok": true, "device": {...}}``. Any mismatch, build failure or
@@ -186,6 +211,11 @@ KERNELS = {
                         "dxt_lossless_transform_tpu/ops/pallas/regions.py:60"),
     "dlt_ltu_counts": ("bc1_kernels.cu",
                        "dxt_lossless_transform_tpu/estimate/pallas_ltu.py:302"),
+    # the per-row form of the same TPU kernel (its valid_rows)
+    "dlt_ltu_counts_rows": ("bc1_kernels.cu",
+                            "dxt_lossless_transform_tpu/estimate/pallas_ltu.py:302"),
+    "dlt_deinterleave_words": ("words_kernels.cu",
+                               "dxt_lossless_transform_tpu/ops/pallas/planes.py:159"),
     "dlt_bc3_transform": ("bc3_kernels.cu",
                           "dxt_lossless_transform_tpu/ops/pallas/shuffle.py:301"),
     "dlt_bc3_untransform": ("bc3_kernels.cu",
@@ -226,6 +256,71 @@ PATH_KERNELS = {fmt: [name for name in KERNELS if name.startswith(f"dlt_{fmt.low
                 + ["dlt_ltu_counts"] for fmt in FORMATS + ("BC7",)}
 PATH_KERNELS["BC6H"] = PATH_KERNELS["BC7"]
 RGB_KERNELS = ("dlt_rgb_transform", "dlt_rgb_untransform", "dlt_ltu_counts")
+# The batch corpus (scripts/torch_port_reference.py corpus(), seed 7): full mip
+# chains of these sizes in turn, 31 payloads and an empty one for each of BC1-BC5;
+# the first six twice and an empty one for BC7 and BC6H; these four sizes and an
+# empty one for each RGB layout
+CORPUS_SIZES = ((256, 256), (512, 512), (1024, 1024), (2048, 2048), (1000, 600),
+                (300, 200), (2048, 1024), (4, 4))
+BATCH_MODE_SORT_SIZES = CORPUS_SIZES[:6] * 2
+BATCH_RGB_SIZES = ((128, 128), (256, 256), (640, 480), (1024, 1024))
+BATCH_FORMATS = ("bc1", "bc2", "bc3", "bc4", "bc5")
+BATCH_HOST_SCORED = ("bc1", "bc3")
+BATCH_MAX = 16
+# The picks (candidate indices: BatchProcessor's FAST candidates, BC4/BC5 split
+# true then false, BC7/BC6H identity, sort, planes, sort+planes, RGB identity,
+# decorrelate, split, both) under the JAX batch pipeline's scoring from the exact
+# twin, and the sha256 over each format's concatenated outputs:
+#     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --formats BATCH
+# The mode-sort formats' shipped outputs and the host-scored picks go through
+# zstd-1 and depend on the library's version; their constants are printed beside
+# the run's, which is held to the per-file search on the card instead.
+BATCH_REFERENCE = {
+    "bc1": {
+        "picks": [3, 3, 3, 3, 3, 3, 3, 2, 3, 3, 3, 3, 3, 3, 3, 0, 3, 3, 3, 3, 3, 3, 3,
+                  2, 3, 3, 3, 3, 3, 3, 3, 3],
+        "sha256": "903a5fe66d8a238e9a5038860b7eca6d0ee1335300364549849d74567f1fc98f",
+        "host_sha256": "1d652988daec49ea062139da68c9a03fe3272d562ae9c828c2410bb9aee8a59f"},
+    "bc2": {
+        "picks": [3, 3, 3, 3, 3, 3, 3, 2, 3, 3, 3, 3, 3, 3, 3, 0, 3, 3, 3, 3, 3, 3, 3,
+                  2, 3, 3, 3, 3, 3, 3, 3, 3],
+        "sha256": "7a45336fdd3675a6b60b9ba8a7acbc592510c09c591743feca45008a7d65a437"},
+    "bc3": {
+        "picks": [1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1, 1, 1, 1, 1, 2, 1, 1, 1, 1, 1, 1, 1,
+                  0, 1, 1, 1, 1, 1, 1, 1, 7],
+        "sha256": "94ce5cccb545fc9b96a51992357009fd6154080324d146940cecd9e0c7afa387",
+        "host_sha256": "3e91177087bffef796f936fa6fa1839e34c6b64e623e0cc018531ffcf1487862"},
+    "bc4": {
+        "picks": [0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0,
+                  0, 0, 0, 1, 1, 1, 0, 1, 1],
+        "sha256": "7ad2b1294a425e5e93c1cdca4e676af65848ea1383c6e347b59d09b236f32e71"},
+    "bc5": {
+        "picks": [0, 0, 1, 0, 0, 0, 1, 0, 0, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0, 1, 1, 0, 1,
+                  0, 0, 0, 0, 0, 0, 0, 1, 1],
+        "per_file_differs": [3, 6, 9, 11, 17, 25, 30],
+        "sha256": "ef51cdd752377b9190b7bf617c8f53738214caeeab04efe417de76d6e83d5363"},
+    "bc7": {
+        "picks": [3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3],
+        "shipped": [3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3],
+        "sha256": "589bc8371041b0be1a0babd43776ed728dcff9876ec0a16979d69fc2c856cbd0"},
+    "bc6h": {
+        "picks": [3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3],
+        "shipped": [3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3],
+        "sha256": "80911cf81d91a2c18d82a06c5ea44f2c225b19e248ef7c021eb447612d5d72f3"},
+    "rgba8888": {
+        "picks": [3, 3, 2, 2, 3],
+        "sha256": "af8e3ccdb2d3505337a3b9bd228fc83535ef0a08b7ab3356b37cf6f4a28807f3"},
+    "bgra8888": {
+        "picks": [3, 3, 2, 2, 3],
+        "sha256": "af8e3ccdb2d3505337a3b9bd228fc83535ef0a08b7ab3356b37cf6f4a28807f3"},
+    "bgr888": {
+        "picks": [3, 3, 2, 2, 3],
+        "sha256": "066aad1d0e077b3fcd9226afc002e34ae20afa52cdf0efd856c2f5edefdc9718"},
+}
+# N words per stream in the deinterleave check: the largest batch is the four
+# 2048x2048 chains in the 524,288-block bucket, 2,097,152 blocks
+LARGEST_BATCH_N = 4 * 524_288
+WORD_SIZES = (1, 2, 3, 4095, 4096, 4097, BLOCKS, LARGEST_BATCH_N)
 # the mode-sort kernels' block counts in the check phase
 MODE_SORT_SIZES = (1, 2, 3, 4095, 4096, 4097, BLOCKS)
 # rows for the count kernel's many-rows case: more than one launch's grid.y (65,535)
@@ -276,6 +371,30 @@ def memory_rate(name: str) -> tuple:
     return MEMORY_RATE["H100"], "H100 (assumed)"
 
 
+def batch_corpus(fmt: str) -> list:
+    """The batch phase's payloads of ``fmt`` (``bc1``-``bc5``, ``bc7``, ``bc6h`` or an
+    RGB layout), as ``scripts/torch_port_reference.py:corpus`` makes them with the
+    JAX package's generators."""
+    from dxt_lossless_transform_tpu_torch.utils.testgen import (
+        bc1_realistic, bc2_realistic, bc3_realistic, bc7_realistic, bc_blocks,
+        chain_blocks, make_uncompressed_dds,
+    )
+
+    if fmt in BATCH_FORMATS:
+        gen = {"bc1": bc1_realistic, "bc2": bc2_realistic, "bc3": bc3_realistic}.get(fmt)
+        size = BLOCK_SIZE[fmt.upper()]
+        out = []
+        for i in range(31):
+            n = chain_blocks(*CORPUS_SIZES[i % len(CORPUS_SIZES)])
+            out.append(gen(n, SEED + i) if gen else bc_blocks(n, size, SEED + i))
+        return out + [b""]
+    if fmt in ("bc7", "bc6h"):
+        return [bc7_realistic(chain_blocks(*size), SEED + i + (100 if fmt == "bc6h" else 0))
+                for i, size in enumerate(BATCH_MODE_SORT_SIZES)] + [b""]
+    return [make_uncompressed_dds(fmt, w, h, seed=SEED + i)[0x80:]
+            for i, (w, h) in enumerate(BATCH_RGB_SIZES)] + [b""]
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     import numpy as np
@@ -286,7 +405,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from dxt_lossless_transform_tpu_torch import backend
+    from dxt_lossless_transform_tpu_torch import backend, parallel
     from dxt_lossless_transform_tpu_torch.api import (
         Bc1AutoTransformBuilder, Bc2AutoTransformBuilder, Bc3AutoTransformBuilder,
         Bc4AutoTransformBuilder, Bc5AutoTransformBuilder, Bc6hAutoTransformBuilder,
@@ -296,7 +415,7 @@ def main() -> int:
     from dxt_lossless_transform_tpu_torch.errors import (
         Bc6hValidationError, Bc7ValidationError, RgbValidationError,
     )
-    from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu, zstd
+    from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu, ltu, zstd
     from dxt_lossless_transform_tpu_torch.estimate.ltu import (
         DEFAULT_OFFSETS, LtuEstimation, coverage_scores, offset_weight,
     )
@@ -305,6 +424,9 @@ def main() -> int:
     from dxt_lossless_transform_tpu_torch.formats.embed import TransformHeader
     from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
     from dxt_lossless_transform_tpu_torch.ops import auto, bc45, bc6h, bc7, rgb
+    from dxt_lossless_transform_tpu_torch.ops import bc1 as ops_bc1, bc2 as ops_bc2
+    from dxt_lossless_transform_tpu_torch.ops import bc3 as ops_bc3
+    from dxt_lossless_transform_tpu_torch.parallel import sharded
     from dxt_lossless_transform_tpu_torch.ops.cuda import channels, planes, regions, shuffle
     from dxt_lossless_transform_tpu_torch.settings import (
         BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
@@ -314,7 +436,8 @@ def main() -> int:
         Bc4TransformSettings, Bc5TransformSettings, Bc7TransformSettings,
     )
     from dxt_lossless_transform_tpu_torch.utils.testgen import (
-        bc7_realistic, bc_blocks, make_dds, make_dx10_dds, make_uncompressed_dds,
+        bc7_realistic, bc_blocks, chain_blocks, make_dds, make_dx10_dds,
+        make_uncompressed_dds,
     )
 
     dev = torch.device("cuda", 0)
@@ -632,7 +755,134 @@ def main() -> int:
             except RgbValidationError:
                 continue
             fail(f"{fmt} auto-transform of {size} bytes did not raise RgbValidationError")
+    # the word deinterleave: both k, every N of the list
+    for k in (2, 4):
+        for n_words in WORD_SIZES:
+            xw = torch.from_numpy(rng.integers(-2**31, 2**31, k * n_words, np.int32)).to(dev)
+            for i, (got, want) in enumerate(zip(planes.deinterleave_words(xw, k),
+                                                planes.deinterleave_words_plain(xw, k))):
+                compare("dlt_deinterleave_words", got, want, f"k={k} N={n_words} stream {i}")
+    # the per-row count kernel: lengths from 0 to the row's (0-3 and odd ones
+    # included) on random rows and on the periodic rows whose far offsets match,
+    # with the three ladders; against the scalar kernel where every row has one
+    # length; 70,000 rows at their own lengths
+    rows_len = 140_002
+    row_lengths = [0, 1, 2, 3, 4, 5, 7, 4099, 8191, 8195, 65_537, 70_001, rows_len - 1,
+                   rows_len]
+    per_row = [(torch.from_numpy(rng.integers(0, 3, (len(row_lengths), rows_len),
+                                              np.uint8)).to(dev),
+                torch.tensor(row_lengths)),
+               (torch.cat(far_rows[2:]), torch.tensor([rows_len, 100_001, 65_537]))]
+    for rows, valid in per_row:
+        for offsets in (ks, FAR_OFFSETS, LADDER_40):
+            weights = [offset_weight(k) for k in offsets]
+            compare("dlt_ltu_counts_rows", cuda_ltu.ltu_counts(rows, valid, offsets, weights),
+                    cuda_ltu.ltu_counts_plain(rows, valid, offsets, weights),
+                    f"per-row lengths {valid.tolist()}, ladder of {len(offsets)}")
+            for v in (0, 3, 70_001, rows_len):
+                compare("dlt_ltu_counts_rows",
+                        cuda_ltu.ltu_counts(rows, torch.full_like(valid, v), offsets, weights),
+                        cuda_ltu.ltu_counts(rows, v, offsets, weights),
+                        f"every row at {v} against the scalar kernel, ladder of "
+                        f"{len(offsets)}")
+    many_valid = torch.from_numpy(rng.integers(0, 13, MANY_ROWS))
+    compare("dlt_ltu_counts_rows", cuda_ltu.ltu_counts(many, many_valid, ks, ws),
+            cuda_ltu.ltu_counts_plain(many, many_valid, ks, ws),
+            f"{MANY_ROWS} rows at their own lengths")
+    # every batch of the batch corpus, at the shapes the batch path gives the kernels:
+    # for BC1-BC5, each batch as BatchProcessor assembles it (up to 16 files of one
+    # bucket: four 2048x2048 chains in 524,288 blocks, ragged 5,463 and 5,041 in
+    # 8,192, three of 3 blocks in 2,048, ...), the deinterleave, region and
+    # untransform kernels at n = B·bucket blocks (the untransform in every setting,
+    # on the transform kernel's output), and the per-row count kernel on the rows
+    # the step scores, each at its own valid length; for BC7/BC6H and RGB, the count
+    # kernel on the rows the processors score. The step's count calls are recorded
+    # (ltu.ltu_counts wrapped while it runs) and each is repeated beside the plain
+    # version.
+    scored = []
+    real_ltu_counts = ltu.ltu_counts
+
+    def record_counts(rows, valid, offsets, weights):
+        scored.append((rows, valid, tuple(offsets), tuple(weights)))
+        return real_ltu_counts(rows, valid, offsets, weights)
+
+    def compare_scored(what: str) -> None:
+        if not scored:
+            fail(f"{what}: the step made no count call")
+        for rows, valid, offsets, weights in scored:
+            if not isinstance(valid, torch.Tensor):
+                fail(f"{what}: a count call with one valid length for all rows")
+            compare("dlt_ltu_counts_rows", cuda_ltu.ltu_counts(rows, valid, offsets, weights),
+                    cuda_ltu.ltu_counts_plain(rows, valid, offsets, weights),
+                    f"{what}: {tuple(rows.shape)} rows at lengths "
+                    f"{sorted(set(valid.tolist()))}")
+        batch_rows_checked.append([tuple(rows.shape) for rows, *_ in scored])
+        scored.clear()
+
+    def shuffle_args(s) -> tuple:
+        if isinstance(s, (Bc4TransformSettings, Bc5TransformSettings)):
+            return (s.split_endpoints,)
+        if isinstance(s, Bc3TransformSettings):
+            return (int(s.decorrelation_mode), s.split_alpha_endpoints,
+                    s.split_colour_endpoints)
+        return (int(s.decorrelation_mode), s.split_colour_endpoints)
+
+    batch_settings = {"bc1": Bc1TransformSettings, "bc2": Bc2TransformSettings,
+                      "bc3": Bc3TransformSettings, "bc4": Bc4TransformSettings,
+                      "bc5": Bc5TransformSettings}
+    batch_blocks_checked, batch_rows_checked = {}, []
+    ltu.ltu_counts = record_counts
+    try:
+        for fmt in BATCH_FORMATS:
+            proc = parallel.BatchProcessor(fmt, max_batch=BATCH_MAX)
+            data = batch_corpus(fmt)
+            wpb = proc.cfg["words"]
+            transform = getattr(shuffle, f"{fmt}_transform")
+            untransform = getattr(shuffle, f"{fmt}_untransform")
+            untransform_plain = getattr(shuffle, f"{fmt}_untransform_plain")
+            batch_blocks_checked[fmt] = []
+            for chunk, flats, valid in proc._prepare_batches(data, [None] * len(data)):
+                bucket = flats.shape[1] // wpb
+                n = len(chunk) * bucket
+                what = f"{fmt} batch of {len(chunk)} files in the {bucket}-block bucket"
+                x = backend.to_device(flats, dev)
+                for i, (got, want) in enumerate(zip(
+                        planes.deinterleave_words(x.reshape(-1), wpb),
+                        planes.deinterleave_words_plain(x.reshape(-1), wpb))):
+                    compare("dlt_deinterleave_words", got, want, f"{what}, stream {i}")
+                xb = x.view(torch.uint8).reshape(-1)
+                if fmt == "bc3":
+                    akeys, ckeys = sharded._bc3_keys(proc._cand_key)[:2]
+                    for part, got, want in zip(("alpha", "colour"),
+                                               regions.bc3_regions(xb, akeys, ckeys),
+                                               regions.bc3_regions_plain(xb, akeys, ckeys)):
+                        compare("dlt_bc3_regions", got, want, f"{what}, {part}")
+                elif fmt in ("bc1", "bc2"):
+                    keys = auto.distinct(proc._cand_key)[0]
+                    compare(f"dlt_{fmt}_regions", getattr(regions, f"{fmt}_regions")(xb, keys),
+                            getattr(regions, f"{fmt}_regions_plain")(xb, keys), what)
+                proc._step(x, valid)
+                compare_scored(what)
+                for st in batch_settings[fmt].all_combinations():
+                    t = transform(xb, *shuffle_args(st))
+                    u = untransform(t, *shuffle_args(st))
+                    compare(f"dlt_{fmt}_untransform", u,
+                            untransform_plain(t, *shuffle_args(st)), f"{what} {st}")
+                    compare(f"dlt_{fmt}_untransform", u, xb, f"{what} {st} round trip")
+                batch_blocks_checked[fmt].append(n)
+        for fmt in ("bc7", "bc6h"):
+            parallel.ModeSortBatchProcessor(fmt, max_batch=BATCH_MAX).process(
+                batch_corpus(fmt))
+            compare_scored(f"{fmt} mode-sort batches")
+        for layout in (fmt.lower() for fmt in RGB):
+            parallel.RgbBatchProcessor(layout, LtuEstimation(), max_batch=BATCH_MAX).process(
+                batch_corpus(layout))
+            compare_scored(f"{layout} batches")
+    finally:
+        ltu.ltu_counts = real_ltu_counts
     emit("check", t0, block_counts=checked, max_abs_err=max_err,
+         batch_blocks=batch_blocks_checked, batch_count_rows=batch_rows_checked,
+         word_counts=list(WORD_SIZES), per_row_lengths=row_lengths,
          far_counts=far_counts, many_rows=MANY_ROWS, many_rows_count_sum=many_rows_sum,
          mode_sort_block_counts=list(MODE_SORT_SIZES), guard=guard_checks,
          rgb_pixel_counts=list(RGB_SIZES), rgb_cases=rgb_cases,
@@ -724,9 +974,6 @@ def main() -> int:
                       if count and name not in RGB_KERNELS}
             if others:
                 fail(f"the {fmt} {label} path launched other formats' kernels: {others}")
-    # each kernel's launches on the main path: the count kernel's over every path
-    launches = {name: sum(counts.get(name, 0) for counts in path_launches.values())
-                for name in KERNELS}
     results = {}
     xs = {fmt: backend.upload(data, dev) for fmt, data in payload.items()}
     xs.update({fmt: backend.upload(data, dev) for fmt, data in ms_payload.items()})
@@ -827,7 +1074,139 @@ def main() -> int:
          blocks=BLOCKS, rgb_pixels=RGB_PIXELS,
          launches=path_launches, results=results, wall=wall)
 
-    # ---- 5. times ----------------------------------------------------------------------
+    # ---- 5. the batch corpus, through the pipeline's processors -------------------------
+    t0 = time.perf_counter()
+    corpus = {fmt: batch_corpus(fmt) for fmt in
+              BATCH_FORMATS + ("bc7", "bc6h") + tuple(fmt.lower() for fmt in RGB)}
+    per_file_auto = {"bc1": auto.transform_bc1_auto, "bc2": auto.transform_bc2_auto,
+                     "bc3": auto.transform_bc3_auto, "bc4": bc45.transform_bc4_auto,
+                     "bc5": bc45.transform_bc5_auto, "bc7": bc7.transform_bc7_auto,
+                     "bc6h": bc6h.transform_bc6h_auto}
+    for layout in (fmt.lower() for fmt in RGB):
+        per_file_auto[layout] = (lambda d, est, _l=layout: rgb.transform_rgb_auto(d, _l, est))
+    batch_results = {}
+
+    def batch_path(label: str, fmt: str, proc):
+        """One path: the batch transform of the corpus of ``fmt`` and its batched
+        load path, with the launch counts set to 0 just before and read just
+        after. Returns (results, counts, the load path's processor)."""
+        data = corpus[fmt]
+        sync()
+        backend.reset_launch_counts()
+        t = time.perf_counter()
+        results = proc.process(data)
+        sync()
+        wall[f"batch_{label}_transform_s"] = time.perf_counter() - t
+        unproc = parallel.UntransformBatchProcessor(fmt, max_batch=BATCH_MAX)
+        t = time.perf_counter()
+        back = unproc.process([(r.transformed, r.settings) for r in results])
+        sync()
+        wall[f"batch_{label}_untransform_s"] = time.perf_counter() - t
+        counts = {name: count for name, count in backend.LAUNCHES.items() if count}
+        path_launches[f"batch/{label}"] = counts
+        if [r.index for r in results] != list(range(len(data))):
+            fail(f"batch {label}: results out of submission order")
+        if back != data:
+            fail(f"batch {label}: a restored payload differs from the input")
+        bad = [i for i, (r, d) in enumerate(zip(results, data))
+               if d and per_file_auto[fmt](d, proc.estimator if label.endswith("zstd1")
+                                           else LtuEstimation()) != (r.transformed,
+                                                                     r.settings)]
+        expected = BATCH_REFERENCE[fmt].get("per_file_differs", []) \
+            if not label.endswith("zstd1") else []
+        if bad != expected:
+            fail(f"batch {label}: payloads {bad} differ from the per-file auto-search "
+                 f"(expected {expected})")
+        return results, counts, unproc
+
+    def digest(results) -> str:
+        h = hashlib.sha256()
+        for r in results:
+            h.update(r.transformed)
+        return h.hexdigest()
+
+    for fmt in BATCH_FORMATS:
+        proc = parallel.BatchProcessor(fmt, max_batch=BATCH_MAX)
+        results, counts, unproc = batch_path(fmt, fmt, proc)
+        want = {"dlt_deinterleave_words": proc.batches,
+                "dlt_ltu_counts_rows": proc.batches,
+                f"dlt_{fmt}_untransform": unproc.batches}
+        if fmt in ("bc1", "bc2", "bc3"):
+            want[f"dlt_{fmt}_regions"] = proc.batches
+        if counts != want:
+            fail(f"batch {fmt}: launches {counts}, expected one of each kernel per "
+                 f"batch: {want}")
+        picks = [proc.candidates.index(r.settings) for r in results]
+        ref = BATCH_REFERENCE[fmt]
+        batch_results[fmt] = {"payloads": len(results), "batches": proc.batches,
+                              "untransform_batches": unproc.batches, "picks": picks,
+                              "sha256": digest(results)}
+        if picks != ref["picks"] or batch_results[fmt]["sha256"] != ref["sha256"]:
+            fail(f"batch {fmt}: picks or sha256 differ from the JAX package's: "
+                 f"{batch_results[fmt]}")
+    for fmt in BATCH_HOST_SCORED:
+        proc = parallel.BatchProcessor(fmt, max_batch=BATCH_MAX,
+                                       estimator=zstd.ZstdEstimation(1))
+        results, counts, unproc = batch_path(f"{fmt}_zstd1", fmt, proc)
+        want = {"dlt_deinterleave_words": proc.batches, f"dlt_{fmt}_regions": proc.batches,
+                f"dlt_{fmt}_untransform": unproc.batches}
+        if counts != want:
+            fail(f"batch {fmt} host-scored: launches {counts}, expected one of each "
+                 f"kernel per batch: {want}")
+        batch_results[f"{fmt}_zstd1"] = {
+            "batches": proc.batches, "untransform_batches": unproc.batches,
+            "picks": [proc.candidates.index(r.settings) for r in results],
+            "sha256": digest(results)}
+        batch_results[f"{fmt}_zstd1"]["sha256_matches_reference"] = \
+            batch_results[f"{fmt}_zstd1"]["sha256"] == BATCH_REFERENCE[fmt]["host_sha256"]
+    for fmt in ("bc7", "bc6h"):
+        proc = parallel.ModeSortBatchProcessor(fmt, max_batch=BATCH_MAX)
+        results, counts, unproc = batch_path(fmt, fmt, proc)
+        shipped = [proc.settings.index(r.settings) for r in results]
+        if counts.get("dlt_ltu_counts_rows") != proc.batches \
+                or not counts.get("dlt_bc7_transform") \
+                or (any(s.sort_by_mode or s.split_byte_planes for s in
+                        (r.settings for r, d in zip(results, corpus[fmt]) if d))
+                    and not counts.get("dlt_bc7_untransform")) \
+                or set(counts) - {"dlt_bc7_transform", "dlt_bc7_untransform",
+                                  "dlt_ltu_counts_rows"}:
+            fail(f"batch {fmt}: launches {counts} for {proc.batches} batches")
+        # the batch step's own picks, before the guard
+        picks = proc.picks
+        ref = BATCH_REFERENCE[fmt]
+        batch_results[fmt] = {"payloads": len(results), "batches": proc.batches,
+                              "picks": picks, "shipped": shipped,
+                              "sha256": digest(results),
+                              "shipped_matches_reference": shipped == ref["shipped"]}
+        batch_results[fmt]["sha256_matches_reference"] = \
+            batch_results[fmt]["sha256"] == ref["sha256"]
+        if picks != ref["picks"]:
+            fail(f"batch {fmt}: picks {picks} != reference {ref['picks']}")
+    for layout in (fmt.lower() for fmt in RGB):
+        proc = parallel.RgbBatchProcessor(layout, LtuEstimation(), max_batch=BATCH_MAX)
+        results, counts, unproc = batch_path(layout, layout, proc)
+        picks = [proc.settings.index(r.settings) for r in results]
+        if counts.get("dlt_ltu_counts_rows") != proc.batches \
+                or not counts.get("dlt_rgb_transform") \
+                or set(counts) - {"dlt_rgb_transform", "dlt_rgb_untransform",
+                                  "dlt_ltu_counts_rows"}:
+            fail(f"batch {layout}: launches {counts} for {proc.batches} batches")
+        ref = BATCH_REFERENCE[layout]
+        batch_results[layout] = {"payloads": len(results), "batches": proc.batches,
+                                 "picks": picks, "sha256": digest(results)}
+        if picks != ref["picks"] or batch_results[layout]["sha256"] != ref["sha256"]:
+            fail(f"batch {layout}: picks or sha256 differ from the JAX package's: "
+                 f"{batch_results[layout]}")
+    # each kernel's launches on the main paths: the earlier slices' and the batch ones
+    launches = {name: sum(counts.get(name, 0) for counts in path_launches.values())
+                for name in KERNELS}
+    emit("batch", t0, payloads={fmt: len(d) for fmt, d in corpus.items()},
+         bytes={fmt: sum(map(len, d)) for fmt, d in corpus.items()},
+         launches={k: v for k, v in path_launches.items() if k.startswith("batch/")},
+         results=batch_results,
+         wall={k: v for k, v in wall.items() if k.startswith("batch_")})
+
+    # ---- 6. times ----------------------------------------------------------------------
     t0 = time.perf_counter()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
@@ -875,9 +1254,9 @@ def main() -> int:
     # the host side of one transform and one untransform of each file, and the
     # copies of its payload apart: medians of 5, before the kernel timings below
     # fill the allocator's cache with their scratch
-    def host_s(fn) -> float:
+    def host_s(fn, reps: int = 5) -> float:
         times = []
-        for _ in range(5):
+        for _ in range(reps):
             start = time.perf_counter()
             fn()
             sync()
@@ -1116,6 +1495,100 @@ def main() -> int:
         _, rows = rgb.candidate_rows(xr, layout, LtuEstimation(), RGB_FAST_CANDIDATES)
         rows = torch.stack(list(rows.values()))
         timed[f"dlt_ltu_counts/{layout}"] = time_counts(rows, rows.shape[1])
+    # the word deinterleave at the largest batch's N, k = 2 (BC1, BC4) and 4 (BC2,
+    # BC3, BC5), beside the one PyTorch call that computes it; each word read once
+    # and written once
+    for k in (2, 4):
+        xw = torch.from_numpy(rng.integers(-2**31, 2**31, k * LARGEST_BATCH_N,
+                                           np.int32)).to(dev)
+        timed[f"dlt_deinterleave_words/k{k}"] = dict(
+            ms=event_ms(lambda: planes.deinterleave_words(xw, k), 20),
+            plain_ms=event_ms(lambda: planes.deinterleave_words_plain(xw, k), 5),
+            library_ms=event_ms(lambda: xw.view(-1, k).t().contiguous(), 20),
+            bytes=8 * k * LARGEST_BATCH_N, ops=0)
+    # the per-row count kernel on the BC1 batch's rows: the four 2048x2048 chains of
+    # the 524,288-block bucket, each candidate key's row cut at the file's length
+    big = [d for d in corpus["bc1"] if len(d) == 8 * chain_blocks(2048, 2048)]
+    bucket = LARGEST_BATCH_N // len(big)
+    flats = torch.zeros((len(big), 2 * bucket), dtype=torch.int32)
+    for row, d in enumerate(big):
+        flats[row, :len(d) // 4] = torch.frombuffer(bytearray(d), dtype=torch.int32)
+    n_big = len(big[0]) // 8
+    _, rows, _ = sharded._colour_rows_batched(
+        flats.to(dev), [n_big] * len(big), sharded._BC1_CANDIDATES, 2, regions.bc1_regions)
+    rows = rows.view(-1, rows.shape[2])
+    valid_rows = torch.full((rows.shape[0],), 4 * n_big)
+    positions, compares = rows.shape[0] * (4 * n_big - 3), compares_needed(rows, 4 * n_big)
+    timed["dlt_ltu_counts_rows/bc1_batch"] = dict(
+        ms=event_ms(lambda: cuda_ltu.ltu_counts(rows, valid_rows, ks, ws), 20),
+        plain_ms=event_ms(lambda: cuda_ltu.ltu_counts_plain(rows, valid_rows, ks, ws), 3),
+        scalar_ms=event_ms(lambda: cuda_ltu.ltu_counts(rows, 4 * n_big, ks, ws), 20),
+        bytes=rows.shape[0] * 4 * n_big, positions=positions, compares=compares,
+        ops=OPS_GRAM * positions + OPS_COMPARE * compares,
+        issue_ms=(SASS_PER_POSITION * positions + SASS_PER_COMPARE * compares)
+        / int_rate * 1e3)
+    compare("dlt_ltu_counts_rows", cuda_ltu.ltu_counts(rows, valid_rows, ks, ws),
+            cuda_ltu.ltu_counts_plain(rows, valid_rows, ks, ws), "the BC1 batch's timed rows")
+    del xw, flats, rows
+    # each format's batch against a loop of the per-file entry points over the same
+    # payloads, both directions, and the stages of one batch run with the device
+    # synchronised around each (so that they do not overlap)
+    per_file_untransform = {
+        "bc1": ops_bc1.untransform, "bc2": ops_bc2.untransform, "bc3": ops_bc3.untransform,
+        "bc4": bc45.untransform_bc4, "bc5": bc45.untransform_bc5, "bc7": bc7.untransform,
+        "bc6h": bc6h.untransform}
+    for layout in (fmt.lower() for fmt in RGB):
+        per_file_untransform[layout] = (lambda p, st, _l=layout: rgb.untransform(p, _l, st))
+    make_proc = {fmt: (lambda fmt=fmt, **kw: parallel.BatchProcessor(
+        fmt, max_batch=BATCH_MAX, **kw)) for fmt in BATCH_FORMATS}
+    make_proc.update({fmt: (lambda fmt=fmt, **kw: parallel.ModeSortBatchProcessor(
+        fmt, max_batch=BATCH_MAX, **kw)) for fmt in ("bc7", "bc6h")})
+    make_proc.update({layout: (lambda layout=layout, **kw: parallel.RgbBatchProcessor(
+        layout, LtuEstimation(), max_batch=BATCH_MAX, **kw)) for layout in
+        (fmt.lower() for fmt in RGB)})
+    throughput = {}
+    for fmt, data in corpus.items():
+        files, nbytes = sum(1 for d in data if d), sum(map(len, data))
+        results = make_proc[fmt]().process(data)
+        entries = [(r.transformed, r.settings) for r in results]
+        live = [(d, e) for d, e in zip(data, entries) if d]
+        est = LtuEstimation()
+        entry = {"files": files, "bytes": nbytes,
+                 "batch_s": host_s(lambda: make_proc[fmt]().process(data), 3),
+                 "per_file_s": host_s(lambda: [per_file_auto[fmt](d, est)
+                                               for d, _ in live], 3),
+                 "untransform_batch_s": host_s(lambda: parallel.UntransformBatchProcessor(
+                     fmt, max_batch=BATCH_MAX).process(entries), 3),
+                 "untransform_per_file_s": host_s(lambda: [
+                     per_file_untransform[fmt](*e) for _, e in live], 3)}
+        for key in ("batch", "per_file", "untransform_batch", "untransform_per_file"):
+            entry[f"{key}_files_per_s"] = files / entry[f"{key}_s"]
+            entry[f"{key}_MB_per_s"] = nbytes / entry[f"{key}_s"] / 1e6
+        staged = make_proc[fmt](timing=True)
+        staged.process(data)
+        entry["batch_stages_s"] = staged.times.seconds
+        unstaged = parallel.UntransformBatchProcessor(fmt, max_batch=BATCH_MAX, timing=True)
+        unstaged.process(entries)
+        if unstaged.times.seconds:
+            entry["untransform_stages_s"] = unstaged.times.seconds
+        throughput[fmt] = entry
+    # host-scored mode on the payloads under 1 MiB (which the JAX package sends to its
+    # host runtime; the port batches them): the batch against a loop of the per-file
+    # search with the same estimator, the same results both ways
+    small_files = {}
+    for fmt in BATCH_HOST_SCORED:
+        data = [d for d in corpus[fmt] if 0 < len(d) < 1 << 20]
+        est = zstd.ZstdEstimation(1)
+        if [(r.transformed, r.settings) for r in parallel.BatchProcessor(
+                fmt, max_batch=BATCH_MAX, estimator=est).process(data)] != \
+                [per_file_auto[fmt](d, est) for d in data]:
+            fail(f"{fmt} host-scored: the batch and the per-file search of the small "
+                 f"payloads give different results")
+        small_files[fmt] = {
+            "files": len(data), "bytes": sum(map(len, data)),
+            "batch_s": host_s(lambda: parallel.BatchProcessor(
+                fmt, max_batch=BATCH_MAX, estimator=est).process(data), 3),
+            "per_file_s": host_s(lambda: [per_file_auto[fmt](d, est) for d in data], 3)}
     for entry in timed.values():
         bytes_ms = entry["bytes"] / rate * 1e3
         ops_ms = entry["ops"] / int_rate * 1e3
@@ -1123,11 +1596,13 @@ def main() -> int:
         entry["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
 
     tmp.cleanup()
-    emit("times", t0, kernels=timed, host=copies,
+    emit("times", t0, kernels=timed, host=copies, batch=throughput,
+         host_scored_small_files=small_files,
          note="kernel ms: CUDA-event medians with L2 flushed before each launch; "
-              "host s: medians of 5", run_seconds=time.perf_counter() - run_start)
+              "host s: medians of 5, batch: medians of 3",
+         run_seconds=time.perf_counter() - run_start)
 
-    # ---- 6. the contract lines ----------------------------------------------------------
+    # ---- 7. the contract lines ----------------------------------------------------------
     # the row of each kernel: its COMPREHENSIVE shape where it has one, the count
     # kernel on the BC1 COMPREHENSIVE colour rows, as in earlier runs, the mode-sort
     # kernels in the BC7 file's shipped setting, sort and planes, and the RGB kernels
@@ -1135,8 +1610,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         entry = (timed.get(name) or timed.get(f"{name}/bc7_sort_planes")
-                 or timed.get(f"{name}/rgba8888_split")
-                 or timed[f"{name}/comprehensive"])
+                 or timed.get(f"{name}/rgba8888_split") or timed.get(f"{name}/k2")
+                 or timed.get(f"{name}/bc1_batch") or timed[f"{name}/comprehensive"])
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max_err[name],

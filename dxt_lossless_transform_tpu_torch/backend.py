@@ -3,7 +3,8 @@
 The kernels live in the CUDA C++ sources ``csrc/*.cu`` (``bc1_kernels.cu`` with the
 LTU count kernel, ``bc2_kernels.cu``, ``bc3_kernels.cu``, ``bc45_kernels.cu``,
 ``bc7_kernels.cu`` with the BC7/BC6H mode sort, ``rgb_kernels.cu`` with the RGB
-channel split and merge), which share ``csrc/common.cuh`` and have plain
+channel split and merge, ``words_kernels.cu`` with the word deinterleave of the
+batch pipeline), which share ``csrc/common.cuh`` and have plain
 ``extern "C"`` entry points. At first use, :func:`library` compiles all of them
 with one ``nvcc`` call into one shared library under ``build/cuda/`` at the
 repository root and loads it with :mod:`ctypes`. The file name carries a hash of
@@ -50,6 +51,11 @@ _SIGNATURES = {
     # (rows, counts, n_rows, row_len, valid_len, offsets, weights, n_offsets,
     #  far_table, stream)
     "dlt_ltu_counts": (_P, _P, _I, _I, _I, _P, _P, _I, _P, _P),
+    # (rows, counts, n_rows, row_len, valid_rows, max_valid, offsets, weights,
+    #  n_offsets, far_table, stream)
+    "dlt_ltu_counts_rows": (_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P),
+    # (in, out, n words per stream, k streams, stream)
+    "dlt_deinterleave_words": (_P, _P, _I, _I, _P),
     # (in, out, n_blocks, variant, split_alpha, split_colour, stream)
     "dlt_bc3_transform": (_P, _P, _I, _I, _I, _I, _P),
     "dlt_bc3_untransform": (_P, _P, _I, _I, _I, _I, _P),
@@ -223,3 +229,40 @@ def download(t: torch.Tensor) -> bytes:
     pinned.copy_(t.reshape(-1), non_blocking=True)
     torch.cuda.current_stream(t.device).synchronize()
     return pinned.numpy().tobytes()
+
+
+def host_buffer(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """An uninitialised host tensor in which to assemble a copy to ``device``:
+    pinned when ``device`` is a CUDA device."""
+    return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor from :func:`host_buffer` -> ``device``, asynchronously for CUDA
+    (PyTorch's pinned-memory allocator keeps the buffer until the copy has run); the
+    CPU takes the tensor itself."""
+    return t.to(device, non_blocking=True) if device.type == "cuda" else t
+
+
+class Download:
+    """Device tensors copied to the host: the copies are queued on the current stream
+    when the object is made, and :meth:`wait` returns them as numpy arrays, so that
+    work queued after them runs while the host waits for these."""
+
+    def __init__(self, tensors):
+        tensors = [t.contiguous() for t in tensors]
+        self._event = None
+        if tensors and tensors[0].is_cuda:
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                          for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = tensors
+
+    def wait(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]

@@ -121,6 +121,15 @@ bc1_regions_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out, int6
 // its gram from global memory (two aligned 32-bit loads and a funnel shift, mostly
 // L2 hits), and the sums are signed. Offsets that no position reaches are dropped
 // by the wrapper, so every k in the table is below valid_len.
+//
+// dlt_ltu_counts_rows takes one valid length per row, from a device array: the
+// per-row form of the TPU kernel (valid_rows in SMEM, pallas_ltu.py:302-323), which
+// scores a whole batch of files of different lengths, each with its candidates, in
+// one launch. It is the same kernel with ROWS = true: each block reads its row's
+// length, and a block whose tile starts at or past that row's last position returns
+// before it stages anything, so the grid, sized for the longest row, costs the
+// shorter rows one early exit per tile. With ROWS = false the body is the scalar
+// kernel's, instruction for instruction.
 constexpr int kTile = 8192;                            // positions per block
 constexpr int kHalo = 4096;                            // largest near offset
 constexpr int kWinWords = (kHalo + kTile + 4) / 4 + 1; // halo, tile, lookahead
@@ -156,18 +165,28 @@ __device__ __forceinline__ uint32_t gram_global(const uint8_t* row, int64_t p) {
 
 // The near instantiation's parameters are those of the one kernel before the far
 // one existed, (rows, row_len, valid_len, LtuOffsets, counts); the far one takes
-// LtuFarOffsets in place of LtuOffsets.
+// LtuFarOffsets in place of LtuOffsets. With ROWS, valid_len is a device array of
+// one length per row in place of the one length.
 template <bool FAR>
 using OffsetTable = std::conditional_t<FAR, LtuFarOffsets, LtuOffsets>;
+template <bool ROWS>
+using ValidLen = std::conditional_t<ROWS, const int64_t* __restrict__, int64_t>;
 
-template <bool FAR>
+template <bool FAR, bool ROWS>
 __global__ void __launch_bounds__(kThreads)
-ltu_counts_kernel(const uint8_t* __restrict__ rows, int64_t row_len, int64_t valid_len,
+ltu_counts_kernel(const uint8_t* __restrict__ rows, int64_t row_len, ValidLen<ROWS> valid,
                   OffsetTable<FAR> offs, unsigned long long* __restrict__ counts) {
   __shared__ uint32_t win[kWinWords];
   __shared__ uint32_t block_sum;
   const uint8_t* row = rows + static_cast<int64_t>(blockIdx.y) * row_len;
   const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  int64_t valid_len;
+  if constexpr (ROWS) {
+    valid_len = valid[blockIdx.y];
+    if (tile0 >= valid_len - 3) return;  // the whole block: no position of this row
+  } else {
+    valid_len = valid;
+  }
   const int64_t win0 = tile0 - kHalo;  // a multiple of 4
   const bool aligned = (reinterpret_cast<uintptr_t>(row) & 3u) == 0;
   if (threadIdx.x == 0) block_sum = 0;
@@ -270,6 +289,75 @@ int dlt_bc1_regions(const void* in, void* out, int64_t n, int64_t code, int64_t 
   return cudaGetLastError();
 }
 
+}  // extern "C"
+
+namespace {
+
+// Checks the host offset and weight arrays (ascending offsets >= 1, weights
+// -255..255) and decides the instantiation: the near one takes at most 32 offsets
+// up to 4096 and weights 0-255, by value in `offs`; any other ladder needs the far
+// table in device memory (k then w, int64), which the caller passes exactly when
+// the same rule says far.
+cudaError_t ltu_offsets(const void* offsets, const void* weights, int64_t n_offsets,
+                        const void* far_table, bool* near, LtuOffsets* offs) {
+  if (n_offsets < 0 || n_offsets > INT32_MAX / 2) return cudaErrorInvalidValue;
+  const int64_t* ks = static_cast<const int64_t*>(offsets);
+  const int64_t* ws = static_cast<const int64_t*>(weights);
+  *near = n_offsets <= kMaxOffsets;
+  for (int64_t o = 0; o < n_offsets; ++o) {
+    const bool ascending = o == 0 || ks[o] > ks[o - 1];
+    if (ks[o] < 1 || !ascending || ws[o] < -kMaxWeight || ws[o] > kMaxWeight) {
+      return cudaErrorInvalidValue;
+    }
+    *near = *near && ks[o] <= kHalo && ws[o] >= 0;
+  }
+  if (*near != (far_table == nullptr)) return cudaErrorInvalidValue;
+  *offs = {};
+  if (*near) {
+    offs->n = static_cast<int32_t>(n_offsets);
+    for (int64_t o = 0; o < n_offsets; ++o) {
+      offs->k[o] = static_cast<int32_t>(ks[o]);
+      offs->w[o] = static_cast<uint32_t>(ws[o]);
+    }
+  }
+  return cudaSuccess;
+}
+
+// Zeroes the counts and launches the kernel once per group of kMaxGridY rows
+// (grid.y holds the rows), with enough tiles for positions below max_valid - 3.
+// `valid` is the one length, or (ROWS) the device array of n_rows lengths.
+template <bool ROWS>
+cudaError_t launch_counts(const void* rows, void* counts, int64_t n_rows, int64_t row_len,
+                          ValidLen<ROWS> valid, int64_t max_valid, bool near,
+                          const LtuOffsets& offs, const LtuFarOffsets& far,
+                          cudaStream_t st) {
+  cudaError_t rc = cudaMemsetAsync(counts, 0, n_rows * sizeof(unsigned long long), st);
+  if (rc != cudaSuccess) return rc;
+  const int64_t positions = max_valid > 3 ? max_valid - 3 : 1;
+  const unsigned tiles = static_cast<unsigned>((positions + kTile - 1) / kTile);
+  for (int64_t r0 = 0; r0 < n_rows; r0 += kMaxGridY) {
+    const dim3 grid(tiles, static_cast<unsigned>(std::min(n_rows - r0, kMaxGridY)));
+    const uint8_t* group = static_cast<const uint8_t*>(rows) + r0 * row_len;
+    unsigned long long* group_counts = static_cast<unsigned long long*>(counts) + r0;
+    ValidLen<ROWS> group_valid = valid;
+    if constexpr (ROWS) group_valid = valid + r0;
+    if (near) {
+      ltu_counts_kernel<false, ROWS><<<grid, kThreads, 0, st>>>(group, row_len, group_valid,
+                                                                offs, group_counts);
+    } else {
+      ltu_counts_kernel<true, ROWS><<<grid, kThreads, 0, st>>>(group, row_len, group_valid,
+                                                               far, group_counts);
+    }
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
 // offsets and weights: host arrays of n_offsets int64 each, checked here. far_table:
 // the same values in device memory (k then w, int64), which the far instantiation
 // reads; null when the near one takes them (at most 32 offsets up to 4096, weights
@@ -277,53 +365,36 @@ int dlt_bc1_regions(const void* in, void* out, int64_t n, int64_t code, int64_t 
 int dlt_ltu_counts(const void* rows, void* counts, int64_t n_rows, int64_t row_len,
                    int64_t valid_len, const void* offsets, const void* weights,
                    int64_t n_offsets, const void* far_table, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_rows <= 0 || valid_len < 0 || valid_len > row_len ||
-      n_offsets < 0 || n_offsets > INT32_MAX / 2) {
-    return cudaErrorInvalidValue;
-  }
-  const int64_t* ks = static_cast<const int64_t*>(offsets);
-  const int64_t* ws = static_cast<const int64_t*>(weights);
-  bool near = n_offsets <= kMaxOffsets;
-  for (int64_t o = 0; o < n_offsets; ++o) {
-    const bool ascending = o == 0 || ks[o] > ks[o - 1];
-    if (ks[o] < 1 || !ascending || ws[o] < -kMaxWeight || ws[o] > kMaxWeight) {
-      return cudaErrorInvalidValue;
-    }
-    near = near && ks[o] <= kHalo && ws[o] >= 0;
-  }
-  if (near != (far_table == nullptr)) return cudaErrorInvalidValue;
-  LtuOffsets offs = {};
+  if (n_rows <= 0 || valid_len < 0 || valid_len > row_len) return cudaErrorInvalidValue;
+  bool near = false;
+  LtuOffsets offs;
+  cudaError_t rc = ltu_offsets(offsets, weights, n_offsets, far_table, &near, &offs);
+  if (rc != cudaSuccess) return rc;
   const LtuFarOffsets far = {static_cast<const int64_t*>(far_table),
                              static_cast<int32_t>(n_offsets)};
-  if (near) {
-    offs.n = static_cast<int32_t>(n_offsets);
-    for (int64_t o = 0; o < n_offsets; ++o) {
-      offs.k[o] = static_cast<int32_t>(ks[o]);
-      offs.w[o] = static_cast<uint32_t>(ws[o]);
-    }
+  return launch_counts<false>(rows, counts, n_rows, row_len, valid_len, valid_len, near,
+                              offs, far, static_cast<cudaStream_t>(stream));
+}
+
+// As dlt_ltu_counts, with valid_rows a device array of n_rows int64 lengths, each in
+// [0, row_len], and max_valid their largest, which sizes the grid; the caller checks
+// both (the lengths are not read on the host).
+int dlt_ltu_counts_rows(const void* rows, void* counts, int64_t n_rows, int64_t row_len,
+                        const void* valid_rows, int64_t max_valid, const void* offsets,
+                        const void* weights, int64_t n_offsets, const void* far_table,
+                        void* stream) {
+  if (n_rows <= 0 || valid_rows == nullptr || max_valid < 0 || max_valid > row_len) {
+    return cudaErrorInvalidValue;
   }
-  cudaError_t rc = cudaMemsetAsync(counts, 0, n_rows * sizeof(unsigned long long), st);
+  bool near = false;
+  LtuOffsets offs;
+  cudaError_t rc = ltu_offsets(offsets, weights, n_offsets, far_table, &near, &offs);
   if (rc != cudaSuccess) return rc;
-  const int64_t positions = valid_len > 3 ? valid_len - 3 : 1;
-  const unsigned tiles = static_cast<unsigned>((positions + kTile - 1) / kTile);
-  // grid.y holds the rows, at most kMaxGridY of them a launch: more rows take one
-  // launch per group of kMaxGridY
-  for (int64_t r0 = 0; r0 < n_rows; r0 += kMaxGridY) {
-    const dim3 grid(tiles, static_cast<unsigned>(std::min(n_rows - r0, kMaxGridY)));
-    const uint8_t* group = static_cast<const uint8_t*>(rows) + r0 * row_len;
-    unsigned long long* group_counts = static_cast<unsigned long long*>(counts) + r0;
-    if (near) {
-      ltu_counts_kernel<false><<<grid, kThreads, 0, st>>>(group, row_len, valid_len, offs,
-                                                          group_counts);
-    } else {
-      ltu_counts_kernel<true><<<grid, kThreads, 0, st>>>(group, row_len, valid_len, far,
-                                                         group_counts);
-    }
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return rc;
-  }
-  return cudaSuccess;
+  const LtuFarOffsets far = {static_cast<const int64_t*>(far_table),
+                             static_cast<int32_t>(n_offsets)};
+  return launch_counts<true>(rows, counts, n_rows, row_len,
+                             static_cast<const int64_t*>(valid_rows), max_valid, near, offs,
+                             far, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -11,7 +11,7 @@ host-only estimator (its ``estimate_batch_device`` returns None).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Union
 
 import numpy as np
 import torch
@@ -34,15 +34,21 @@ class SizeEstimation:
         return [self.estimate(r) for r in regions]
 
     def estimate_batch_device(self, regions: torch.Tensor,
-                              valid_len: int) -> torch.Tensor:
+                              valid_len: Union[int, torch.Tensor]) -> torch.Tensor:
         """Scores of the rows of a (C, L) uint8 tensor, of which the first
-        ``valid_len`` bytes are real, as a (C,) tensor on ``regions.device``: int64
-        when every score is an integer, else float64.
+        ``valid_len`` bytes are real (one length, or a (C,) tensor of one per row),
+        as a (C,) tensor on ``regions.device``: int64 when every score is an
+        integer, else float64.
 
-        This default copies each row's first ``valid_len`` bytes to the host and
-        scores them with :meth:`estimate_batch`."""
-        host = regions[:, :valid_len].cpu().numpy()
-        scores = np.asarray(self.estimate_batch([row.tobytes() for row in host]))
+        This default copies each row's real bytes to the host and scores them with
+        :meth:`estimate_batch`."""
+        if isinstance(valid_len, torch.Tensor):
+            lengths = [int(v) for v in valid_len.tolist()]
+        else:
+            lengths = [valid_len] * regions.shape[0]
+        host = regions[:, :max(lengths, default=0)].cpu().numpy()
+        scores = np.asarray(self.estimate_batch(
+            [row[:v].tobytes() for row, v in zip(host, lengths)]))
         if scores.dtype.kind != "f" or np.array_equal(scores, np.round(scores)):
             scores = scores.astype(np.int64)
         return torch.from_numpy(scores).to(regions.device)
@@ -58,5 +64,5 @@ class NoEstimation(SizeEstimation):
         return 0
 
     def estimate_batch_device(self, regions: torch.Tensor,
-                              valid_len: int) -> torch.Tensor:
+                              valid_len: Union[int, torch.Tensor]) -> torch.Tensor:
         return torch.zeros(regions.shape[0], dtype=torch.int64, device=regions.device)

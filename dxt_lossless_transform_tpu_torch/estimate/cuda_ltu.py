@@ -15,12 +15,18 @@ summed in f32, which is exact only below 2**24. The entropy term and the score
 are computed outside the kernel (:mod:`.ltu`), as in the JAX package. Any number
 of rows works: the C entry point launches the kernel once per 65,535 rows (its
 grid.y).
+
+``valid_len`` is one length for every row (``dlt_ltu_counts``) or a (C,) tensor of
+one length per row (``dlt_ltu_counts_rows``, the TPU kernel's ``valid_rows``): the
+batch pipeline scores every candidate row of a batch of files of different lengths
+in one launch. Each row then counts as if it were alone at its own length; the
+offsets are kept, and the far instantiation chosen, for the longest row.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Sequence, Union
 
 import torch
 
@@ -42,9 +48,19 @@ def byte_rows(rows: torch.Tensor) -> torch.Tensor:
     return rows
 
 
-def _check(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
+ValidLen = Union[int, torch.Tensor]
+
+
+def _check(rows: torch.Tensor, valid_len: ValidLen, offsets: Sequence[int],
            weights: Sequence[int]) -> None:
-    if not 0 <= valid_len <= rows.shape[1]:
+    if isinstance(valid_len, torch.Tensor):
+        if valid_len.shape != (rows.shape[0],):
+            raise ValueError(f"valid lengths of shape {tuple(valid_len.shape)} for "
+                             f"{rows.shape[0]} rows")
+        if valid_len.numel() and not (0 <= int(valid_len.min())
+                                      and int(valid_len.max()) <= rows.shape[1]):
+            raise ValueError(f"a valid length lies outside [0, {rows.shape[1]}]")
+    elif not 0 <= valid_len <= rows.shape[1]:
         raise ValueError(f"valid_len {valid_len} outside [0, {rows.shape[1]}]")
     if len(offsets) != len(weights):
         raise ValueError("offsets and weights differ in length")
@@ -58,12 +74,15 @@ def needs_far(offsets: Sequence[int], weights: Sequence[int]) -> bool:
             or any(w < 0 for w in weights))
 
 
-def ltu_counts_plain(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
+def ltu_counts_plain(rows: torch.Tensor, valid_len: ValidLen, offsets: Sequence[int],
                      weights: Sequence[int]) -> torch.Tensor:
-    m = valid_len - 3
+    per_row = isinstance(valid_len, torch.Tensor)
+    longest = int(valid_len.max()) if per_row and valid_len.numel() else \
+        (0 if per_row else valid_len)
+    m = longest - 3
     if m <= 0:
         return torch.zeros(rows.shape[0], dtype=torch.int64, device=rows.device)
-    b = rows[:, :valid_len].to(torch.int64)
+    b = rows[:, :longest].to(torch.int64)
     g = b[:, :m] | (b[:, 1:m + 1] << 8) | (b[:, 2:m + 2] << 16) | (b[:, 3:m + 3] << 24)
     w = torch.zeros(g.shape, dtype=torch.int64, device=rows.device)
     # descending, so that the nearest matching offset's weight is written last
@@ -71,22 +90,32 @@ def ltu_counts_plain(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
         if k >= m:
             continue
         w[:, k:] = torch.where(g[:, k:] == g[:, :-k], wk, w[:, k:])
+    if per_row:
+        # each row's positions i < its own valid length - 3
+        ends = valid_len.to(device=rows.device, dtype=torch.int64)[:, None] - 3
+        w = torch.where(torch.arange(m, device=rows.device) < ends, w, 0)
     return w.sum(dim=1)
 
 
-def ltu_counts(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
+def ltu_counts(rows: torch.Tensor, valid_len: ValidLen, offsets: Sequence[int],
                weights: Sequence[int]) -> torch.Tensor:
-    """Weighted 4-gram coverage count of each row, as int64 (C,)."""
+    """Weighted 4-gram coverage count of each row, as int64 (C,); ``valid_len`` is
+    one length or a (C,) tensor of lengths."""
     rows = byte_rows(rows)
     offsets, weights = [int(k) for k in offsets], [int(w) for w in weights]
+    per_row = isinstance(valid_len, torch.Tensor)
+    if per_row:
+        valid_len = valid_len.to(torch.int64)
     _check(rows, valid_len, offsets, weights)
     if not backend.dispatch(rows):
         return ltu_counts_plain(rows, valid_len, offsets, weights)
     backend.require_cuda_tensor(rows, "ltu_counts", torch.uint8, align=1)
     if any(abs(w) > MAX_WEIGHT for w in weights):
         raise ValueError(f"the kernel takes weights -{MAX_WEIGHT}..{MAX_WEIGHT}")
+    longest = (int(valid_len.max()) if valid_len.numel() else 0) if per_row \
+        else valid_len
     # an offset k counts only at positions i >= k, and i < valid_len - 3
-    kept = [(k, w) for k, w in zip(offsets, weights) if k < valid_len - 3]
+    kept = [(k, w) for k, w in zip(offsets, weights) if k < longest - 3]
     offsets, weights = [k for k, _ in kept], [w for _, w in kept]
     counts = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
     if rows.shape[0]:
@@ -98,8 +127,16 @@ def ltu_counts(rows: torch.Tensor, valid_len: int, offsets: Sequence[int],
             far = torch.tensor(offsets + weights, dtype=torch.int64).to(rows.device)
         k_arr = (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
         w_arr = (ctypes.c_int64 * max(len(weights), 1))(*weights)
-        backend.launch("dlt_ltu_counts", rows.device, rows.data_ptr(),
-                       counts.data_ptr(), rows.shape[0], rows.shape[1], valid_len,
-                       ctypes.addressof(k_arr), ctypes.addressof(w_arr), len(offsets),
-                       None if far is None else far.data_ptr())
+        tables = (ctypes.addressof(k_arr), ctypes.addressof(w_arr), len(offsets),
+                  None if far is None else far.data_ptr())
+        if per_row:
+            # freed on return like ``far``
+            valid = valid_len.to(rows.device, non_blocking=True).contiguous()
+            backend.launch("dlt_ltu_counts_rows", rows.device, rows.data_ptr(),
+                           counts.data_ptr(), rows.shape[0], rows.shape[1],
+                           valid.data_ptr(), longest, *tables)
+        else:
+            backend.launch("dlt_ltu_counts", rows.device, rows.data_ptr(),
+                           counts.data_ptr(), rows.shape[0], rows.shape[1], valid_len,
+                           *tables)
     return counts

@@ -23,7 +23,7 @@ import torch
 
 from .. import backend
 from .base import SizeEstimation
-from .cuda_ltu import byte_rows, ltu_counts
+from .cuda_ltu import ValidLen, byte_rows, ltu_counts
 from .gtable import ENTROPY_CAP, G_TABLE
 
 DEFAULT_OFFSETS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256,
@@ -37,27 +37,59 @@ def offset_weight(k: int) -> int:
     return WEIGHT_SCALE - (int(round(math.log2(k))) if k > 1 else 0)
 
 
-def entropy_terms(rows: torch.Tensor, valid_len: int) -> torch.Tensor:
-    """Prefix entropy term of each (C, L) uint8 row, as int64 (C,)."""
+_G_TABLES: dict = {}
+
+
+def _g_table(device: torch.device) -> torch.Tensor:
+    """:data:`G_TABLE` on ``device``, copied there once."""
+    if device not in _G_TABLES:
+        _G_TABLES[device] = torch.from_numpy(G_TABLE).to(device)
+    return _G_TABLES[device]
+
+
+def entropy_terms(rows: torch.Tensor, valid_len: ValidLen) -> torch.Tensor:
+    """Prefix entropy term of each (C, L) uint8 row, as int64 (C,). ``valid_len`` is
+    one length or a (C,) tensor of lengths; row r's prefix is its first
+    ``min(valid_len[r], ENTROPY_CAP)`` bytes, and no byte past it reaches the
+    histogram."""
     c = rows.shape[0]
-    n = min(valid_len, ENTROPY_CAP)
-    if n <= 1:
-        return torch.zeros(c, dtype=torch.int64, device=rows.device)
+    g = _g_table(rows.device)
     bins = torch.arange(c, device=rows.device, dtype=torch.int64)[:, None] * 256
-    sample = rows[:, :n].to(torch.int64) + bins
-    hist = torch.bincount(sample.reshape(-1), minlength=256 * c).view(c, 256)
-    g = torch.from_numpy(G_TABLE).to(rows.device)
-    raw = g[n] - g[hist].sum(dim=1)
-    return 3 * raw.clamp(min=0) // 8
+    if not isinstance(valid_len, torch.Tensor):
+        n = min(valid_len, ENTROPY_CAP)
+        if n <= 1:
+            return torch.zeros(c, dtype=torch.int64, device=rows.device)
+        sample = rows[:, :n].to(torch.int64) + bins
+        hist = torch.bincount(sample.reshape(-1), minlength=256 * c).view(c, 256)
+        raw = g[n] - g[hist].sum(dim=1)
+        return 3 * raw.clamp(min=0) // 8
+    width = min(int(valid_len.max()) if c else 0, ENTROPY_CAP, rows.shape[1])
+    n = valid_len.to(rows.device, torch.int64, non_blocking=True).clamp(max=ENTROPY_CAP)
+    # bytes past a row's prefix go to one spare bin after the C * 256 real ones;
+    # a sum into a histogram of known size, where bincount would read the largest
+    # bin number back to the host first
+    inside = torch.arange(width, device=rows.device) < n[:, None]
+    sample = torch.where(inside, rows[:, :width].to(torch.int64) + bins, 256 * c)
+    hist = torch.zeros(256 * c + 1, dtype=torch.int64, device=rows.device).scatter_add_(
+        0, sample.reshape(-1), torch.ones(sample.numel(), dtype=torch.int64,
+                                          device=rows.device))[:256 * c]
+    raw = g[n] - g[hist.view(c, 256)].sum(dim=1)
+    return torch.where(n > 1, 3 * raw.clamp(min=0) // 8, 0)
 
 
-def coverage_scores(rows: torch.Tensor, valid_len: int,
+def coverage_scores(rows: torch.Tensor, valid_len: ValidLen,
                     offsets: Sequence[int] = DEFAULT_OFFSETS) -> torch.Tensor:
     """Scores of (C, L) uint8 rows (or (C, L/4) int32 words), of which the first
-    ``valid_len`` bytes are real, as exact int64 (C,). Lower is better."""
+    ``valid_len`` bytes are real (one length, or a (C,) tensor of one per row), as
+    exact int64 (C,). Lower is better."""
     rows = byte_rows(rows)
     ks = sorted(set(int(k) for k in offsets))
     counts = ltu_counts(rows, valid_len, ks, [offset_weight(k) for k in ks])
+    if isinstance(valid_len, torch.Tensor):
+        # a CPU tensor of lengths takes no synchronisation on the way
+        valid_len = valid_len.to(torch.int64)
+        ent = entropy_terms(rows, valid_len)
+        return WEIGHT_SCALE * valid_len.to(rows.device, non_blocking=True) - counts + ent
     return WEIGHT_SCALE * valid_len - counts + entropy_terms(rows, valid_len)
 
 
@@ -78,5 +110,5 @@ class LtuEstimation(SizeEstimation):
         return int(coverage_scores(rows, rows.shape[1], self.offsets)[0])
 
     def estimate_batch_device(self, regions: torch.Tensor,
-                              valid_len: int) -> torch.Tensor:
+                              valid_len: ValidLen) -> torch.Tensor:
         return coverage_scores(regions, valid_len, self.offsets)

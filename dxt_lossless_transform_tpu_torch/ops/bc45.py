@@ -21,7 +21,7 @@ is not a whole number of blocks raises :class:`AutoTransformError`.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -83,6 +83,18 @@ def untransform_bc5(data, settings: Bc5TransformSettings = Bc5TransformSettings(
     """Bit-exact inverse of :func:`transform_bc5`."""
     return _bytes_op(data, BC5_BLOCK_SIZE, Bc5ValidationError, device,
                      shuffle.bc5_untransform, settings.split_endpoints)
+
+
+def bc4_spec(split: bool) -> Tuple[int, ...]:
+    """Bytes per block of each BC4 stream, in on-disk order (JAX ``ops/bc45.py:108``
+    ``_bc4_spec``)."""
+    return (1, 1, 6) if split else (2, 6)
+
+
+def bc5_spec(split: bool) -> Tuple[int, ...]:
+    """Bytes per block of each BC5 stream, in on-disk order (JAX ``ops/bc45.py:112``
+    ``_bc5_spec``)."""
+    return (1, 1, 1, 1, 6, 6) if split else (2, 2, 6, 6)
 
 
 def endpoint_scores(fmt: str, x: torch.Tensor, estimator: SizeEstimation,

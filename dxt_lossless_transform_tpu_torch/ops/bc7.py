@@ -18,9 +18,10 @@ the payload copied to the device once.
 The auto-search follows the JAX package's ``_assemble_stream_row`` and
 ``_auto_device``: each distinct candidate's whole on-disk stream is one row, written
 by one transform launch (the identity row is a copy of the payload), and the rows
-are scored where they lie. The count kernel takes one valid length per launch, so
-the rows are scored in two groups, unsorted (16n bytes) and sorted (16n +
-ceil(n/2)): two scoring calls. Ties go to the first candidate; only the winner's
+are scored where they lie, in two groups of one length each, unsorted (16n bytes)
+and sorted (16n + ceil(n/2)): two scoring calls. The corpus batch search
+(:func:`auto_step_batched_modesort`) scores every file's rows in one call, each row
+at its own length. Ties go to the first candidate; only the winner's
 row comes back, and it is the output. Under :class:`~..estimate.ltu.LtuEstimation`
 the pick then goes through :func:`ltu_identity_guard`, which needs the zstd library;
 without it the search raises :class:`AutoTransformError`. Other estimators score
@@ -39,7 +40,7 @@ import torch
 from .. import backend
 from ..errors import AutoTransformError, Bc7ValidationError, ZstdUnavailableError
 from ..estimate.base import SizeEstimation
-from ..estimate.ltu import LtuEstimation
+from ..estimate.ltu import LtuEstimation, coverage_scores
 from ..estimate.zstd import ZstdEstimation
 from ..settings import BC7_FAST_CANDIDATES, Bc7TransformSettings
 from .auto import distinct, score
@@ -127,14 +128,69 @@ def ltu_identity_guard(data, out, settings, candidates) -> tuple:
     LTU winner is another, compress the winner and the untouched payload with
     zstd-1, and ship the winner only if it is strictly smaller. Returns
     ``(shipped bytes, shipped settings)``; raises :class:`ZstdUnavailableError`
-    without the zstd library."""
+    without the zstd library. The per-file form of :func:`ltu_identity_guard_batch`,
+    so that the two decide alike."""
+    return ltu_identity_guard_batch([data], [out], [settings], candidates)[0]
+
+
+def ltu_identity_guard_batch(datas, outs, settings_list, candidates) -> list:
+    """:func:`ltu_identity_guard` for many files (JAX ``ops/bc7.py:530``): every
+    (winner, payload) pair that needs the check goes through one
+    ``ZstdEstimation(1).estimate_batch`` call. Returns ``[(shipped bytes, shipped
+    settings), ...]``."""
     ident = next((s for s in candidates if _is_identity(s)), None)
-    if ident is None or settings == ident or not len(out):
-        return out, settings
-    winner, payload = ZstdEstimation(1).estimate_batch([out, data])
-    if winner < payload:
-        return out, settings
-    return bytes(data), ident
+    results = list(zip(outs, settings_list))
+    need = [i for i, (o, s) in enumerate(results)
+            if ident is not None and s != ident and len(o)]
+    if not need:
+        return results
+    sizes = ZstdEstimation(1).estimate_batch(
+        [buf for i in need for buf in (outs[i], datas[i])])
+    for j, i in enumerate(need):
+        if not sizes[2 * j] < sizes[2 * j + 1]:
+            results[i] = (bytes(datas[i]), ident)
+    return results
+
+
+def stream_row_len(n_pad: int) -> int:
+    """The JAX package's device-row length of a whole transformed stream of
+    ``n_pad`` blocks (mode-stream bytes + 16 B/block, rounded up to its 32 KiB scoring
+    tile; JAX ``ops/bc7.py:493``): the mode-sort batch's memory budget counts rows
+    of this size, as in JAX."""
+    span = 32 * 1024
+    return -(-(n_pad // 2 + 16 * n_pad) // span) * span
+
+
+def auto_step_batched_modesort(flats: torch.Tensor, n_valids, candidates, offsets,
+                               fmt: int) -> tuple:
+    """Batched BC7/BC6H search (JAX ``ops/bc7.py:452``): (B, 16·bucket) uint8 blocks,
+    each file's block count ``n_valids[b]``, candidate keys ``((sort, planes), ...)``
+    -> ((B, L) winner rows, (B,) their valid lengths, (B,) best candidates), on
+    ``flats``' device. Each file's distinct candidates are written by the transform
+    kernel into rows of one (B·K, L) tensor (the identity's row is a copy), and one
+    count call scores every row at its own length: sorted rows are longer than
+    unsorted ones. Ties go to the first candidate."""
+    B = flats.shape[0]
+    keys, index = distinct(list(candidates))
+    ns = [int(n) for n in n_valids]
+    L = max(planes.transformed_len(n, any(sort for sort, _ in keys)) for n in ns)
+    rows = torch.empty((B, len(keys), L), dtype=torch.uint8, device=flats.device)
+    valid = [[planes.transformed_len(n, sort) for sort, _ in keys] for n in ns]
+    for b, n in enumerate(ns):
+        x = flats[b, :BLOCK_SIZE * n]
+        for k, (sort, split) in enumerate(keys):
+            row = rows[b, k, :valid[b][k]]
+            if sort or split:
+                planes.bc7_transform(x, fmt, sort, split, out=row)
+            else:
+                row.copy_(x)
+    lengths = torch.tensor(valid, dtype=torch.int64)
+    scores = coverage_scores(rows.view(B * len(keys), L), lengths.view(-1),
+                             offsets).view(B, -1)[:, index]
+    best = torch.argmin(scores, dim=1)
+    key_of = torch.tensor(index).to(flats.device, non_blocking=True)[best]
+    picked = torch.arange(B, device=flats.device)
+    return rows[picked, key_of], lengths.to(flats.device, non_blocking=True)[picked, key_of], best
 
 
 def candidate_streams(x: torch.Tensor, fmt: int, estimator: SizeEstimation,

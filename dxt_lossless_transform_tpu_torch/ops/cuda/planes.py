@@ -24,6 +24,12 @@ untransform reads the ids from the stream, so it needs no format.
 The plain versions index the 256-entry table, order each chunk with a stable
 ``torch.sort``, move the blocks with ``index_select`` (``.t().contiguous()`` for the
 planes) and invert by ``index_copy_``.
+
+``dlt_deinterleave_words`` (``csrc/words_kernels.cu``) replaces ``:159``
+``deinterleave_words_tpu``: int32[k·N] -> k int32[N] streams with
+``out[i][j] == x[k·j + i]``, k in {2, 4}, any N (the TPU kernel needed k·N % 2048 ==
+0). The corpus batch steps (:mod:`..parallel.sharded`) run it on each whole flat
+batch. Its plain version is ``x.view(-1, k).unbind(1)`` made contiguous.
 """
 
 from __future__ import annotations
@@ -171,3 +177,26 @@ def bc7_untransform(x: torch.Tensor, n: int, sort: bool, planes: bool) -> torch.
         backend.launch("dlt_bc7_untransform", x.device, x.data_ptr(), out.data_ptr(), n,
                        int(bool(sort)), int(bool(planes)))
     return out
+
+
+def deinterleave_words_plain(x: torch.Tensor, k: int) -> tuple:
+    return tuple(s.contiguous() for s in x.view(-1, k).unbind(1))
+
+
+def deinterleave_words(x: torch.Tensor, k: int) -> tuple:
+    """int32[k·N] words -> k int32[N] streams, stream i holding words i, i + k, ...
+    (each stream a row of one (k, N) tensor)."""
+    if k not in (2, 4):
+        raise ValueError(f"deinterleave_words: k must be 2 or 4, got {k}")
+    if x.dtype != torch.int32 or x.dim() != 1 or x.numel() % k:
+        raise ValueError(f"deinterleave_words: expected a 1-D int32 tensor of {k}N words, "
+                         f"got {x.dtype} of shape {tuple(x.shape)}")
+    if not backend.dispatch(x):
+        return deinterleave_words_plain(x, k)
+    backend.require_cuda_tensor(x, "deinterleave_words", torch.int32)
+    n = x.numel() // k
+    out = torch.empty((k, n), dtype=torch.int32, device=x.device)
+    if n:
+        backend.launch("dlt_deinterleave_words", x.device, x.data_ptr(), out.data_ptr(),
+                       n, k)
+    return tuple(out.unbind(0))

@@ -127,6 +127,12 @@ def _chain_blocks(width: int, height: int, mipmaps: int) -> int:
     return total
 
 
+def chain_blocks(width: int, height: int) -> int:
+    """Blocks of a full mip chain (every level down to 1x1) of a width x height
+    texture."""
+    return _chain_blocks(width, height, max(width, height).bit_length())
+
+
 def _flags(mipmaps: int) -> int:
     flags = _DDSD_CAPS | _DDSD_HEIGHT | _DDSD_WIDTH | _DDSD_PIXELFORMAT
     return flags | (_DDSD_MIPMAPCOUNT if mipmaps > 1 else 0)

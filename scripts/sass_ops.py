@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Count the machine instructions (SASS) of the port's CUDA kernels.
 
-    python3 scripts/sass_ops.py [--dump PATH]
+    python3 scripts/sass_ops.py [--dump PATH] [--same-as OTHER_DUMP]
 
 Builds the kernel library of ``dxt_lossless_transform_tpu_torch`` if needed (nvcc),
 disassembles it with ``cuobjdump -sass`` and prints one JSON object: for each
 kernel, its instructions by class, and for each loop (a backward branch and the
 instructions it jumps back over) the same counts. ``chip_smoke.py`` takes its
 integer-operation counts per item from this output; ``--dump`` also writes the
-whole disassembly to PATH.
+whole disassembly to PATH. ``--same-as`` reads another build's ``--dump`` (of a
+parent commit, say) and adds which of its kernels have no twin here, instruction
+for instruction (opcodes and operands, addresses aside), whatever their names.
 
 Classes: ``alu`` is per-thread integer and logic work (IADD3, LOP3, SHF, ISETP,
 IMAD, LEA, PRMT, SEL, MOV, ...); ``uniform`` runs once per warp on the uniform
@@ -61,6 +63,25 @@ def _count(insns) -> dict:
     return out
 
 
+def bodies(sass: str) -> dict:
+    """{kernel name: [(opcode, operands), ...]} from ``cuobjdump -sass``, without
+    the end-of-code padding."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        f = _FUNC.search(line)
+        if f:
+            name = f.group(1)
+            out[name] = []
+            continue
+        m = _INSN.search(line)
+        if m and name is not None:
+            out[name].append((m.group(2), m.group(3).strip()))
+    for body in out.values():
+        while body and body[-1][0] in ("NOP", "BRA"):
+            body.pop()
+    return out
+
+
 def parse(sass: str) -> dict:
     """{kernel name: {"counts": ..., "loops": [...]}} from ``cuobjdump -sass``."""
     kernels = {}
@@ -97,6 +118,8 @@ def parse(sass: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dump", help="also write the whole disassembly here")
+    ap.add_argument("--same-as", help="another build's --dump: report its kernels "
+                                      "that have no instruction-for-instruction twin")
     args = ap.parse_args()
     from dxt_lossless_transform_tpu_torch import backend
 
@@ -111,7 +134,15 @@ def main() -> int:
     kernels = parse(sass)
     if not kernels:
         raise SystemExit("sass_ops: no kernel found in the disassembly")
-    print(json.dumps({"library": os.path.basename(path), "kernels": kernels}, indent=1))
+    out = {"library": os.path.basename(path), "kernels": kernels}
+    if args.same_as:
+        with open(args.same_as) as f:
+            other = bodies(f.read())
+        mine = {tuple(body) for body in bodies(sass).values()}
+        out["same_as"] = {"dump": args.same_as, "kernels": len(other),
+                          "without_twin": [name for name, body in other.items()
+                                           if tuple(body) not in mine]}
+    print(json.dumps(out, indent=1))
     return 0
 
 

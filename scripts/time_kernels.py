@@ -22,8 +22,11 @@ slice (``ops/cuda/planes.py``), it also times ``dlt_bc7_transform`` and
 the RGB slice (``ops/cuda/channels.py``), it also times ``dlt_rgb_transform`` and
 ``dlt_rgb_untransform`` (split only, the file's LTU pick, and decorrelate+split, the
 default) on the 4096x4096 RGBA8888 file of ``chip_smoke.py`` (16,777,216 pixels)
-and that file's LTU auto-transform and untransform. Prints the ``nvidia-smi`` line
-and one JSON object.
+and that file's LTU auto-transform and untransform. Where it has the batch
+pipeline's slice (``planes.deinterleave_words``), it also times
+``dlt_ltu_counts_rows`` on the BC1 COMPREHENSIVE rows, every row at the file's
+length, and ``dlt_deinterleave_words`` for k = 2 and 4 at N = 2,097,152 words per
+stream. Prints the ``nvidia-smi`` line and one JSON object.
 """
 
 from __future__ import annotations
@@ -155,6 +158,18 @@ def main() -> int:
                 lambda: channels.rgb_transform(xr, *rgb_args))
             ms[f"dlt_rgb_untransform/{label}"] = event_ms(
                 lambda: channels.rgb_untransform(tr, *rgb_args))
+
+    if planes is not None and hasattr(planes, "deinterleave_words"):
+        # the batch pipeline's slice: the per-row count kernel on the same 8 rows
+        # (every row at 4n, so it reads as the scalar kernel above), and the word
+        # deinterleave at the largest batch's N of chip_smoke.py's corpus
+        valid = torch.full((rows.shape[0],), 4 * n)
+        ms["dlt_ltu_counts_rows"] = event_ms(
+            lambda: cuda_ltu.ltu_counts(rows, valid, ks, ws))
+        for k in (2, 4):
+            xw = torch.zeros(k * 2_097_152, dtype=torch.int32, device=dev).random_()
+            ms[f"dlt_deinterleave_words/k{k}"] = event_ms(
+                lambda: planes.deinterleave_words(xw, k))
 
     file_s = {}
     for fmt, data in dds.items():

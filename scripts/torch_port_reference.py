@@ -31,9 +31,26 @@ stream's exact score (``runtime.ltu_estimate``) and the JAX package's own f32
 scores, the exact pick and JAX's (``jax_pick_agrees``), the sha256 of the file the
 JAX package's ``DdsHandler`` writes with the exact pick, whether its own auto builder
 writes the same file (``jax_shipped_agrees``), and the sha256 of the file that
-``TransformBundle.default_all()`` gives (decorrelate and split). Runs on the CPU:
+``TransformBundle.default_all()`` gives (decorrelate and split).
 
-    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py [--formats BC2 BC4]
+``BATCH`` is the batch corpus of ``chip_smoke.py``'s batch phase (:func:`corpus`):
+for each of BC1-BC5, 32 payloads whose block counts are the full mip chains of
+:data:`CORPUS_SIZES` in turn (the last one empty); for BC7 and BC6H 12 payloads up
+to the 2048x2048 chain and an empty one; for each RGB layout 4 payloads up to
+1024x1024 and an empty one. For each format it prints the pick of every payload
+under the JAX batch pipeline's scoring, from the exact twin (``runtime.ltu_estimate``;
+BC3 the alpha row's score plus the colour row's, BC5 the red endpoint row's plus
+the green one's, as ``parallel/sharded.py`` scores them), the sha256 over the
+concatenated outputs of those picks, and whether the JAX package's own
+``BatchProcessor(fmt, max_batch=16)`` (f32 scores) picks the same
+(``jax_pick_agrees``); for BC5 also the payloads where the per-file auto-search
+(which scores red and green joined) picks otherwise. For BC7 and BC6H the shipped
+settings come from the identity guard (zstd-1 through the native runtime) and their
+sha256 is printed with the exact picks; for BC1 and BC3 also the picks and sha256 of
+the JAX host-scored ``BatchProcessor(fmt, estimator=ZstdEstimation(1))``. Both of
+these depend on the zstd library's version. Runs on the CPU:
+
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py [--formats BC2 BC4 BATCH]
 """
 
 from __future__ import annotations
@@ -273,10 +290,164 @@ def rgb(layout: str) -> dict:
     }
 
 
+# the batch corpus: full mip chains of these sizes, in turn
+CORPUS_SIZES = ((256, 256), (512, 512), (1024, 1024), (2048, 2048), (1000, 600),
+                (300, 200), (2048, 1024), (4, 4))
+MODE_SORT_SIZES = CORPUS_SIZES[:6] * 2
+RGB_SIZES = ((128, 128), (256, 256), (640, 480), (1024, 1024))
+BATCH_BLOCK = {"bc1": 8, "bc2": 16, "bc3": 16, "bc4": 8, "bc5": 16}
+
+
+def chain_blocks(width: int, height: int) -> int:
+    """Blocks of a full mip chain of a width x height texture."""
+    total, w, h = 0, width, height
+    for _ in range(max(width, height).bit_length()):
+        total += ((w + 3) // 4) * ((h + 3) // 4)
+        w, h = max(w // 2, 1), max(h // 2, 1)
+    return total
+
+
+def corpus(fmt: str) -> list:
+    """The batch phase's payloads of ``fmt`` (``bc1``-``bc5``, ``bc7``, ``bc6h`` or an
+    RGB layout), made from seed 7 by ``utils.testgen``."""
+    from dxt_lossless_transform_tpu.utils.testgen import (
+        bc1_realistic, bc2_realistic, bc3_realistic, bc7_realistic,
+    )
+
+    if fmt in BATCH_BLOCK:
+        gen = {"bc1": bc1_realistic, "bc2": bc2_realistic, "bc3": bc3_realistic}.get(fmt)
+        out = []
+        for i in range(31):
+            n = chain_blocks(*CORPUS_SIZES[i % len(CORPUS_SIZES)])
+            out.append(gen(n, SEED + i) if gen else bc_blocks(n, BATCH_BLOCK[fmt], SEED + i))
+        return out + [b""]
+    if fmt in ("bc7", "bc6h"):
+        return [bc7_realistic(chain_blocks(*size), SEED + i + (100 if fmt == "bc6h" else 0))
+                for i, size in enumerate(MODE_SORT_SIZES)] + [b""]
+    return [make_uncompressed_dds(fmt, w, h, seed=SEED + i)[0x80:]
+            for i, (w, h) in enumerate(RGB_SIZES)] + [b""]
+
+
+def _digest(outs) -> str:
+    h = hashlib.sha256()
+    for out in outs:
+        h.update(out)
+    return h.hexdigest()
+
+
+def _batch_scores(fmt: str, data: bytes, cand) -> list:
+    """Each candidate's exact score as the JAX batch step ranks it."""
+    if fmt in ("bc1", "bc2", "bc3"):
+        words = np.frombuffer(data, "<u4").reshape(-1, 2 if fmt == "bc1" else 4)
+        colours = words[:, 0 if fmt == "bc1" else 2].copy()
+        key = [(int(c.decorrelation_mode), c.split_colour_endpoints) for c in cand]
+        rows = dict(zip(dict.fromkeys(key), _host_colour_regions(colours,
+                                                                 list(dict.fromkeys(key)))))
+        scores = [runtime.ltu_estimate(rows[k]) for k in key]
+        if fmt == "bc3":
+            ep = (words[:, 0] & 0xFFFF).astype(np.int64)
+            alpha = {False: runtime.ltu_estimate(ep.astype("<u2").tobytes()),
+                     True: runtime.ltu_estimate((ep & 0xFF).astype(np.uint8).tobytes()
+                                                + (ep >> 8).astype(np.uint8).tobytes())}
+            scores = [alpha[c.split_alpha_endpoints] + v for c, v in zip(cand, scores)]
+        return scores
+    halves = np.frombuffer(data, "<u2").reshape(-1, 4)
+    eps = ([halves[:, 0].copy()] if fmt == "bc4"
+           else [halves[0::2, 0].copy(), halves[1::2, 0].copy()])
+    return [sum(runtime.ltu_estimate(_ep_streams(ep, c.split_endpoints)) for ep in eps)
+            for c in cand]
+
+
+def _joined_pick(data: bytes, cand) -> int:
+    """The BC5 per-file auto-search's pick: red's and green's endpoint streams
+    scored joined (``ops/bc45.py:transform_bc5_auto``)."""
+    halves = np.frombuffer(data, "<u2").reshape(-1, 8)
+    red, green = halves[:, 0].copy(), halves[:, 4].copy()
+    return int(np.argmin([runtime.ltu_estimate(_ep_streams(red, c.split_endpoints)
+                                               + _ep_streams(green, c.split_endpoints))
+                          for c in cand]))
+
+
+def batch() -> dict:
+    from dxt_lossless_transform_tpu.estimate import ZstdEstimation
+    from dxt_lossless_transform_tpu.oracle import bc1 as o1, bc2 as o2, bc3 as o3
+    from dxt_lossless_transform_tpu.oracle import bc4 as o45
+    from dxt_lossless_transform_tpu.parallel.pipeline import (
+        BatchProcessor, ModeSortBatchProcessor, RgbBatchProcessor, _FORMATS,
+    )
+
+    transform = {"bc1": o1.transform, "bc2": o2.transform, "bc3": o3.transform,
+                 "bc4": o45.transform_bc4, "bc5": o45.transform_bc5}
+    out = {}
+    for fmt in BATCH_BLOCK:
+        start = time.perf_counter()
+        data = corpus(fmt)
+        cand = tuple(_FORMATS[fmt]["candidates"])
+        picks = [int(np.argmin(_batch_scores(fmt, d, cand))) if d else len(cand) - 1
+                 for d in data]
+        result = {"payloads": len(data), "bytes": sum(map(len, data)), "picks": picks,
+                  "sha256": _digest(transform[fmt](d, cand[p]) for d, p in zip(data, picks))}
+        jax = BatchProcessor(fmt, max_batch=16).process(data)
+        result["jax_picks"] = [cand.index(r.settings) for r in jax]
+        result["jax_pick_agrees"] = result["jax_picks"] == picks
+        if fmt == "bc5":
+            per_file = [_joined_pick(d, cand) if d else len(cand) - 1 for d in data]
+            result["per_file_differs"] = [i for i, (a, b) in enumerate(zip(per_file, picks))
+                                          if a != b]
+        if fmt in ("bc1", "bc3"):
+            host = BatchProcessor(fmt, estimator=ZstdEstimation(1), max_batch=16).process(data)
+            result["host_picks"] = [cand.index(r.settings) for r in host]
+            result["host_sha256"] = _digest(r.transformed for r in host)
+        result["seconds"] = round(time.perf_counter() - start, 1)
+        out[fmt] = result
+    for fmt, oracle, cand in (("bc7", oracle_bc7, BC7_FAST_CANDIDATES),
+                              ("bc6h", oracle_bc6h, BC6H_FAST_CANDIDATES)):
+        start = time.perf_counter()
+        data = corpus(fmt)
+        picks, shipped, outs = [], [], []
+        ident = next(i for i, c in enumerate(cand)
+                     if not c.sort_by_mode and not c.split_byte_planes)
+        for d in data:
+            if not d:
+                picks.append(len(cand) - 1)
+                shipped.append(len(cand) - 1)
+                outs.append(b"")
+                continue
+            streams = [oracle.transform(d, c) for c in cand]
+            best = int(np.argmin([runtime.ltu_estimate(s) for s in streams]))
+            picks.append(best)
+            keep = best == ident or (lambda z: z[0] < z[1])(
+                runtime.zstd_estimate_batch([streams[best], d], 1))
+            shipped.append(best if keep else ident)
+            outs.append(streams[shipped[-1]])
+        jax = ModeSortBatchProcessor(fmt, max_batch=16).process(data)
+        out[fmt] = {"payloads": len(data), "bytes": sum(map(len, data)), "picks": picks,
+                    "shipped": shipped, "sha256": _digest(outs),
+                    "jax_shipped": [cand.index(r.settings) for r in jax],
+                    "jax_shipped_agrees": [r.transformed for r in jax] == outs,
+                    "seconds": round(time.perf_counter() - start, 1)}
+    for layout in ("rgba8888", "bgra8888", "bgr888"):
+        start = time.perf_counter()
+        data = corpus(layout)
+        cand = RGB_FAST_CANDIDATES
+        picks = [int(np.argmin([runtime.ltu_estimate(oracle_rgb.transform(d, layout, c))
+                                for c in cand])) if d else len(cand) - 1 for d in data]
+        jax = RgbBatchProcessor(layout, LtuEstimation(), max_batch=16).process(data)
+        out[layout] = {
+            "payloads": len(data), "bytes": sum(map(len, data)), "picks": picks,
+            "sha256": _digest(oracle_rgb.transform(d, layout, cand[p]) if d else b""
+                              for d, p in zip(data, picks)),
+            "jax_picks": [cand.index(r.settings) for r in jax],
+            "seconds": round(time.perf_counter() - start, 1)}
+        out[layout]["jax_pick_agrees"] = out[layout]["jax_picks"] == picks
+    return out
+
+
 FORMATS = {"BC1": bc1, "BC2": bc2, "BC3": bc3, "BC4": lambda: bc45("BC4"),
            "BC5": lambda: bc45("BC5"), "BC7": lambda: mode_sort("BC7"),
            "BC6H": lambda: mode_sort("BC6H"), "RGBA8888": lambda: rgb("rgba8888"),
-           "BGRA8888": lambda: rgb("bgra8888"), "BGR888": lambda: rgb("bgr888")}
+           "BGRA8888": lambda: rgb("bgra8888"), "BGR888": lambda: rgb("bgr888"),
+           "BATCH": batch}
 
 
 def main() -> None:

@@ -1,4 +1,5 @@
-"""The eighteen CUDA kernel entry points against their plain versions, on the card.
+"""The twenty CUDA kernel entry points against their plain versions, on the card,
+and the batch pipeline on the card against its plain versions on the CPU.
 
 Marked ``cuda``: without a CUDA device they skip. On a machine with one (and
 without JAX, which ``tests/conftest.py`` imports):
@@ -243,9 +244,12 @@ def test_each_wrapper_counts_its_launches(cuda):
                            True)
     rgb_args = (*channels.LAYOUTS["bgr888"], True, False)
     channels.rgb_untransform(channels.rgb_transform(x[:510], *rgb_args), *rgb_args)
+    planes.deinterleave_words(x.view(torch.int32), 4)
+    cuda_ltu.ltu_counts(rows, torch.tensor([rows.shape[1]]), [1], [24])
     torch.cuda.synchronize()
     assert backend.LAUNCHES == {"dlt_bc1_transform": 1, "dlt_bc1_untransform": 1,
                                 "dlt_bc1_regions": 1, "dlt_ltu_counts": 1,
+                                "dlt_ltu_counts_rows": 1, "dlt_deinterleave_words": 1,
                                 "dlt_bc3_transform": 1, "dlt_bc3_untransform": 1,
                                 "dlt_bc3_regions": 1, "dlt_bc2_transform": 1,
                                 "dlt_bc2_untransform": 1, "dlt_bc2_regions": 1,
@@ -461,3 +465,120 @@ def test_rgb_edge_cases_on_the_card(cuda):
         for size in list(range(1, stride)) + [stride + 1]:
             with pytest.raises(RgbValidationError):
                 rgb.transform_rgb_auto(bytes(size), layout, LtuEstimation())
+
+
+
+WORD_SIZES = [1, 2, 3, 1023, 1024, 1025, 4095, 4096, 4097, 100_003]
+
+
+@pytest.mark.parametrize("n", WORD_SIZES)
+@pytest.mark.parametrize("k", [2, 4])
+def test_deinterleave_words_kernel(cuda, k, n):
+    rng = np.random.default_rng(k * n)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, k * n, np.int32)).to(cuda)
+    got = planes.deinterleave_words(x, k)
+    want = planes.deinterleave_words_plain(x, k)
+    assert len(got) == k
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# per-row lengths from 0 to the row: 0-3 (no whole gram), odd, within and beyond the
+# 4096-byte halo, the whole row
+ROW_LENGTHS = [0, 1, 2, 3, 4, 5, 7, 4099, 8191, 8195, 20_001, 65_535, 65_536]
+
+
+@pytest.mark.parametrize("offsets", [tuple(sorted(DEFAULT_OFFSETS)), FAR_OFFSETS,
+                                     LADDER_40], ids=["default", "far", "ladder40"])
+def test_counts_rows_kernel(cuda, offsets):
+    rng = np.random.default_rng(len(offsets))
+    rows = torch.from_numpy(rng.integers(0, 3, (len(ROW_LENGTHS), 65_536),
+                                         np.uint8)).to(cuda)
+    ws = [offset_weight(k) for k in offsets]
+    valid = torch.tensor(ROW_LENGTHS)
+    got = cuda_ltu.ltu_counts(rows, valid, offsets, ws)
+    assert torch.equal(got, cuda_ltu.ltu_counts_plain(rows, valid, offsets, ws))
+    # one length for every row: the per-row kernel equals the scalar one
+    for v in (0, 3, 4097, 65_536):
+        same = torch.full((rows.shape[0],), v)
+        assert torch.equal(cuda_ltu.ltu_counts(rows, same, offsets, ws),
+                           cuda_ltu.ltu_counts(rows, v, offsets, ws))
+
+
+def test_counts_rows_of_more_rows_than_grid_y(cuda):
+    rng = np.random.default_rng(70001)
+    rows = torch.from_numpy(rng.integers(0, 3, (70_000, 12), np.uint8)).to(cuda)
+    valid = torch.from_numpy(rng.integers(0, 13, 70_000))
+    ks = sorted(DEFAULT_OFFSETS)
+    ws = [offset_weight(k) for k in ks]
+    backend.reset_launch_counts()
+    counts = cuda_ltu.ltu_counts(rows, valid, ks, ws)
+    assert backend.LAUNCHES["dlt_ltu_counts_rows"] == 1
+    assert torch.equal(counts, cuda_ltu.ltu_counts_plain(rows, valid, ks, ws))
+
+
+@pytest.mark.parametrize("fmt", ["bc1", "bc2", "bc3", "bc4", "bc5"])
+def test_batch_pipeline_on_the_card(cuda, fmt):
+    """The batch processor and the batched load path on the card equal their plain
+    versions on the CPU, with one launch of each kernel per batch."""
+    from dxt_lossless_transform_tpu_torch.estimate.zstd import ZstdEstimation
+    from dxt_lossless_transform_tpu_torch.parallel import (
+        BatchProcessor, UntransformBatchProcessor,
+    )
+    from dxt_lossless_transform_tpu_torch.utils import testgen
+
+    size = 8 if fmt in ("bc1", "bc4") else 16
+    gen = {"bc1": testgen.bc1_realistic, "bc2": testgen.bc2_realistic,
+           "bc3": testgen.bc3_realistic}.get(fmt)
+    data = [gen(n, n) if gen else testgen.bc_blocks(n, size, n)
+            for n in (64, 100, 2048, 2049, 5000, 70_001)] + [b""]
+    proc = BatchProcessor(fmt, max_batch=2)
+    backend.reset_launch_counts()
+    got = proc.process(data)
+    torch.cuda.synchronize()
+    # buckets of 2048 blocks (3 files: 2 batches), 4096, 8192 and 131,072
+    assert proc.batches == 5
+    assert backend.LAUNCHES["dlt_deinterleave_words"] == proc.batches
+    assert backend.LAUNCHES["dlt_ltu_counts_rows"] == proc.batches
+    if fmt in ("bc1", "bc2", "bc3"):
+        assert backend.LAUNCHES[f"dlt_{fmt}_regions"] == proc.batches
+    want = BatchProcessor(fmt, max_batch=2, device="cpu").process(data)
+    assert [(r.transformed, r.settings) for r in got] == \
+        [(r.transformed, r.settings) for r in want]
+    unproc = UntransformBatchProcessor(fmt, max_batch=2)
+    backend.reset_launch_counts()
+    assert unproc.process([(r.transformed, r.settings) for r in got]) == data
+    torch.cuda.synchronize()
+    assert backend.LAUNCHES[f"dlt_{fmt}_untransform"] == unproc.batches
+    host = BatchProcessor(fmt, max_batch=2, estimator=ZstdEstimation(1))
+    assert [(r.transformed, r.settings) for r in host.process(data)] == \
+        [(r.transformed, r.settings) for r in BatchProcessor(
+            fmt, max_batch=2, estimator=ZstdEstimation(1), device="cpu").process(data)]
+
+
+@pytest.mark.parametrize("fmt", ["bc7", "bc6h", "rgba8888", "bgr888"])
+def test_mode_sort_and_rgb_batches_on_the_card(cuda, fmt):
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+    from dxt_lossless_transform_tpu_torch.parallel import (
+        ModeSortBatchProcessor, RgbBatchProcessor, UntransformBatchProcessor,
+    )
+    from dxt_lossless_transform_tpu_torch.utils import testgen
+
+    if fmt in ("bc7", "bc6h"):
+        data = [testgen.bc7_realistic(n, n) for n in (64, 2049, 5000)]
+        data += [b"", testgen.bc_blocks(3001, 16, 3)]
+        make = lambda device: ModeSortBatchProcessor(fmt, max_batch=2, device=device)  # noqa: E731
+    else:
+        data = [testgen.make_uncompressed_dds(fmt, w, h, seed=w)[0x80:]
+                for w, h in ((33, 7), (256, 128), (640, 480))] + [b""]
+        make = lambda device: RgbBatchProcessor(fmt, LtuEstimation(), max_batch=2,  # noqa: E731
+                                                device=device)
+    proc = make("cuda")
+    backend.reset_launch_counts()
+    got = proc.process(data)
+    torch.cuda.synchronize()
+    assert backend.LAUNCHES["dlt_ltu_counts_rows"] == proc.batches
+    assert [(r.transformed, r.settings) for r in got] == \
+        [(r.transformed, r.settings) for r in make("cpu").process(data)]
+    assert UntransformBatchProcessor(fmt).process(
+        [(r.transformed, r.settings) for r in got]) == data

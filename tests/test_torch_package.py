@@ -14,7 +14,7 @@ from dxt_lossless_transform_tpu.estimate.ltu import LtuEstimation as JaxLtu
 from dxt_lossless_transform_tpu.settings import (
     BC1_COMPREHENSIVE_CANDIDATES, Bc1TransformSettings as JaxSettings, YCoCgVariant,
 )
-from dxt_lossless_transform_tpu_torch import backend, convert, settings
+from dxt_lossless_transform_tpu_torch import backend, convert, parallel, settings
 from dxt_lossless_transform_tpu_torch.api import (
     Bc1AutoTransformBuilder, Bc1ManualTransformBuilder, Bc2AutoTransformBuilder,
     Bc2ManualTransformBuilder, Bc3AutoTransformBuilder, Bc3ManualTransformBuilder,
@@ -61,7 +61,9 @@ def test_scan_covers_the_package():
             "settings.py", "errors.py", "utils/testgen.py", "ops/bc2.py",
             "ops/bc45.py", "ops/bc7.py", "ops/bc6h.py", "ops/cuda/planes.py",
             "estimate/zstd.py", "ops/rgb.py", "ops/cuda/channels.py",
-            "formats/api.py", "formats/file_io.py"} <= names
+            "formats/api.py", "formats/file_io.py", "ops/lanes.py", "ops/hostwrap.py",
+            "parallel/__init__.py", "parallel/pipeline.py",
+            "parallel/sharded.py"} <= names
 
 
 def test_import_builds_nothing_and_imports_no_triton():
@@ -188,6 +190,16 @@ ENTRY_POINTS = {
             [DdsHandler()], DdsHandler("cpu").transform_bundle(
                 testgen.make_uncompressed_dds("bgr888", 8, 8),
                 TransformBundle.default_all()))),
+    "parallel.BatchProcessor": lambda: parallel.BatchProcessor("bc1"),
+    "parallel.BatchProcessor host-scored": lambda: parallel.BatchProcessor(
+        "bc3", estimator=LtuEstimation()),
+    "parallel.Bc5BatchProcessor": lambda: parallel.Bc5BatchProcessor(),
+    "parallel.transform_corpus_bc1": lambda: parallel.transform_corpus_bc1([DATA]),
+    "parallel.UntransformBatchProcessor": lambda: parallel.UntransformBatchProcessor(
+        "bc2"),
+    "parallel.ModeSortBatchProcessor": lambda: parallel.ModeSortBatchProcessor("bc6h"),
+    "parallel.RgbBatchProcessor": lambda: parallel.RgbBatchProcessor(
+        "bgr888", LtuEstimation()),
 }
 
 
@@ -248,6 +260,10 @@ def test_cpu_tensors_take_the_plain_versions():
             args = (*channels.LAYOUTS[layout], s.decorrelate, s.split_channels)
             assert torch.equal(channels.rgb_untransform(
                 channels.rgb_transform(x[:960], *args), *args), x[:960])
+    words = x.view(torch.int32)
+    assert torch.equal(torch.stack(planes.deinterleave_words(words, 4), dim=1).view(-1),
+                       words)
+    cuda_ltu.ltu_counts(rows, torch.tensor([rows.shape[1], 5]), [1, 2], [24, 23])
     assert all(count == 0 for count in backend.LAUNCHES.values())
 
 
@@ -270,7 +286,8 @@ def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
     assert path.name.startswith("libdlt_kernels_") and path.suffix == ".so"
     assert [p.name for p in backend.sources()] == ["bc1_kernels.cu", "bc2_kernels.cu",
                                                    "bc3_kernels.cu", "bc45_kernels.cu",
-                                                   "bc7_kernels.cu", "rgb_kernels.cu"]
+                                                   "bc7_kernels.cu", "rgb_kernels.cu",
+                                                   "words_kernels.cu"]
     # every source and header is in the hash
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -279,7 +296,7 @@ def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
     monkeypatch.setattr(backend, "CSRC", csrc)
     assert backend.library_path() == path
     for name in ("common.cuh", "bc3_kernels.cu", "bc2_kernels.cu", "bc45_kernels.cu",
-                 "bc7_kernels.cu", "rgb_kernels.cu"):
+                 "bc7_kernels.cu", "rgb_kernels.cu", "words_kernels.cu"):
         (csrc / name).write_bytes((csrc / name).read_bytes() + b"\n")
         changed = backend.library_path()
         assert changed != path
@@ -366,7 +383,7 @@ def test_build_writes_the_hash_named_library_once(tmp_path, monkeypatch):
     # one nvcc call for every source
     assert (bindir / "log").read_text() == \
         "call bc1_kernels.cu bc2_kernels.cu bc3_kernels.cu bc45_kernels.cu " \
-        "bc7_kernels.cu rgb_kernels.cu \n"
+        "bc7_kernels.cu rgb_kernels.cu words_kernels.cu \n"
 
 
 def test_build_failure_raises_and_leaves_nothing(tmp_path, monkeypatch):
