@@ -9,7 +9,7 @@ Phases, each printed as a JSON line with its wall time:
 1. device: the card as ``nvidia-smi`` names it, its power limit, the PyTorch build,
    and the zstd library that the BC7/BC6H identity guard loads (its path and
    ``ZSTD_versionNumber()``);
-2. build: the one ``nvcc`` call that builds the twenty kernel entry points from
+2. build: the one ``nvcc`` call that builds the twenty-one kernel entry points from
    the seven sources ``csrc/bc1_kernels.cu``, ``bc2_kernels.cu``, ``bc3_kernels.cu``,
    ``bc45_kernels.cu``, ``bc7_kernels.cu``, ``rgb_kernels.cu`` and
    ``words_kernels.cu`` into one library under ``build/cuda/`` (skipped when that
@@ -33,7 +33,16 @@ Phases, each printed as a JSON line with its wall time:
    byte; the per-row count kernel on rows whose lengths run from 0 to the row's
    (0-3 and odd ones included) with the default, far and 40-offset ladders, on
    70,000 rows at their own lengths, and against the scalar kernel where every row
-   has one length;
+   has one length; the windowed count kernel on the rows each BC1 corpus batch
+   scores cut into 1, 2 and 8 shards with their 32,768-byte halos (chunks of 1 KiB to
+   2 MiB), with the default ladder, one reaching 32,768 and 40 offsets, each shard
+   against the plain version and the shards' sum against the per-row kernel on the
+   uncut rows; and, on each mesh of the mesh phase, every kernel call its paths make
+   (the windowed count, deinterleave and region kernels on each position's shard of
+   every BC1-BC5 batch, LTU and host-scored, and of the 4096x4096 BC1 and BC3
+   payloads on (1, 8); the untransform kernels on each position's streams in
+   ``untransform_step``; the mode-sort kernel on each file's part of a position in
+   ``modesort_transform_step``), each against its plain version on the same inputs;
 4. main: the production path through the entry points a user calls, one path per
    format: a 4096x4096 DDS file of each of BC1-BC5, BC7 and BC6H, each with its full
    13-level mip chain (1,398,103 blocks; payloads of 11,184,824 bytes for BC1 and
@@ -65,7 +74,17 @@ Phases, each printed as a JSON line with its wall time:
    (a format's batch run and its load path) has its counts set to 0 just before and
    read just after: one launch of the deinterleave, region, per-row count and
    untransform kernels per batch, not one per file;
-6. times: CUDA-event medians of each kernel at the main path's shapes beside its
+6. mesh: the batch corpus again, sharded over three meshes of the one card:
+   ``make_mesh()`` (1, 1), and the card listed 8 times (1, 8) and 6 times (3, 2):
+   BC1-BC5 through ``BatchProcessor(fmt, mesh=..., max_batch=16)`` under LTU, BC1
+   and BC3 also host-scored with ``ZstdEstimation(1)``, every output back through
+   ``untransform_step``; the BC7 corpus through ``modesort_transform_step`` and back;
+   and the 4096x4096 BC1 and BC3 payloads as batches of one on (1, 8). Every result
+   must equal the batch phase's (or, for the 4096x4096 payloads, the per-file
+   search's; for BC7, each file's sort+planes transform on one device), every file
+   must come back, and the LTU mesh paths must launch the windowed count kernel and
+   not the per-row one;
+7. times: CUDA-event medians of each kernel at the main path's shapes beside its
    plain version and its bound (the mode-sort kernels in every setting, with the
    ``.t().contiguous()`` call that computes the planes-only layout; the RGB kernels
    in every setting of each layout, with the same call for the split-only layout;
@@ -74,9 +93,10 @@ Phases, each printed as a JSON line with its wall time:
    the search, the identity guard's zstd time and the RGB files' reads and writes
    shown apart; the word deinterleave at the largest batch's N beside its plain
    version and ``.t().contiguous()``, the per-row count kernel on the BC1 batch's
-   rows, and each format's batch and batched load path against a loop of the
-   per-file entry points, in files/s and MB/s, with host assembly, H2D, kernels,
-   D2H and serialization apart.
+   rows (and the windowed one on them cut into 8 shards), and each format's batch and
+   batched load path against a loop of the per-file entry points, in files/s and
+   MB/s, with host assembly, H2D, kernels, D2H and serialization apart; each mesh's
+   batch of each BC1-BC5 corpus beside the single-device batch.
 
 The last three lines are the ``nvidia-smi`` line, a JSON line with every kernel's
 numbers and ``{"ok": true, "device": {...}}``. Any mismatch, build failure or
@@ -214,6 +234,9 @@ KERNELS = {
     # the per-row form of the same TPU kernel (its valid_rows)
     "dlt_ltu_counts_rows": ("bc1_kernels.cu",
                             "dxt_lossless_transform_tpu/estimate/pallas_ltu.py:302"),
+    # the per-shard form, with the count window (the mesh scorer's)
+    "dlt_ltu_counts_windowed": ("bc1_kernels.cu",
+                                "dxt_lossless_transform_tpu/estimate/pallas_ltu.py:328"),
     "dlt_deinterleave_words": ("words_kernels.cu",
                                "dxt_lossless_transform_tpu/ops/pallas/planes.py:159"),
     "dlt_bc3_transform": ("bc3_kernels.cu",
@@ -331,6 +354,16 @@ FAR_OFFSETS = (1, 2, 4096, 4097, 8192, 65536)
 LADDER_40 = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 20, 24, 28, 32,
              40, 48, 64, 80, 96, 128, 160, 256, 384, 512, 768, 1024, 1536, 2048, 3072,
              4096, 6144, 12288, 24576, 49152)
+# The windowed count kernel's ladders: its offsets reach at most its 32,768-byte halo
+# (SPAN): the far ladder with offsets beyond the near 4096 bytes up to SPAN, and
+# LADDER_40 with SPAN in place of 49,152. The shard counts it is checked at.
+WINDOW_SPAN = 32768
+WINDOW_FAR = (1, 2, 4096, 4097, 8192, WINDOW_SPAN)
+WINDOW_LADDER_40 = LADDER_40[:-1] + (WINDOW_SPAN,)
+WINDOW_SHARDS = (1, 2, 8)
+# The mesh phase's meshes: the one card, and the card listed 8 and 6 times
+MESH_SHAPES = {"1x1": {"files": 1, "blocks": 1}, "1x8": {"files": 1, "blocks": 8},
+               "3x2": {"files": 3, "blocks": 2}}
 # Peak rates for the bounds. Device memory bytes/s by card, from NVIDIA's data
 # sheets. Integer operations/s: a Hopper SM issues 32-bit integer work to 64 INT32
 # lanes (16 in each of its 4 partitions, NVIDIA's H100 architecture whitepaper),
@@ -799,6 +832,8 @@ def main() -> int:
     # kernel on the rows the processors score. The step's count calls are recorded
     # (ltu.ltu_counts wrapped while it runs) and each is repeated beside the plain
     # version.
+    corpus = {fmt: batch_corpus(fmt) for fmt in
+              BATCH_FORMATS + ("bc7", "bc6h") + tuple(fmt.lower() for fmt in RGB)}
     scored = []
     real_ltu_counts = ltu.ltu_counts
 
@@ -835,7 +870,7 @@ def main() -> int:
     try:
         for fmt in BATCH_FORMATS:
             proc = parallel.BatchProcessor(fmt, max_batch=BATCH_MAX)
-            data = batch_corpus(fmt)
+            data = corpus[fmt]
             wpb = proc.cfg["words"]
             transform = getattr(shuffle, f"{fmt}_transform")
             untransform = getattr(shuffle, f"{fmt}_untransform")
@@ -871,16 +906,167 @@ def main() -> int:
                     compare(f"dlt_{fmt}_untransform", u, xb, f"{what} {st} round trip")
                 batch_blocks_checked[fmt].append(n)
         for fmt in ("bc7", "bc6h"):
-            parallel.ModeSortBatchProcessor(fmt, max_batch=BATCH_MAX).process(
-                batch_corpus(fmt))
+            parallel.ModeSortBatchProcessor(fmt, max_batch=BATCH_MAX).process(corpus[fmt])
             compare_scored(f"{fmt} mode-sort batches")
         for layout in (fmt.lower() for fmt in RGB):
             parallel.RgbBatchProcessor(layout, LtuEstimation(), max_batch=BATCH_MAX).process(
-                batch_corpus(layout))
+                corpus[layout])
             compare_scored(f"{layout} batches")
     finally:
         ltu.ltu_counts = real_ltu_counts
+    # the windowed count kernel: the rows each BC1 corpus batch scores (every
+    # candidate key's colour row of each file, at the file's own valid length; the
+    # 524,288-block bucket's batch is 16 rows of 2,097,152 bytes) cut into 1, 2 and 8
+    # shards with their halos (chunks of 1 KiB to 2 MiB, shorter and longer than the
+    # halo), with three ladders: each shard's window against the plain version, and
+    # the shards' sum against the per-row kernel on the uncut rows
+    window_cuts = []
+    bc1_proc = parallel.BatchProcessor("bc1", max_batch=BATCH_MAX)
+    bc1_data = corpus["bc1"]
+    for chunk, flats, valid in bc1_proc._prepare_batches(bc1_data, [None] * len(bc1_data)):
+        _, rows, _ = sharded._colour_rows_batched(
+            backend.to_device(flats, dev), [v // 4 for v in valid], sharded._BC1_CANDIDATES,
+            2, regions.bc1_regions)
+        keys = rows.shape[1]
+        rows = rows.reshape(-1, rows.shape[2])
+        lengths = torch.tensor([v for v in valid for _ in range(keys)])
+        for offsets in (ks, WINDOW_FAR, WINDOW_LADDER_40):
+            weights = [offset_weight(k) for k in offsets]
+            uncut = cuda_ltu.ltu_counts(rows, lengths, offsets, weights)
+            for nb in WINDOW_SHARDS:
+                lc = -(-rows.shape[1] // nb)
+                padded = torch.nn.functional.pad(
+                    rows, (WINDOW_SPAN, WINDOW_SPAN + nb * lc - rows.shape[1]))
+                total = torch.zeros_like(uncut)
+                what = (f"BC1 batch rows {tuple(rows.shape)} in {nb} shards, ladder of "
+                        f"{len(offsets)}")
+                for s in range(nb):
+                    win = padded[:, s * lc:(s + 1) * lc + 2 * WINDOW_SPAN].contiguous()
+                    got = cuda_ltu.ltu_counts_windowed(win, lengths, s * lc - WINDOW_SPAN,
+                                                       offsets, weights)
+                    compare("dlt_ltu_counts_windowed", got, cuda_ltu.ltu_counts_windowed_plain(
+                        win, lengths, s * lc - WINDOW_SPAN, offsets, weights),
+                        f"{what}, shard {s}")
+                    total += got
+                compare("dlt_ltu_counts_windowed", total, uncut,
+                        f"{what}: the shards' sum against the uncut rows")
+                window_cuts.append([list(rows.shape), nb, lc, len(offsets)])
+    # and each kernel call of the mesh paths, at the shapes they give the kernels, on
+    # every mesh of MESH_SHAPES: the mesh phase's paths run with each kernel wrapper
+    # that the sharded steps call replaced by one that holds the kernel's result
+    # against its plain version on the same inputs (the windowed count kernel on each
+    # position's windows; the deinterleave and region kernels on each position's
+    # words, Bl files of bucket / blocks blocks; the untransform kernels on each
+    # position's streams in untransform_step; the mode-sort kernel on each file's part
+    # of a position in modesort_transform_step)
+    meshes = {"1x1": parallel.make_mesh(), "1x8": parallel.make_mesh(devices=[dev] * 8),
+              "3x2": parallel.make_mesh(devices=[dev] * 6)}
+    for name, mesh in meshes.items():
+        if mesh.shape != MESH_SHAPES[name] or set(mesh.devices.flat) != {dev}:
+            fail(f"make_mesh gave {mesh} for the {name} mesh")
+
+    def restore(mesh, fmt: str, results) -> list:
+        """Every BC1-BC5 result back through ``untransform_step``: one step per
+        (settings, block count), its files axis filled by repeating the last file."""
+        bs = BLOCK_SIZE[fmt.upper()]
+        files = mesh.shape["files"]
+        groups: dict = {}
+        for r in results:
+            if r.transformed:
+                groups.setdefault((r.settings, len(r.transformed) // bs), []).append(r)
+        back = {}
+        for (settings, n), rs in groups.items():
+            rs = rs + rs[-1:] * (-len(rs) % files)
+            streams, pos = [], 0
+            for bpb in sharded._untransform_kernel(fmt, settings)[1]:
+                streams.append(torch.from_numpy(np.stack([
+                    np.frombuffer(r.transformed, np.uint8, bpb * n, pos * n) for r in rs]))
+                    .to(dev))
+                pos += bpb
+            words = parallel.untransform_step(mesh, fmt, settings)(*streams).cpu().numpy()
+            for row, r in enumerate(rs):
+                back[r.index] = words[row].tobytes()
+        return [back.get(i, b"") for i in range(len(results))]
+
+    def bc7_batch(mesh) -> tuple:
+        """The BC7 corpus as one ``modesort_transform_step`` batch: (its files, their
+        block counts, the (B, 4·Np) words on the card, each file's blocks padded to a
+        multiple of 4096 x the blocks axis)."""
+        data = [d for d in corpus["bc7"] if d]
+        ns = [len(d) // 16 for d in data]
+        step_chunk = 4096 * mesh.shape["blocks"]
+        words = np.zeros((len(data), 4 * (-(-max(ns) // step_chunk) * step_chunk)), np.int32)
+        for row, d in enumerate(data):
+            words[row, :len(d) // 4] = np.frombuffer(d, np.int32)
+        return data, ns, torch.from_numpy(words).to(dev)
+
+    mesh_checked = [
+        (sharded, "ltu_counts_windowed", cuda_ltu.ltu_counts_windowed_plain,
+         "dlt_ltu_counts_windowed"),
+        (sharded, "deinterleave_words", planes.deinterleave_words_plain,
+         "dlt_deinterleave_words"),
+        (planes, "bc7_transform", planes.bc7_transform_plain, "dlt_bc7_transform"),
+        *((regions, f"{fmt}_regions", getattr(regions, f"{fmt}_regions_plain"),
+           f"dlt_{fmt}_regions") for fmt in ("bc1", "bc2", "bc3")),
+        *((shuffle, f"{fmt}_untransform", getattr(shuffle, f"{fmt}_untransform_plain"),
+           f"dlt_{fmt}_untransform") for fmt in BATCH_FORMATS)]
+    mesh_calls = {}  # per mesh path: each kernel's compared calls
+
+    def checked_path(label: str, fn, expect) -> None:
+        """Run ``fn`` with every wrapper of ``mesh_checked`` comparing each of its
+        calls with the plain version; each kernel of ``expect`` must be called."""
+        calls = mesh_calls[label] = {}
+        real = [getattr(module, attr) for module, attr, _, _ in mesh_checked]
+
+        def checking(wrapper, plain, kernel):
+            def call(*args):
+                got, want = wrapper(*args), plain(*args)
+                pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+                shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+                if isinstance(got, tuple) and len(got) != len(want):
+                    fail(f"{kernel} mesh {label}: {len(got)} outputs, plain {len(want)}")
+                for i, (g, w) in enumerate(pairs):
+                    compare(kernel, g, w, f"mesh {label}: inputs {shapes}, output {i}")
+                calls[kernel] = calls.get(kernel, 0) + 1
+                return got
+            return call
+
+        for (module, attr, plain, kernel), wrapper in zip(mesh_checked, real):
+            setattr(module, attr, checking(wrapper, plain, kernel))
+        try:
+            fn()
+        finally:
+            for (module, attr, _, _), wrapper in zip(mesh_checked, real):
+                setattr(module, attr, wrapper)
+        if [k for k in expect if not calls.get(k)]:
+            fail(f"mesh {label}: compared calls {calls}, expected each of {expect}")
+
+    def region_kernels(fmt: str) -> list:
+        return [f"dlt_{fmt}_regions"] if fmt in ("bc1", "bc2", "bc3") else []
+
+    for name, mesh in meshes.items():
+        for fmt in BATCH_FORMATS:
+            checked_path(f"{name}/{fmt}", lambda: restore(mesh, fmt, parallel.BatchProcessor(
+                fmt, mesh=mesh, max_batch=BATCH_MAX).process(corpus[fmt])),
+                ["dlt_ltu_counts_windowed", "dlt_deinterleave_words",
+                 f"dlt_{fmt}_untransform", *region_kernels(fmt)])
+        for fmt in BATCH_HOST_SCORED:
+            checked_path(f"{name}/{fmt}_zstd1", lambda: restore(
+                mesh, fmt, parallel.BatchProcessor(
+                    fmt, mesh=mesh, max_batch=BATCH_MAX,
+                    estimator=zstd.ZstdEstimation(1)).process(corpus[fmt])),
+                ["dlt_deinterleave_words", f"dlt_{fmt}_untransform", *region_kernels(fmt)])
+        _, ns, words = bc7_batch(mesh)
+        checked_path(f"{name}/bc7_modesort", lambda: parallel.modesort_transform_step(
+            mesh, "bc7")(words, ns), ["dlt_bc7_transform"])
+    for fmt in ("bc1", "bc3"):
+        checked_path(f"1x8/{fmt}_4096", lambda: restore(
+            meshes["1x8"], fmt, parallel.BatchProcessor(fmt, mesh=meshes["1x8"], max_batch=1)
+            .process([payload[fmt.upper()]])),
+            ["dlt_ltu_counts_windowed", "dlt_deinterleave_words", f"dlt_{fmt}_untransform",
+             f"dlt_{fmt}_regions"])
     emit("check", t0, block_counts=checked, max_abs_err=max_err,
+         window_cuts=window_cuts, mesh_calls=mesh_calls,
          batch_blocks=batch_blocks_checked, batch_count_rows=batch_rows_checked,
          word_counts=list(WORD_SIZES), per_row_lengths=row_lengths,
          far_counts=far_counts, many_rows=MANY_ROWS, many_rows_count_sum=many_rows_sum,
@@ -1076,8 +1262,6 @@ def main() -> int:
 
     # ---- 5. the batch corpus, through the pipeline's processors -------------------------
     t0 = time.perf_counter()
-    corpus = {fmt: batch_corpus(fmt) for fmt in
-              BATCH_FORMATS + ("bc7", "bc6h") + tuple(fmt.lower() for fmt in RGB)}
     per_file_auto = {"bc1": auto.transform_bc1_auto, "bc2": auto.transform_bc2_auto,
                      "bc3": auto.transform_bc3_auto, "bc4": bc45.transform_bc4_auto,
                      "bc5": bc45.transform_bc5_auto, "bc7": bc7.transform_bc7_auto,
@@ -1085,6 +1269,7 @@ def main() -> int:
     for layout in (fmt.lower() for fmt in RGB):
         per_file_auto[layout] = (lambda d, est, _l=layout: rgb.transform_rgb_auto(d, _l, est))
     batch_results = {}
+    batch_out = {}  # each path's results, which the mesh phase must equal
 
     def batch_path(label: str, fmt: str, proc):
         """One path: the batch transform of the corpus of ``fmt`` and its batched
@@ -1104,6 +1289,7 @@ def main() -> int:
         wall[f"batch_{label}_untransform_s"] = time.perf_counter() - t
         counts = {name: count for name, count in backend.LAUNCHES.items() if count}
         path_launches[f"batch/{label}"] = counts
+        batch_out[label] = results
         if [r.index for r in results] != list(range(len(data))):
             fail(f"batch {label}: results out of submission order")
         if back != data:
@@ -1197,16 +1383,111 @@ def main() -> int:
         if picks != ref["picks"] or batch_results[layout]["sha256"] != ref["sha256"]:
             fail(f"batch {layout}: picks or sha256 differ from the JAX package's: "
                  f"{batch_results[layout]}")
-    # each kernel's launches on the main paths: the earlier slices' and the batch ones
-    launches = {name: sum(counts.get(name, 0) for counts in path_launches.values())
-                for name in KERNELS}
     emit("batch", t0, payloads={fmt: len(d) for fmt, d in corpus.items()},
          bytes={fmt: sum(map(len, d)) for fmt, d in corpus.items()},
          launches={k: v for k, v in path_launches.items() if k.startswith("batch/")},
          results=batch_results,
          wall={k: v for k, v in wall.items() if k.startswith("batch_")})
 
-    # ---- 6. times ----------------------------------------------------------------------
+    # ---- 6. the mesh: the same corpus, sharded ------------------------------------------
+    t0 = time.perf_counter()
+
+    def mesh_path(label: str, fn):
+        """One path of the mesh phase: its counts set to 0 just before, read just
+        after. Returns (what ``fn`` returns, the counts)."""
+        sync()
+        backend.reset_launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        wall[f"mesh_{label.replace('/', '_')}_s"] = time.perf_counter() - t
+        counts = {name: count for name, count in backend.LAUNCHES.items() if count}
+        path_launches[f"mesh/{label}"] = counts
+        return out, counts
+
+    def same(got, want) -> bool:
+        return [(r.index, r.transformed, r.settings) for r in got] == \
+            [(r.index, r.transformed, r.settings) for r in want]
+
+    mesh_results = {}
+    for name, mesh in meshes.items():
+        for fmt in BATCH_FORMATS:
+            label = f"{name}/{fmt}"
+            results, counts = mesh_path(label, lambda: parallel.BatchProcessor(
+                fmt, mesh=mesh, max_batch=BATCH_MAX).process(corpus[fmt]))
+            if not same(results, batch_out[fmt]):
+                fail(f"mesh {label}: results differ from the single-device batch")
+            if not counts.get("dlt_ltu_counts_windowed") or counts.get("dlt_ltu_counts_rows"):
+                fail(f"mesh {label}: launches {counts}; the windowed count kernel must "
+                     f"score it, the per-row one not")
+            back, back_counts = mesh_path(f"{label}/load", lambda: restore(mesh, fmt, results))
+            if back != corpus[fmt] or not back_counts.get(f"dlt_{fmt}_untransform"):
+                fail(f"mesh {label}: untransform_step did not restore every file "
+                     f"({back_counts})")
+            mesh_results[label] = {"windowed_launches": counts["dlt_ltu_counts_windowed"],
+                                   "untransform_launches": back_counts[f"dlt_{fmt}_untransform"]}
+        for fmt in BATCH_HOST_SCORED:
+            label = f"{name}/{fmt}_zstd1"
+            results, counts = mesh_path(label, lambda: parallel.BatchProcessor(
+                fmt, mesh=mesh, max_batch=BATCH_MAX,
+                estimator=zstd.ZstdEstimation(1)).process(corpus[fmt]))
+            if not same(results, batch_out[f"{fmt}_zstd1"]):
+                fail(f"mesh {label}: results differ from the single-device batch")
+            if not (counts.get("dlt_deinterleave_words") and counts.get(f"dlt_{fmt}_regions")):
+                fail(f"mesh {label}: launches {counts}")
+            back, _ = mesh_path(f"{label}/load", lambda: restore(mesh, fmt, results))
+            if back != corpus[fmt]:
+                fail(f"mesh {label}: untransform_step did not restore every file")
+        # the BC7 corpus through the mode-sort step: one batch, each file's blocks
+        # padded to a multiple of 4096 x the blocks axis; each file's planes and mode
+        # stream must be its sort+planes transform on one device
+        data, ns, words = bc7_batch(mesh)
+        label = f"{name}/bc7_modesort"
+        (planes_out, modes_out), counts = mesh_path(
+            label, lambda: parallel.modesort_transform_step(mesh, "bc7")(words, ns))
+        if not counts.get("dlt_bc7_transform") or set(counts) != {"dlt_bc7_transform"}:
+            fail(f"mesh {label}: launches {counts}")
+        planes_out, modes_out = planes_out.cpu().numpy(), modes_out.cpu().numpy()
+        sorted_ = [modes_out[row, :(n + 1) // 2].tobytes() + planes_out[row, :, :n].tobytes()
+                   for row, n in enumerate(ns)]
+        for d, got in zip(data, sorted_):
+            if got != backend.download(planes.bc7_transform(backend.upload(d, dev),
+                                                            planes.BC7, True, True)):
+                fail(f"mesh {label}: a file's planes differ from its transform on one device")
+        back, _ = mesh_path(f"{label}/load", lambda: parallel.UntransformBatchProcessor(
+            "bc7", max_batch=BATCH_MAX).process(
+                [(t, Bc7TransformSettings(True, True)) for t in sorted_]))
+        if back != data:
+            fail(f"mesh {label}: a file did not come back")
+        mesh_results[label] = {"files": len(data), "blocks": words.shape[1] // 4,
+                               "transform_launches": counts["dlt_bc7_transform"]}
+    # the 4096x4096 BC1 and BC3 payloads as batches of one on the (1, 8) mesh, against
+    # the main phase's per-file results
+    for fmt in ("BC1", "BC3"):
+        label = f"1x8/{fmt.lower()}_4096"
+        results, counts = mesh_path(label, lambda: parallel.BatchProcessor(
+            fmt.lower(), mesh=meshes["1x8"], max_batch=1).process([payload[fmt]]))
+        search = auto.transform_bc1_auto if fmt == "BC1" else auto.transform_bc3_auto
+        if (results[0].transformed, results[0].settings) != search(payload[fmt],
+                                                                   LtuEstimation()):
+            fail(f"mesh {label}: differs from the per-file auto-search")
+        if not counts.get("dlt_ltu_counts_windowed") or counts.get("dlt_ltu_counts_rows"):
+            fail(f"mesh {label}: launches {counts}")
+        back, _ = mesh_path(f"{label}/load", lambda: restore(meshes["1x8"], fmt.lower(),
+                                                             results))
+        if back != [payload[fmt]]:
+            fail(f"mesh {label}: the payload did not come back")
+        mesh_results[label] = {"settings": str(results[0].settings),
+                               "windowed_launches": counts["dlt_ltu_counts_windowed"]}
+    # each kernel's launches on the main paths: the earlier slices', the batch and the
+    # mesh ones
+    launches = {name: sum(counts.get(name, 0) for counts in path_launches.values())
+                for name in KERNELS}
+    emit("mesh", t0, meshes={name: str(mesh) for name, mesh in meshes.items()},
+         launches={k: v for k, v in path_launches.items() if k.startswith("mesh/")},
+         results=mesh_results, wall={k: v for k, v in wall.items() if k.startswith("mesh_")})
+
+    # ---- 7. times ----------------------------------------------------------------------
     t0 = time.perf_counter()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
@@ -1529,7 +1810,32 @@ def main() -> int:
         / int_rate * 1e3)
     compare("dlt_ltu_counts_rows", cuda_ltu.ltu_counts(rows, valid_rows, ks, ws),
             cuda_ltu.ltu_counts_plain(rows, valid_rows, ks, ws), "the BC1 batch's timed rows")
-    del xw, flats, rows
+    # the windowed count kernel on the same rows cut into 8 shards with their halos:
+    # the 8 launches of one mesh scoring, each shard's window as the mesh step makes it.
+    # Bytes: each shard's counted positions, the 4096 bytes before its first one and
+    # the 3 after its last; operations and compares as for the uncut rows
+    nb = 8
+    lc = rows.shape[1] // nb
+    padded = torch.nn.functional.pad(rows, (WINDOW_SPAN, WINDOW_SPAN))
+    windows = [padded[:, s * lc:(s + 1) * lc + 2 * WINDOW_SPAN].contiguous() for s in range(nb)]
+    counted = [min(max(4 * n_big - 3 - s * lc, 0), lc) for s in range(nb)]
+    timed["dlt_ltu_counts_windowed"] = dict(
+        ms=event_ms(lambda: [cuda_ltu.ltu_counts_windowed(w, valid_rows, s * lc - WINDOW_SPAN,
+                                                          ks, ws)
+                             for s, w in enumerate(windows)], 20),
+        plain_ms=event_ms(lambda: [cuda_ltu.ltu_counts_windowed_plain(
+            w, valid_rows, s * lc - WINDOW_SPAN, ks, ws) for s, w in enumerate(windows)], 3),
+        shards=nb, chunk=lc,
+        bytes=rows.shape[0] * sum(c + 4096 + 3 for c in counted if c),
+        positions=positions, compares=compares,
+        ops=OPS_GRAM * positions + OPS_COMPARE * compares,
+        issue_ms=(SASS_PER_POSITION * positions + SASS_PER_COMPARE * compares)
+        / int_rate * 1e3)
+    compare("dlt_ltu_counts_windowed", sum(
+        cuda_ltu.ltu_counts_windowed(w, valid_rows, s * lc - WINDOW_SPAN, ks, ws)
+        for s, w in enumerate(windows)), cuda_ltu.ltu_counts(rows, valid_rows, ks, ws),
+        "the BC1 batch's timed rows in 8 shards against the uncut rows")
+    del xw, flats, rows, padded, windows
     # each format's batch against a loop of the per-file entry points over the same
     # payloads, both directions, and the stages of one batch run with the device
     # synchronised around each (so that they do not overlap)
@@ -1589,6 +1895,17 @@ def main() -> int:
             "batch_s": host_s(lambda: parallel.BatchProcessor(
                 fmt, max_batch=BATCH_MAX, estimator=est).process(data), 3),
             "per_file_s": host_s(lambda: [per_file_auto[fmt](d, est) for d in data], 3)}
+    # each mesh's batch of each BC1-BC5 corpus beside the single-device batch above:
+    # on one card a mesh can only be slower (nb launches where one did, and the
+    # copies between its positions)
+    mesh_batch = {}
+    for name, mesh in meshes.items():
+        for fmt in BATCH_FORMATS:
+            data = corpus[fmt]
+            mesh_batch[f"{name}/{fmt}"] = {
+                "batch_s": host_s(lambda: parallel.BatchProcessor(
+                    fmt, mesh=mesh, max_batch=BATCH_MAX).process(data), 3),
+                "single_device_batch_s": throughput[fmt]["batch_s"]}
     for entry in timed.values():
         bytes_ms = entry["bytes"] / rate * 1e3
         ops_ms = entry["ops"] / int_rate * 1e3
@@ -1597,12 +1914,12 @@ def main() -> int:
 
     tmp.cleanup()
     emit("times", t0, kernels=timed, host=copies, batch=throughput,
-         host_scored_small_files=small_files,
+         host_scored_small_files=small_files, mesh_batch=mesh_batch,
          note="kernel ms: CUDA-event medians with L2 flushed before each launch; "
               "host s: medians of 5, batch: medians of 3",
          run_seconds=time.perf_counter() - run_start)
 
-    # ---- 7. the contract lines ----------------------------------------------------------
+    # ---- 8. the contract lines ----------------------------------------------------------
     # the row of each kernel: its COMPREHENSIVE shape where it has one, the count
     # kernel on the BC1 COMPREHENSIVE colour rows, as in earlier runs, the mode-sort
     # kernels in the BC7 file's shipped setting, sort and planes, and the RGB kernels

@@ -1,7 +1,7 @@
 """Device selection, the CUDA kernel library, host<->device copies and launch counts.
 
 The kernels live in the CUDA C++ sources ``csrc/*.cu`` (``bc1_kernels.cu`` with the
-LTU count kernel, ``bc2_kernels.cu``, ``bc3_kernels.cu``, ``bc45_kernels.cu``,
+LTU count kernel in its three forms, ``bc2_kernels.cu``, ``bc3_kernels.cu``, ``bc45_kernels.cu``,
 ``bc7_kernels.cu`` with the BC7/BC6H mode sort, ``rgb_kernels.cu`` with the RGB
 channel split and merge, ``words_kernels.cu`` with the word deinterleave of the
 batch pipeline), which share ``csrc/common.cuh`` and have plain
@@ -54,6 +54,9 @@ _SIGNATURES = {
     # (rows, counts, n_rows, row_len, valid_rows, max_valid, offsets, weights,
     #  n_offsets, far_table, stream)
     "dlt_ltu_counts_rows": (_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P),
+    # (rows, counts, n_rows, row_len, valid_rows, pos0, lo, hi, offsets, weights,
+    #  n_offsets, far_table, stream)
+    "dlt_ltu_counts_windowed": (_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P),
     # (in, out, n words per stream, k streams, stream)
     "dlt_deinterleave_words": (_P, _P, _I, _I, _P),
     # (in, out, n_blocks, variant, split_alpha, split_colour, stream)

@@ -130,6 +130,22 @@ bc1_regions_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out, int6
 // before it stages anything, so the grid, sized for the longest row, costs the
 // shorter rows one early exit per tile. With ROWS = false the body is the scalar
 // kernel's, instruction for instruction.
+//
+// dlt_ltu_counts_windowed replaces dxt_lossless_transform_tpu/estimate/pallas_ltu.py:328
+// coverage_counts_windowed (_counts_call with the count window of _make_kernel
+// :177-259), the per-shard partial count of the multi-device scorer. Each row is one
+// shard's chunk of a global row with a halo on each side, [halo | chunk | halo], and
+// pos0 is the global position of its local byte 0 (chunk start - halo, negative for
+// the first shard). Local positions i in [lo, hi) (the chunk) are counted where
+// pos0 + i < valid - 3 (valid: the row's global length), and a match at offset k
+// needs pos0 + i >= k, the stream-head guard on global positions; summed over the
+// shards, the counts are the unsharded row's. It is the per-row kernel with WIN =
+// true: the tiles start at lo, the row's local valid length is valid - pos0, and the
+// guard adds pos0. Its bound is the per-row kernel's over the counted positions,
+// plus each block's halo bytes read; the halo in front of a tile is at least the
+// largest offset (lo >= k), so a far offset reads its gram from the row in global
+// memory as before, never before the row's start. Same instantiations for WIN =
+// false as before: the window's terms fold to the per-row ones (0 and no cap).
 constexpr int kTile = 8192;                            // positions per block
 constexpr int kHalo = 4096;                            // largest near offset
 constexpr int kWinWords = (kHalo + kTile + 4) / 4 + 1; // halo, tile, lookahead
@@ -149,6 +165,23 @@ struct LtuFarOffsets {
   int32_t n;
 };
 
+// The count window of dlt_ltu_counts_windowed: each row's global valid length (a
+// device array), the global position of local byte 0, and the local positions
+// [lo, hi) that are counted.
+struct LtuWindow {
+  const int64_t* lengths;
+  int64_t pos0, lo, hi;
+};
+
+// Local position of the first tile, and the global position of local byte 0: 0 for
+// every form but the window.
+template <typename V>
+__device__ __forceinline__ int64_t window_lo(const V&) { return 0; }
+__device__ __forceinline__ int64_t window_lo(const LtuWindow& w) { return w.lo; }
+template <typename V>
+__device__ __forceinline__ int64_t window_pos0(const V&) { return 0; }
+__device__ __forceinline__ int64_t window_pos0(const LtuWindow& w) { return w.pos0; }
+
 __device__ __forceinline__ uint32_t gram_at(const uint32_t* win, int p) {
   return __funnelshift_r(win[p >> 2], win[(p >> 2) + 1], (p & 3) * 8);
 }
@@ -166,22 +199,30 @@ __device__ __forceinline__ uint32_t gram_global(const uint8_t* row, int64_t p) {
 // The near instantiation's parameters are those of the one kernel before the far
 // one existed, (rows, row_len, valid_len, LtuOffsets, counts); the far one takes
 // LtuFarOffsets in place of LtuOffsets. With ROWS, valid_len is a device array of
-// one length per row in place of the one length.
+// one length per row in place of the one length; with WIN (and ROWS), the count
+// window.
 template <bool FAR>
 using OffsetTable = std::conditional_t<FAR, LtuFarOffsets, LtuOffsets>;
-template <bool ROWS>
-using ValidLen = std::conditional_t<ROWS, const int64_t* __restrict__, int64_t>;
+template <bool ROWS, bool WIN = false>
+using ValidLen = std::conditional_t<
+    WIN, LtuWindow, std::conditional_t<ROWS, const int64_t* __restrict__, int64_t>>;
 
-template <bool FAR, bool ROWS>
+template <bool FAR, bool ROWS, bool WIN = false>
 __global__ void __launch_bounds__(kThreads)
-ltu_counts_kernel(const uint8_t* __restrict__ rows, int64_t row_len, ValidLen<ROWS> valid,
-                  OffsetTable<FAR> offs, unsigned long long* __restrict__ counts) {
+ltu_counts_kernel(const uint8_t* __restrict__ rows, int64_t row_len,
+                  ValidLen<ROWS, WIN> valid, OffsetTable<FAR> offs,
+                  unsigned long long* __restrict__ counts) {
+  static_assert(ROWS || !WIN, "the window is a form of the per-row kernel");
   __shared__ uint32_t win[kWinWords];
   __shared__ uint32_t block_sum;
   const uint8_t* row = rows + static_cast<int64_t>(blockIdx.y) * row_len;
-  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  int64_t valid_len;
-  if constexpr (ROWS) {
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile + window_lo(valid);
+  int64_t valid_len;  // in local positions: bytes at or past it read as 0
+  if constexpr (WIN) {
+    const int64_t shifted = valid.lengths[blockIdx.y] - valid.pos0;
+    valid_len = shifted < row_len ? shifted : row_len;
+    if (tile0 >= valid.hi || tile0 >= valid_len - 3) return;
+  } else if constexpr (ROWS) {
     valid_len = valid[blockIdx.y];
     if (tile0 >= valid_len - 3) return;  // the whole block: no position of this row
   } else {
@@ -203,7 +244,9 @@ ltu_counts_kernel(const uint8_t* __restrict__ rows, int64_t row_len, ValidLen<RO
     win[w] = v;
   }
   __syncthreads();
-  const int64_t end = valid_len - 3;  // positions i < end have a whole gram
+  int64_t end = valid_len - 3;  // positions i < end have a whole gram
+  if constexpr (WIN) end = end < valid.hi ? end : valid.hi;
+  const int64_t pos0 = window_pos0(valid);  // the guard works on global positions
   uint32_t local = 0;
   for (int t = threadIdx.x; t < kTile; t += kThreads) {
     const int64_t i = tile0 + t;
@@ -213,7 +256,7 @@ ltu_counts_kernel(const uint8_t* __restrict__ rows, int64_t row_len, ValidLen<RO
     if constexpr (!FAR) {
       for (int o = 0; o < offs.n; ++o) {
         const int k = offs.k[o];
-        if (k > i) break;  // ascending: no later offset reaches back far enough either
+        if (k > pos0 + i) break;  // ascending: no later offset reaches back far enough
         if (gram_at(win, lp - k) == gi) {
           local += offs.w[o];
           break;
@@ -222,7 +265,7 @@ ltu_counts_kernel(const uint8_t* __restrict__ rows, int64_t row_len, ValidLen<RO
     } else {
       for (int o = 0; o < offs.n; ++o) {
         const int64_t k = __ldg(offs.table + o);
-        if (k > i) break;
+        if (k > pos0 + i) break;
         const uint32_t g = k <= kHalo ? gram_at(win, lp - static_cast<int>(k))
                                       : gram_global(row, i - k);
         if (g == gi) {
@@ -324,29 +367,33 @@ cudaError_t ltu_offsets(const void* offsets, const void* weights, int64_t n_offs
 }
 
 // Zeroes the counts and launches the kernel once per group of kMaxGridY rows
-// (grid.y holds the rows), with enough tiles for positions below max_valid - 3.
-// `valid` is the one length, or (ROWS) the device array of n_rows lengths.
-template <bool ROWS>
+// (grid.y holds the rows), with enough tiles for `positions` positions (from the
+// window's lo with WIN). `valid` is the one length, (ROWS) the device array of
+// n_rows lengths, or (WIN) the window over such an array.
+template <bool ROWS, bool WIN = false>
 cudaError_t launch_counts(const void* rows, void* counts, int64_t n_rows, int64_t row_len,
-                          ValidLen<ROWS> valid, int64_t max_valid, bool near,
+                          ValidLen<ROWS, WIN> valid, int64_t positions, bool near,
                           const LtuOffsets& offs, const LtuFarOffsets& far,
                           cudaStream_t st) {
   cudaError_t rc = cudaMemsetAsync(counts, 0, n_rows * sizeof(unsigned long long), st);
   if (rc != cudaSuccess) return rc;
-  const int64_t positions = max_valid > 3 ? max_valid - 3 : 1;
   const unsigned tiles = static_cast<unsigned>((positions + kTile - 1) / kTile);
   for (int64_t r0 = 0; r0 < n_rows; r0 += kMaxGridY) {
     const dim3 grid(tiles, static_cast<unsigned>(std::min(n_rows - r0, kMaxGridY)));
     const uint8_t* group = static_cast<const uint8_t*>(rows) + r0 * row_len;
     unsigned long long* group_counts = static_cast<unsigned long long*>(counts) + r0;
-    ValidLen<ROWS> group_valid = valid;
-    if constexpr (ROWS) group_valid = valid + r0;
+    ValidLen<ROWS, WIN> group_valid = valid;
+    if constexpr (WIN) {
+      group_valid.lengths = valid.lengths + r0;
+    } else if constexpr (ROWS) {
+      group_valid = valid + r0;
+    }
     if (near) {
-      ltu_counts_kernel<false, ROWS><<<grid, kThreads, 0, st>>>(group, row_len, group_valid,
-                                                                offs, group_counts);
+      ltu_counts_kernel<false, ROWS, WIN><<<grid, kThreads, 0, st>>>(
+          group, row_len, group_valid, offs, group_counts);
     } else {
-      ltu_counts_kernel<true, ROWS><<<grid, kThreads, 0, st>>>(group, row_len, group_valid,
-                                                               far, group_counts);
+      ltu_counts_kernel<true, ROWS, WIN><<<grid, kThreads, 0, st>>>(
+          group, row_len, group_valid, far, group_counts);
     }
     rc = cudaGetLastError();
     if (rc != cudaSuccess) return rc;
@@ -372,8 +419,9 @@ int dlt_ltu_counts(const void* rows, void* counts, int64_t n_rows, int64_t row_l
   if (rc != cudaSuccess) return rc;
   const LtuFarOffsets far = {static_cast<const int64_t*>(far_table),
                              static_cast<int32_t>(n_offsets)};
-  return launch_counts<false>(rows, counts, n_rows, row_len, valid_len, valid_len, near,
-                              offs, far, static_cast<cudaStream_t>(stream));
+  return launch_counts<false>(rows, counts, n_rows, row_len, valid_len,
+                              valid_len > 3 ? valid_len - 3 : 1, near, offs, far,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // As dlt_ltu_counts, with valid_rows a device array of n_rows int64 lengths, each in
@@ -393,8 +441,37 @@ int dlt_ltu_counts_rows(const void* rows, void* counts, int64_t n_rows, int64_t 
   const LtuFarOffsets far = {static_cast<const int64_t*>(far_table),
                              static_cast<int32_t>(n_offsets)};
   return launch_counts<true>(rows, counts, n_rows, row_len,
-                             static_cast<const int64_t*>(valid_rows), max_valid, near, offs,
-                             far, static_cast<cudaStream_t>(stream));
+                             static_cast<const int64_t*>(valid_rows),
+                             max_valid > 3 ? max_valid - 3 : 1, near, offs, far,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// As dlt_ltu_counts_rows, on the windows of one shard: valid_rows holds each row's
+// global valid length (a device array, not read on the host), pos0 the global
+// position of local byte 0, and the local positions [lo, hi) are counted. lo must
+// be a multiple of 4 and at least the largest offset, and hi + 3 at most row_len,
+// so that every gram and every offset's source lies in the row.
+int dlt_ltu_counts_windowed(const void* rows, void* counts, int64_t n_rows, int64_t row_len,
+                            const void* valid_rows, int64_t pos0, int64_t lo, int64_t hi,
+                            const void* offsets, const void* weights, int64_t n_offsets,
+                            const void* far_table, void* stream) {
+  if (n_rows <= 0 || valid_rows == nullptr || lo < 0 || lo % 4 != 0 || hi < lo ||
+      hi + 3 > row_len) {
+    return cudaErrorInvalidValue;
+  }
+  bool near = false;
+  LtuOffsets offs;
+  cudaError_t rc = ltu_offsets(offsets, weights, n_offsets, far_table, &near, &offs);
+  if (rc != cudaSuccess) return rc;
+  if (n_offsets > 0 && static_cast<const int64_t*>(offsets)[n_offsets - 1] > lo) {
+    return cudaErrorInvalidValue;
+  }
+  const LtuFarOffsets far = {static_cast<const int64_t*>(far_table),
+                             static_cast<int32_t>(n_offsets)};
+  const LtuWindow window = {static_cast<const int64_t*>(valid_rows), pos0, lo, hi};
+  return launch_counts<true, true>(rows, counts, n_rows, row_len, window,
+                                   hi > lo ? hi - lo : 1, near, offs, far,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

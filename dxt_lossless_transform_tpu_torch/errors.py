@@ -87,12 +87,3 @@ class ZstdUnavailableError(DltError, RuntimeError):
     def __init__(self, library: str, reason: str):
         self.library = library
         super().__init__(f"cannot load the zstd library {library}: {reason}")
-
-
-class MultiDeviceNotPortedError(DltError, NotImplementedError):
-    """A mesh was given: the multi-device layer (``parallel/{mesh,sharded,distributed}``
-    under a mesh) is not ported yet; the batch pipeline runs on one device."""
-
-    def __init__(self):
-        super().__init__("the multi-device layer (a mesh) is not ported to the PyTorch "
-                         "package yet: pass mesh=None")

@@ -63,17 +63,42 @@ def entropy_terms(rows: torch.Tensor, valid_len: ValidLen) -> torch.Tensor:
         hist = torch.bincount(sample.reshape(-1), minlength=256 * c).view(c, 256)
         raw = g[n] - g[hist].sum(dim=1)
         return 3 * raw.clamp(min=0) // 8
-    width = min(int(valid_len.max()) if c else 0, ENTROPY_CAP, rows.shape[1])
-    n = valid_len.to(rows.device, torch.int64, non_blocking=True).clamp(max=ENTROPY_CAP)
+    n = prefix_lengths(valid_len, rows.device)
+    longest = min(int(valid_len.max()) if c else 0, ENTROPY_CAP)
+    return entropy_from_histograms(prefix_histograms(rows, n, longest), n)
+
+
+def prefix_lengths(valid_len: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Each row's entropy prefix, ``min(valid_len, ENTROPY_CAP)``, on ``device``."""
+    return valid_len.to(device, torch.int64, non_blocking=True).clamp(max=ENTROPY_CAP)
+
+
+def prefix_histograms(rows: torch.Tensor, n: torch.Tensor, longest: int,
+                      start: int = 0) -> torch.Tensor:
+    """(C, 256) int64 byte histograms of the (C, L) uint8 rows, which hold the bytes
+    at positions ``start`` .. ``start`` + L of their rows: of each row, the bytes at
+    positions below its prefix length ``n`` (a (C,) tensor on the rows' device; the
+    largest at most ``longest``). Histograms of a row's pieces sum to the whole
+    row's."""
+    c = rows.shape[0]
+    width = max(0, min(longest - start, rows.shape[1]))
+    bins = torch.arange(c, device=rows.device, dtype=torch.int64)[:, None] * 256
     # bytes past a row's prefix go to one spare bin after the C * 256 real ones;
     # a sum into a histogram of known size, where bincount would read the largest
     # bin number back to the host first
-    inside = torch.arange(width, device=rows.device) < n[:, None]
+    inside = torch.arange(start, start + width, device=rows.device) < n[:, None]
     sample = torch.where(inside, rows[:, :width].to(torch.int64) + bins, 256 * c)
     hist = torch.zeros(256 * c + 1, dtype=torch.int64, device=rows.device).scatter_add_(
         0, sample.reshape(-1), torch.ones(sample.numel(), dtype=torch.int64,
-                                          device=rows.device))[:256 * c]
-    raw = g[n] - g[hist.view(c, 256)].sum(dim=1)
+                                          device=rows.device))
+    return hist[:256 * c].view(c, 256)
+
+
+def entropy_from_histograms(hist: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The entropy term of rows whose prefixes of lengths ``n`` (C,) have the byte
+    histograms ``hist`` (C, 256), as int64 (C,)."""
+    g = _g_table(hist.device)
+    raw = g[n] - g[hist].sum(dim=1)
     return torch.where(n > 1, 3 * raw.clamp(min=0) // 8, 0)
 
 

@@ -1,4 +1,4 @@
-"""Corpus batch pipeline: many textures per device step, on one device.
+"""Corpus batch pipeline: many textures per device step, on one device or a mesh.
 
 Counterpart of ``dxt_lossless_transform_tpu/parallel/pipeline.py``. Payloads of one
 format are grouped by padded block-count bucket (:func:`..ops.lanes.bucket_size`),
@@ -22,13 +22,16 @@ In both of the BC1-BC5 processor's modes and in the load path, the next batch's
 upload and kernels are queued before the host serializes (or scores) the current
 one, whose results come back through pinned buffers (:class:`..backend.Download`).
 The device is CUDA unless the caller passes ``device="cpu"``, which runs the
-kernels' plain versions.
+kernels' plain versions. With a ``mesh`` (:func:`.mesh.make_mesh`) the BC1-BC5
+processor, in both modes, runs the sharded steps on the mesh's devices (its
+``device`` argument gives way to them): a batch is padded to a multiple of the files
+axis by repeating its last file, as in JAX, and the results are the same.
 
-Left out: the TPU tile-grid padding of a batch (``_pad_batch_for_tiles``), the
-routing of small payloads to a native host runtime or the per-file search
-(``DLT_DEVICE_MIN_BYTES``, ``DLT_MEDIUM_BATCH_NATIVE``, the host pool of the load
-path: every payload is batched, which gives the same bytes) and every mesh: a
-``mesh`` other than None raises :class:`..errors.MultiDeviceNotPortedError`.
+Left out: the TPU tile-grid padding of a batch (``_pad_batch_for_tiles``; there is no
+tile grid, the kernels take any shape) and the routing of small payloads to a native
+host runtime or the per-file search (``DLT_DEVICE_MIN_BYTES``,
+``DLT_MEDIUM_BATCH_NATIVE``, the host pool of the load path: every payload is
+batched, which gives the same bytes).
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from ..settings import (
     BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, RGB_FAST_CANDIDATES,
     Bc4TransformSettings, Bc5TransformSettings,
 )
-from . import sharded
+from . import mesh as mesh_lib, sharded
 
 
 @dataclass
@@ -192,24 +195,27 @@ class BatchProcessor:
 
     Without an ``estimator`` the device scores every candidate under LTU and keeps
     the argmin; with one (a host estimator such as ``ZstdEstimation(1)``) the device
-    builds every candidate's region row and the host scores them. ``timing`` keeps
-    each stage's seconds in :attr:`times` (and serializes the batches)."""
+    builds every candidate's region row and the host scores them. With a ``mesh``
+    the steps run sharded over it, each batch uploaded to ``mesh.home``. ``timing``
+    keeps each stage's seconds in :attr:`times` (and serializes the batches)."""
 
     def __init__(self, fmt: str, mesh=None, candidates=None, max_batch: int = 64,
                  estimator=None, device: Union[str, torch.device] = "cuda",
                  timing: bool = False):
-        sharded.check_mesh(mesh)
         cfg = _FORMATS[fmt]
         self.cfg = cfg
         self.fmt = fmt
+        self.mesh = None if mesh is None else mesh_lib.require(mesh)
         self.candidates = tuple(candidates if candidates is not None
                                 else cfg["candidates"])
         self._cand_key = tuple(cfg["key"](c) for c in self.candidates)
         self.max_batch = max_batch
         self.estimator = estimator
-        self.device = backend.resolve_device(device)
+        self.device = mesh.home if mesh is not None else backend.resolve_device(device)
         if estimator is not None:
-            self._step = sharded.auto_step_batched_regions(fmt, self._cand_key)
+            self._step = sharded.auto_step_batched_regions(fmt, self._cand_key, mesh)
+        elif mesh is not None:
+            self._step = sharded.auto_step(fmt, mesh, self._cand_key, DEFAULT_OFFSETS)
         else:
             self._step = sharded.auto_step_batched(fmt, self._cand_key, DEFAULT_OFFSETS)
         self.times = StageTimes(self.device, timing)
@@ -217,8 +223,11 @@ class BatchProcessor:
         self.batches = 0
 
     def _prepare_batches(self, payloads: Sequence[bytes], order):
-        """Bucket payloads into (chunk, host flats, valid lengths) batches."""
+        """Bucket payloads into (chunk, host flats, valid lengths) batches; under a
+        mesh a batch is padded to a multiple of the files axis with copies of its
+        last file."""
         bs, wpb = self.cfg["block_size"], self.cfg["words"]
+        files = 1 if self.mesh is None else self.mesh.shape["files"]
         by_bucket: dict = {}
         for i, data in enumerate(payloads):
             if len(data) % bs:
@@ -232,8 +241,9 @@ class BatchProcessor:
         for bucket, indices in sorted(by_bucket.items()):
             for start in range(0, len(indices), self.max_batch):
                 chunk = indices[start:start + self.max_batch]
+                padded = -(-len(chunk) // files) * files
                 with self.times("assemble"):
-                    flats = backend.host_buffer((len(chunk), wpb * bucket), torch.int32,
+                    flats = backend.host_buffer((padded, wpb * bucket), torch.int32,
                                                 self.device)
                     host = flats.numpy().view(np.uint32)
                     valid = []
@@ -242,6 +252,8 @@ class BatchProcessor:
                         host[row, :len(w)] = w
                         host[row, len(w):] = 0
                         valid.append(4 * (len(w) // wpb))
+                    host[len(chunk):] = host[len(chunk) - 1]
+                    valid += valid[-1:] * (padded - len(chunk))
                 yield chunk, flats, valid
 
     def _launch(self, flats: torch.Tensor, valid: list) -> backend.Download:

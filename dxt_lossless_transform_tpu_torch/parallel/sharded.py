@@ -1,18 +1,21 @@
-"""Batched auto-search steps of the corpus pipeline (BC1-BC5), on one device.
+"""Batched auto-search steps of the corpus pipeline (BC1-BC5), on one device or
+sharded over a mesh.
 
-Counterpart of the single-device parts of
-``dxt_lossless_transform_tpu/parallel/sharded.py``: ``auto_step_batched`` (:855),
-``auto_step_batched_regions`` (:833), ``_bc{1..5}_batched_impl`` (:542-687),
-``_bc{1..5}_batched_regions_impl`` (:725-830), ``_colour_rows_batched`` (:500) and
-``bc{1..5}_auto_step_single`` (:262-415, :689-714). A batch is a (B, W) int32
-tensor of B files' block words, each file padded with zeros to the batch's bucket
-of ``W / words per block`` blocks, and a (B,) list of valid lengths, ``4 n_b`` for a
-file of ``n_b`` blocks (its colour region's bytes), as in the JAX package. Each step
-returns what the JAX step returns, as tensors on the batch's device: the winner's
-lanes, maximally split, and the winning candidate of each file (``best``); the
-host-scored steps return every candidate's estimation-region row instead.
+Counterpart of ``dxt_lossless_transform_tpu/parallel/sharded.py``: ``auto_step_batched``
+(:855), ``auto_step_batched_regions`` (:833), ``_bc{1..5}_batched_impl`` (:542-687),
+``_bc{1..5}_batched_regions_impl`` (:725-830), ``_colour_rows_batched`` (:500),
+``bc{1..5}_auto_step_single`` (:262-415, :689-714), and under a mesh
+``bc{1..5}_auto_step`` (:871-913), ``_scores_flat_shardmap`` (:427-473),
+``_mesh_words_call`` (:190-227), ``modesort_transform_step`` (:931) and
+``untransform_step`` (:949). A batch is a (B, W) int32 tensor of B files' block
+words, each file padded with zeros to the batch's bucket of ``W / words per block``
+blocks, and a (B,) list of valid lengths, ``4 n_b`` for a file of ``n_b`` blocks (its
+colour region's bytes), as in the JAX package. Each step returns what the JAX step
+returns, as tensors on the batch's device (under a mesh, on ``mesh.home``): the
+winner's lanes, maximally split, and the winning candidate of each file (``best``);
+the host-scored steps return every candidate's estimation-region row instead.
 
-On the device each batch step runs:
+On one device each batch step runs:
 
 1. ``deinterleave_words`` (``dlt_deinterleave_words``) on the whole flat batch;
 2. the format's region kernel (``dlt_bc{1,2,3}_regions``) on the whole flat batch;
@@ -32,10 +35,12 @@ past its valid length is never read. BC3 scores its alpha rows (``2 n_b`` valid)
 and its colour rows (``4 n_b``) in the one call, BC5 its red and green endpoint rows
 (summed per candidate, as the JAX batch step does).
 
-Left out, for the multi-device layer: every step under a mesh
-(``bc{1..5}_auto_step``, ``_scores_flat_shardmap``, ``_mesh_words_call``,
-``modesort_transform_step``, ``untransform_step``). There is no words-path gate:
-the kernels take any shape.
+Under a mesh (:mod:`.mesh`) the same steps run per shard and the scorer counts each
+shard's chunk of the rows with its halos (``dlt_ltu_counts_windowed``); see the
+section below. JAX's gates that send other shapes to a GSPMD XLA path have no
+counterpart: the kernels take any shape, so a mesh step always runs the windowed
+kernel, also on chunks shorter than its halo and buckets that the blocks axis does
+not divide.
 """
 
 from __future__ import annotations
@@ -44,7 +49,12 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..estimate.ltu import DEFAULT_OFFSETS, coverage_scores
+from ..estimate.cuda_ltu import SPAN, ltu_counts_windowed
+from ..estimate.gtable import ENTROPY_CAP
+from ..estimate.ltu import (
+    DEFAULT_OFFSETS, WEIGHT_SCALE, coverage_scores, entropy_from_histograms,
+    offset_weight, prefix_histograms, prefix_lengths,
+)
 from ..ops import lanes, ycocg
 from ..ops.auto import distinct
 from ..ops.cuda import regions as cuda_regions
@@ -53,6 +63,7 @@ from ..settings import (
     BC1_FAST_CANDIDATES, BC2_FAST_CANDIDATES, BC3_FAST_CANDIDATES,
     Bc4TransformSettings, Bc5TransformSettings,
 )
+from . import mesh as mesh_lib
 
 _BC1_CANDIDATES: Tuple[Tuple[int, bool], ...] = tuple(
     (int(c.decorrelation_mode), c.split_colour_endpoints) for c in BC1_FAST_CANDIDATES)
@@ -115,15 +126,21 @@ def _colour_rows_batched(flats, ns, candidates, wpb: int, region_fn):
     return aux, rows, index
 
 
-def _pick_and_decorrelate(colors, candidates, scores):
-    """(B, C) scores -> (d0, d1, best): each file's first best candidate and its
-    colour halves decorrelated with that candidate's variant."""
-    best = torch.argmin(scores, dim=1)
+def _decorrelate(colors, candidates, best):
+    """(d0, d1): each file's colour halves decorrelated with the variant of its
+    candidate ``best`` (on ``colors``' device)."""
     choices = [c[0] for c in candidates]
     variants = torch.tensor(choices).to(colors.device, non_blocking=True)[best]
     c0, c1 = lanes.split_u32(colors)
     return (ycocg.decorrelate_rows(c0, variants, choices),
-            ycocg.decorrelate_rows(c1, variants, choices), best)
+            ycocg.decorrelate_rows(c1, variants, choices))
+
+
+def _pick_and_decorrelate(colors, candidates, scores):
+    """(B, C) scores -> (d0, d1, best): each file's first best candidate and its
+    colour halves decorrelated with that candidate's variant."""
+    best = torch.argmin(scores, dim=1)
+    return (*_decorrelate(colors, candidates, best), best)
 
 
 def _bc1_batched_impl(flats, valid_lens, candidates=_BC1_CANDIDATES,
@@ -340,14 +357,6 @@ _BATCHED_REGIONS_IMPLS = {"bc1": _bc1_batched_regions_impl,
                           "bc5": _bc5_batched_regions_impl}
 
 
-def check_mesh(mesh) -> None:
-    """The multi-device layer is not ported: any mesh but None raises."""
-    if mesh is not None:
-        from ..errors import MultiDeviceNotPortedError
-
-        raise MultiDeviceNotPortedError()
-
-
 def auto_step_batched(fmt: str, candidates, offsets=DEFAULT_OFFSETS):
     """The device-scored batch step ``step(flats, valid_lens)`` of ``fmt`` (full and
     ragged batches alike: the JAX step's ``full`` shortcut has no counterpart)."""
@@ -357,8 +366,10 @@ def auto_step_batched(fmt: str, candidates, offsets=DEFAULT_OFFSETS):
 
 def auto_step_batched_regions(fmt: str, candidates, mesh=None):
     """The host-scored batch step ``step(flats, valid_lens)`` of ``fmt``: lanes and
-    per-candidate region rows, no argmin."""
-    check_mesh(mesh)
+    per-candidate region rows, no argmin; under a ``mesh``, the words sharded over
+    it (:func:`_mesh_regions_step`)."""
+    if mesh is not None:
+        return _mesh_regions_step(fmt, mesh, candidates)
     impl = _BATCHED_REGIONS_IMPLS[fmt]
     return lambda flats, valid_lens: impl(flats, valid_lens, tuple(candidates))
 
@@ -375,3 +386,479 @@ def modesort_step_single(flat: torch.Tensor, valid_len=None, fmt: str = "bc7") -
                                True, True)
     msl = planes.mode_stream_len(n)
     return out[msl:].view(16, n), out[:msl]
+
+
+# --- under a mesh ---------------------------------------------------------------------
+# Position (f, s) of a (files, blocks) mesh holds the words of files f·Bl .. (f+1)·Bl
+# (Bl = B / files) and blocks s·bc .. (s+1)·bc of each (bc = the bucket / blocks; a
+# bucket that the blocks axis does not divide is padded with zero blocks, which no
+# valid length reaches). The transform is per block, so each shard runs the
+# deinterleave and the format's region kernel on its own words (JAX
+# ``_mesh_words_call``, :190-227). A scored row is the concatenation of lane parts:
+# one part of u bytes a block, or a split candidate's low then high lanes, the high
+# ones at byte u·n_b of the file's row (:func:`_put_split`). The scorer cuts each
+# file's rows into the blocks axis's chunks: the first part of every row moves for
+# all files at once, the later parts file by file, since they start at the file's
+# own n_b; then each chunk gets its halos, SPAN bytes of its neighbours (all of them
+# where a chunk is shorter than SPAN; zeros before the row's start). Each position
+# launches ``dlt_ltu_counts_windowed`` once over all its rows of a width, and the
+# partial counts and the partial byte histograms of the rows' first ENTROPY_CAP bytes
+# are summed over the positions onto ``mesh.home`` (one ``all_reduce`` across ranks):
+# JAX's halo ``ppermute`` and ``psum`` (:427-473). Every output is gathered onto
+# ``mesh.home``, whole, as ``jax.device_get`` of the global arrays gives it.
+
+def _pieces(lo: int, hi: int, width: int):
+    """[lo, hi) cut at the multiples of ``width``."""
+    while lo < hi:
+        end = min(hi, (lo // width + 1) * width)
+        yield lo, end
+        lo = end
+
+
+def _move(src, src_of, src_index, dst, dst_of, dst_index):
+    return (src, lambda: src_of(src)[src_index], dst, lambda: dst_of(dst)[dst_index])
+
+
+def _split_rows(region: torch.Tensor, splits, bl: int, u: int) -> tuple:
+    """A region kernel's (K, Bl·u·bc) output -> (row blocks, key of each row): key c's
+    row of a file is its u bytes a block, or when split (``splits[c]``) its low then
+    its high u/2-byte lanes, each laid over all Bl files in turn. A row block is a
+    list of lane parts, each (Bl, X, lane·bc) bytes with its lane width."""
+    region = region.view(len(splits), -1)
+    plain = [c for c, split in enumerate(splits) if not split]
+    halved = [c for c, split in enumerate(splits) if split]
+    blocks = []
+    if plain:
+        blocks.append([(region[plain].view(len(plain), bl, -1).transpose(0, 1), u)])
+    if halved:
+        halves = region[halved].view(len(halved), 2, bl, -1)
+        blocks.append([(halves[:, 0].transpose(0, 1), u // 2),
+                       (halves[:, 1].transpose(0, 1), u // 2)])
+    return blocks, plain + halved
+
+
+def _ep_region(ep: torch.Tensor, keys) -> torch.Tensor:
+    """BC4/BC5 endpoint region (K, Bl·2·bc) of the u16 endpoint lane ``ep`` (Bl, bc):
+    a split key's a0 bytes of all Bl files then their a1 bytes, else the u16 values
+    as they lie (:func:`_ep_rows` on one shard)."""
+    out = torch.empty((len(keys), 2 * ep.numel()), dtype=torch.uint8, device=ep.device)
+    for c, split in enumerate(keys):
+        if split:
+            out[c] = torch.stack([ep & 0xFF, ep >> 8]).to(torch.uint8).reshape(-1)
+        else:
+            out[c] = ep.to(torch.int16).view(torch.uint8).reshape(-1)
+    return out
+
+
+class _Shards:
+    """A (B, W) batch's words cut over a mesh, and the moves of its rows."""
+
+    def __init__(self, mesh, flats: torch.Tensor, ns: Sequence[int], wpb: int):
+        self.mesh = mesh_lib.require(mesh)
+        self.nf, self.nb = mesh.shape["files"], mesh.shape["blocks"]
+        B, W = flats.shape
+        if B % self.nf:
+            raise ValueError(f"a batch of {B} files does not divide over the files "
+                             f"axis of {self.nf}")
+        self.bl, self.n_blocks = B // self.nf, W // wpb
+        self.bc = -(-self.n_blocks // self.nb)
+        if self.nb * self.bc > self.n_blocks:
+            flats = torch.cat([flats, flats.new_zeros(
+                (B, wpb * (self.nb * self.bc - self.n_blocks)))], dim=1)
+        self.ns = list(ns)  # each file's block count
+        w = wpb * self.bc
+        self.words = {(f, s): flats[f * self.bl:(f + 1) * self.bl, s * w:(s + 1) * w]
+                      .contiguous().to(mesh.devices[f, s]) for f, s in mesh.positions}
+
+    def files_of(self, t: torch.Tensor, pos) -> torch.Tensor:
+        """The rows of ``t`` (B, ...) that position ``pos`` holds, on its device."""
+        f = pos[0]
+        return t[f * self.bl:(f + 1) * self.bl].to(self.mesh.devices[pos])
+
+    def gather(self, shards: dict) -> torch.Tensor:
+        """(Bl, bc) lanes of every position -> the (B, blocks) lanes on home."""
+        return self.mesh.gather(shards, 1)[:, :self.n_blocks]
+
+    def chunk_moves(self, blocks: dict, target) -> tuple:
+        """The moves that write chunk s of every file's rows, the concatenation of
+        the lane parts of ``blocks`` (per position, a list of row blocks), into
+        ``target(pos)`` (Bl, X, U·bc): (the first parts' moves, the later parts')."""
+        bc, nb, bl = self.bc, self.nb, self.bl
+        some = blocks[self.mesh.positions[0]]
+        width = sum(u for _, u in some[0]) * bc
+        first, later = [], []
+        r0 = 0
+        for j, parts in enumerate(some):
+            rows = slice(r0, r0 + parts[0][0].shape[1])
+            r0 = rows.stop
+            for i, (_, u) in enumerate(parts):
+                part_of = (lambda pos, j=j, i=i: blocks[pos][j][i][0])
+                if i == 0:
+                    # every file's bytes [0, u·nb·bc) of the row, at once
+                    for f in range(self.nf):
+                        for s_src in range(nb):
+                            base = s_src * u * bc
+                            for lo, hi in _pieces(base, base + u * bc, width):
+                                s_dst = lo // width
+                                first.append(_move(
+                                    (f, s_src), part_of,
+                                    (slice(None), slice(None), slice(lo - base, hi - base)),
+                                    (f, s_dst), target,
+                                    (slice(None), rows,
+                                     slice(lo - s_dst * width, hi - s_dst * width))))
+                    continue
+                for b, n in enumerate(self.ns):
+                    f, lb = divmod(b, bl)
+                    start = sum(p[1] for p in parts[:i]) * n  # the part's start in the row
+                    for s_src in range(nb):
+                        base, end = s_src * u * bc, min((s_src + 1) * u * bc, u * n)
+                        if base >= end:
+                            break
+                        for lo, hi in _pieces(start + base, start + end, width):
+                            s_dst = lo // width
+                            later.append(_move(
+                                (f, s_src), part_of,
+                                (lb, slice(None), slice(lo - start - base, hi - start - base)),
+                                (f, s_dst), target,
+                                (lb, rows, slice(lo - s_dst * width, hi - s_dst * width))))
+        return first, later
+
+    def halo_moves(self, windows, width: int) -> list:
+        """The moves that fill each window's SPAN-byte halos from the chunks (the
+        window's middles) of the other positions of its files-row."""
+        moves, total = [], self.nb * width
+        for f in range(self.nf):
+            for s in range(self.nb):
+                start, end = s * width, (s + 1) * width
+                for lo, hi, at in ((max(0, start - SPAN), start, SPAN - start),
+                                   (end, min(end + SPAN, total), SPAN + width - end)):
+                    for a, b in _pieces(lo, hi, width):
+                        s_src = a // width
+                        moves.append(_move(
+                            (f, s_src), windows,
+                            (Ellipsis, slice(SPAN + a - s_src * width, SPAN + b - s_src * width)),
+                            (f, s), windows, (Ellipsis, slice(at + a, at + b))))
+        return moves
+
+    def rows(self, group) -> torch.Tensor:
+        """A row group's whole rows, (B, labels, U·blocks) on home, by label (the
+        host-scored steps' region rows)."""
+        blocks, labels = group
+        mesh, some = self.mesh, next(iter(blocks.values()))
+        per_block = sum(u for _, u in some[0])
+        chunks = {pos: torch.zeros((self.bl, len(labels), per_block * self.bc),
+                                   dtype=torch.uint8, device=mesh.devices[pos])
+                  for pos in mesh.positions}
+        for moves in self.chunk_moves(blocks, chunks.__getitem__):
+            mesh.run(moves)
+        rows = mesh.gather(chunks, 2)[:, :, :per_block * self.n_blocks]
+        return rows[:, [labels.index(c) for c in range(len(labels))]]
+
+    def scores(self, group, offsets) -> torch.Tensor:
+        """A row group's (B, labels) exact scores on home, by label: each position's
+        windows through ``dlt_ltu_counts_windowed``, the partial counts and prefix
+        histograms summed over the mesh."""
+        blocks, labels = group
+        mesh, some = self.mesh, next(iter(blocks.values()))
+        per_block = sum(u for _, u in some[0])
+        width, x = per_block * self.bc, len(labels)
+        windows = {pos: torch.zeros((self.bl, x, SPAN + width + SPAN), dtype=torch.uint8,
+                                    device=mesh.devices[pos]) for pos in mesh.positions}
+        first, later = self.chunk_moves(
+            blocks, lambda pos: windows[pos][:, :, SPAN:SPAN + width])
+        mesh.run(first)
+        mesh.run(later)
+        mesh.run(self.halo_moves(windows.__getitem__, width))
+        valid = torch.tensor([per_block * n for n in self.ns], dtype=torch.int64)
+        ks = sorted(set(int(k) for k in offsets))
+        ws = [offset_weight(k) for k in ks]
+        parts = {}
+        for (f, s), win in windows.items():
+            rows = win.view(self.bl * x, -1)
+            v = valid[f * self.bl:(f + 1) * self.bl].repeat_interleave(x)
+            counts = ltu_counts_windowed(rows, v, s * width - SPAN, ks, ws)
+            hist = prefix_histograms(rows[:, SPAN:SPAN + width],
+                                     prefix_lengths(v, rows.device), ENTROPY_CAP,
+                                     start=s * width)
+            parts[f, s] = torch.cat([counts[:, None], hist], dim=1)
+        total = mesh.sum_files(parts).view(-1, 257)
+        v = valid.repeat_interleave(x).to(mesh.home, non_blocking=True)
+        scores = (WEIGHT_SCALE * v - total[:, 0]
+                  + entropy_from_histograms(total[:, 1:], prefix_lengths(v, mesh.home)))
+        return scores.view(-1, x)[:, [labels.index(c) for c in range(x)]]
+
+
+def _splits(keys) -> list:
+    return [split for _, split in keys]
+
+
+def _colour_local(fmt: str, wpb: int):
+    """BC1/BC2 shard: (its lanes, [the colour rows of the distinct keys])."""
+    def local(x, bl, keys):
+        aux = _words(x, wpb)
+        region = getattr(cuda_regions, f"{fmt}_regions")(x.view(torch.uint8).reshape(-1),
+                                                         keys[0])
+        return aux, [_split_rows(region, _splits(keys[0]), bl, 4)]
+    return local
+
+
+def _bc3_local(x, bl, keys):
+    alpha_keys, colour_keys = keys[:2]
+    alpha, colour = cuda_regions.bc3_regions(x.view(torch.uint8).reshape(-1), alpha_keys,
+                                             colour_keys)
+    return _words(x, 4), [_split_rows(alpha, alpha_keys, bl, 2),
+                          _split_rows(colour, _splits(colour_keys), bl, 4)]
+
+
+def _bc4_local(x, bl, keys):
+    out = _bc4_lanes(x)
+    return out, [_split_rows(_ep_region(out[0], keys[0]), keys[0], bl, 2)]
+
+
+def _bc5_local(x, bl, keys):
+    """The red then the green endpoint rows, in one group: labels K.. are green."""
+    out = _bc5_lanes(x)
+    red, red_order = _split_rows(_ep_region(out[0], keys[0]), keys[0], bl, 2)
+    green, green_order = _split_rows(_ep_region(out[1], keys[0]), keys[0], bl, 2)
+    k = len(keys[0])
+    return out, [(red + green, red_order + [k + c for c in green_order])]
+
+
+def _with_colours(lead: int):
+    """BC1-BC3 outputs: the lanes with the colours (lane ``lead``) replaced by the
+    winner's d0 and d1."""
+    def finish(out, candidates, best):
+        d0, d1 = _decorrelate(out[lead], candidates, best)
+        return (*out[:lead], d0, d1, *out[lead + 1:])
+    return finish
+
+
+def _bc3_finish(out, candidates, best):
+    w0, w1, colors, cidx = out
+    ep, h1 = lanes.split_u32(w0)
+    h2, h3 = lanes.split_u32(w1)
+    return (ep, h1, h2, h3, *_decorrelate(colors, candidates, best), cidx)
+
+
+def _bc3_aux(out):
+    w0, w1, _, cidx = out
+    _, h1 = lanes.split_u32(w0)
+    h2, h3 = lanes.split_u32(w1)
+    return h1, h2, h3, cidx
+
+
+def _bc5_pick(scores, keys):
+    k = len(keys[0])
+    return (scores[0][:, :k] + scores[0][:, k:])[:, keys[1]]
+
+
+def _distinct_splits(candidates) -> tuple:
+    return distinct([split for split, in candidates])
+
+
+# per format: words per block, the candidates' keys, a shard's lanes and row groups,
+# the candidate scores from the groups' scores, the outputs of a shard with its files'
+# winners; host-scored: which lanes go back, and the region rows from the groups' rows
+_MESH_FORMATS = {
+    "bc1": dict(words=2, keys=distinct, local=_colour_local("bc1", 2),
+                pick=lambda sc, keys: sc[0][:, keys[1]], finish=_with_colours(0),
+                aux=lambda out: out[1:],
+                rows=lambda rows, keys: [_per_candidate(rows[0], keys[1])]),
+    "bc2": dict(words=4, keys=distinct, local=_colour_local("bc2", 4),
+                pick=lambda sc, keys: sc[0][:, keys[1]], finish=_with_colours(2),
+                aux=lambda out: (out[0], out[1], out[3]),
+                rows=lambda rows, keys: [_per_candidate(rows[0], keys[1])]),
+    "bc3": dict(words=4, keys=_bc3_keys, local=_bc3_local,
+                pick=lambda sc, keys: sc[0][:, keys[2]] + sc[1][:, keys[3]],
+                finish=_bc3_finish,
+                aux=_bc3_aux,
+                rows=lambda rows, keys: rows),
+    "bc4": dict(words=2, keys=_distinct_splits, local=_bc4_local,
+                pick=lambda sc, keys: sc[0][:, keys[1]],
+                finish=lambda out, candidates, best: out, aux=lambda out: out[1:],
+                rows=lambda rows, keys: [_per_candidate(rows[0], keys[1])]),
+    "bc5": dict(words=4, keys=_distinct_splits, local=_bc5_local, pick=_bc5_pick,
+                finish=lambda out, candidates, best: out, aux=lambda out: out[2:],
+                rows=lambda rows, keys: [
+                    _per_candidate(rows[0][:, :len(keys[0])], keys[1]),
+                    _per_candidate(rows[0][:, len(keys[0]):], keys[1])]),
+}
+
+
+def _mesh_local(sh: _Shards, spec, keys) -> tuple:
+    """Each position's lanes, and the row groups: [(row blocks by position, labels)]."""
+    out = {pos: spec["local"](x, sh.bl, keys) for pos, x in sh.words.items()}
+    some = next(iter(out.values()))[1]
+    return ({pos: o[0] for pos, o in out.items()},
+            [({pos: o[1][g][0] for pos, o in out.items()}, labels)
+             for g, (_, labels) in enumerate(some)])
+
+
+def auto_step(fmt: str, mesh, candidates, offsets=DEFAULT_OFFSETS):
+    """The device-scored batch step ``step(flats, valid_lens)`` of ``fmt`` under a
+    mesh: what :func:`auto_step_batched` returns, as tensors on ``mesh.home``. The
+    batch's file count must be a multiple of the files axis."""
+    mesh_lib.require(mesh)
+    spec, candidates = _MESH_FORMATS[fmt], tuple(candidates)
+
+    def step(flats, valid_lens):
+        sh = _Shards(mesh, flats, _blocks(valid_lens), spec["words"])
+        keys = spec["keys"](candidates)
+        lanes_of, groups = _mesh_local(sh, spec, keys)
+        scores = spec["pick"]([sh.scores(group, offsets) for group in groups], keys)
+        best = torch.argmin(scores, dim=1)
+        outs = {pos: spec["finish"](out, candidates, sh.files_of(best, pos))
+                for pos, out in lanes_of.items()}
+        width = len(next(iter(outs.values())))
+        return (*(sh.gather({pos: out[i] for pos, out in outs.items()})
+                  for i in range(width)), best)
+
+    return step
+
+
+def _mesh_regions_step(fmt: str, mesh, candidates):
+    """The host-scored batch step of ``fmt`` under a mesh: what
+    :func:`auto_step_batched_regions` returns without one, on ``mesh.home``."""
+    mesh_lib.require(mesh)
+    spec, candidates = _MESH_FORMATS[fmt], tuple(candidates)
+
+    def step(flats, valid_lens):
+        sh = _Shards(mesh, flats, _blocks(valid_lens), spec["words"])
+        keys = spec["keys"](candidates)
+        lanes_of, groups = _mesh_local(sh, spec, keys)
+        aux = {pos: spec["aux"](out) for pos, out in lanes_of.items()}
+        width = len(next(iter(aux.values())))
+        return (*(sh.gather({pos: out[i] for pos, out in aux.items()})
+                  for i in range(width)),
+                *spec["rows"]([sh.rows(group) for group in groups], keys))
+
+    return step
+
+
+def bc1_auto_step(mesh, candidates=_BC1_CANDIDATES, offsets=DEFAULT_OFFSETS):
+    """Batched and sharded BC1 step: (B, 2N) words -> c0, c1, indices, best (B,)."""
+    return auto_step("bc1", mesh, candidates, offsets)
+
+
+def bc2_auto_step(mesh, candidates=_BC2_CANDIDATES, offsets=DEFAULT_OFFSETS):
+    """Batched and sharded BC2 step: (B, 4N) words -> 5 lanes and best (B,)."""
+    return auto_step("bc2", mesh, candidates, offsets)
+
+
+def bc3_auto_step(mesh, candidates=_BC3_CANDIDATES, offsets=DEFAULT_OFFSETS):
+    """Batched and sharded BC3 step: (B, 4N) words -> 7 lanes and best (B,)."""
+    return auto_step("bc3", mesh, candidates, offsets)
+
+
+def bc4_auto_step(mesh, candidates=_BC4_CANDIDATES, offsets=DEFAULT_OFFSETS):
+    """Batched and sharded BC4 step: (B, 2N) words -> 4 lanes and best (B,)."""
+    return auto_step("bc4", mesh, candidates, offsets)
+
+
+def bc5_auto_step(mesh, candidates=_BC5_CANDIDATES, offsets=DEFAULT_OFFSETS):
+    """Batched and sharded BC5 step: (B, 4N) words -> 8 lanes and best (B,)."""
+    return auto_step("bc5", mesh, candidates, offsets)
+
+
+# --- BC7/BC6H mode sort and the load path, under a mesh -------------------------------
+
+def modesort_transform_step(mesh, fmt: str = "bc7"):
+    """Batched and sharded BC7/BC6H step (JAX ``sharded.py:931``): (B, 4·Np) block
+    words and (B,) valid block counts -> ((B, 16, Np) byte planes, (B, Np/2) mode
+    streams) of sort+planes, on ``mesh.home``. Np must be a multiple of 4096 times the
+    blocks axis, so that every 4096-block sort chunk lies in one shard: each position
+    sorts the valid blocks of each of its files by one ``dlt_bc7_transform`` launch.
+    A file's blocks past its valid count keep their order after the sorted ones (one
+    planes-only launch), and their mode nibbles are 0, as JAX's padding."""
+    from ..ops.cuda import planes
+
+    mesh_lib.require(mesh)
+    if fmt not in ("bc7", "bc6h"):
+        raise ValueError(f"mode sort is for bc7/bc6h, not {fmt}")
+    fmt_id = planes.BC7 if fmt == "bc7" else planes.BC6H
+    nb = mesh.shape["blocks"]
+
+    def step(flat, valid_len):
+        n_pad = flat.shape[1] // 4
+        if n_pad % (planes.SORT_CHUNK_BLOCKS * nb):
+            raise ValueError(f"{n_pad} blocks a file are no multiple of "
+                             f"{planes.SORT_CHUNK_BLOCKS} x the blocks axis ({nb})")
+        sh = _Shards(mesh, flat, [int(v) for v in valid_len], 4)
+        bl, npl = sh.bl, sh.bc
+        plane_shards, mode_shards = {}, {}
+        for (f, s), x in sh.words.items():
+            x = x.view(torch.uint8).reshape(bl, 16 * npl)
+            ps = torch.empty((bl, 16, npl), dtype=torch.uint8, device=x.device)
+            ms = torch.zeros((bl, npl // 2), dtype=torch.uint8, device=x.device)
+            for lb in range(bl):
+                v = min(max(sh.ns[f * bl + lb] - s * npl, 0), npl)
+                if v:
+                    out = planes.bc7_transform(x[lb, :16 * v], fmt_id, True, True)
+                    msl = planes.mode_stream_len(v)
+                    ms[lb, :msl] = out[:msl]
+                    ps[lb, :, :v] = out[msl:].view(16, v)
+                if v < npl:
+                    ps[lb, :, v:] = planes.bc7_transform(x[lb, 16 * v:], fmt_id, False,
+                                                         True).view(16, npl - v)
+            plane_shards[f, s], mode_shards[f, s] = ps, ms
+        return mesh.gather(plane_shards, 2), mesh.gather(mode_shards, 1)
+
+    return step
+
+
+def _untransform_kernel(fmt: str, settings):
+    """(block size, stream spec, the untransform kernel on a flat payload)."""
+    from ..ops import bc45, hostwrap
+    from ..ops.cuda import shuffle
+
+    v = int(getattr(settings, "decorrelation_mode", 0))
+    return {
+        "bc1": lambda: (8, hostwrap.bc1_stream_spec(settings), lambda x: shuffle.bc1_untransform(
+            x, v, settings.split_colour_endpoints)),
+        "bc2": lambda: (16, hostwrap.bc2_stream_spec(settings), lambda x: shuffle.bc2_untransform(
+            x, v, settings.split_colour_endpoints)),
+        "bc3": lambda: (16, hostwrap.bc3_stream_spec(settings), lambda x: shuffle.bc3_untransform(
+            x, v, settings.split_alpha_endpoints, settings.split_colour_endpoints)),
+        "bc4": lambda: (8, bc45.bc4_spec(settings.split_endpoints),
+                        lambda x: shuffle.bc4_untransform(x, settings.split_endpoints)),
+        "bc5": lambda: (16, bc45.bc5_spec(settings.split_endpoints),
+                        lambda x: shuffle.bc5_untransform(x, settings.split_endpoints)),
+    }[fmt]()
+
+
+def untransform_step(mesh, fmt: str, settings):
+    """Batched and sharded untransform step, the load path (JAX ``sharded.py:949``):
+    per-stream (B, L_s) arrays (int32 words or uint8 bytes; stream s holds its bytes
+    per block times n of each file) -> the (B, W) int32 block words, on ``mesh.home``.
+    It is per file and per block: position (f, s) lays its files' blocks s·nc ..
+    (s+1)·nc of every stream side by side, one valid transformed payload, and inverts
+    them by one launch of the format's untransform kernel (the batched load path's
+    layout). ``settings`` are the static settings of every file of the batch."""
+    mesh_lib.require(mesh)
+    block_size, spec, kernel = _untransform_kernel(fmt, settings)
+    nf, nb = mesh.shape["files"], mesh.shape["blocks"]
+
+    def step(*streams):
+        if len(streams) != len(spec):
+            raise ValueError(f"{fmt} {settings} has {len(spec)} streams, got {len(streams)}")
+        B = streams[0].shape[0]
+        rows = [st.contiguous().view(torch.uint8).reshape(B, -1) for st in streams]
+        n = rows[0].shape[1] // spec[0]
+        if B % nf or any(r.shape != (B, bpb * n) for r, bpb in zip(rows, spec)):
+            raise ValueError(f"streams of shapes {[tuple(r.shape) for r in rows]} do not "
+                             f"hold {B} files of one block count, or {B} files do not "
+                             f"divide over the files axis of {nf}")
+        if n == 0:
+            return torch.empty((B, 0), dtype=torch.int32, device=mesh.home)
+        bl, nc = B // nf, -(-n // nb)
+        rows = [torch.cat([r, r.new_zeros((B, bpb * (nb * nc - n)))], dim=1)
+                for r, bpb in zip(rows, spec)]
+        out = {}
+        for f, s in mesh.positions:
+            device = mesh.devices[f, s]
+            flat = torch.cat([r[f * bl:(f + 1) * bl, bpb * nc * s:bpb * nc * (s + 1)]
+                              .to(device).reshape(-1) for r, bpb in zip(rows, spec)])
+            out[f, s] = kernel(flat).view(bl, block_size * nc)
+        return mesh.gather(out, 1)[:, :block_size * n].contiguous().view(torch.int32)
+
+    return step

@@ -1,5 +1,6 @@
-"""The twenty CUDA kernel entry points against their plain versions, on the card,
-and the batch pipeline on the card against its plain versions on the CPU.
+"""The twenty-one CUDA kernel entry points against their plain versions, on the
+card, and the batch pipeline, on one device and under a mesh of the card repeated,
+on the card against its plain versions on the CPU.
 
 Marked ``cuda``: without a CUDA device they skip. On a machine with one (and
 without JAX, which ``tests/conftest.py`` imports):
@@ -21,7 +22,7 @@ from dxt_lossless_transform_tpu_torch.settings import (
     BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
     Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
     BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, Bc4TransformSettings,
-    Bc5TransformSettings,
+    Bc5TransformSettings, YCoCgVariant,
 )
 
 pytestmark = pytest.mark.cuda
@@ -246,10 +247,14 @@ def test_each_wrapper_counts_its_launches(cuda):
     channels.rgb_untransform(channels.rgb_transform(x[:510], *rgb_args), *rgb_args)
     planes.deinterleave_words(x.view(torch.int32), 4)
     cuda_ltu.ltu_counts(rows, torch.tensor([rows.shape[1]]), [1], [24])
+    window = torch.nn.functional.pad(rows, (cuda_ltu.SPAN, cuda_ltu.SPAN))
+    cuda_ltu.ltu_counts_windowed(window, torch.tensor([rows.shape[1]]), -cuda_ltu.SPAN,
+                                 [1], [24])
     torch.cuda.synchronize()
     assert backend.LAUNCHES == {"dlt_bc1_transform": 1, "dlt_bc1_untransform": 1,
                                 "dlt_bc1_regions": 1, "dlt_ltu_counts": 1,
-                                "dlt_ltu_counts_rows": 1, "dlt_deinterleave_words": 1,
+                                "dlt_ltu_counts_rows": 1, "dlt_ltu_counts_windowed": 1,
+                                "dlt_deinterleave_words": 1,
                                 "dlt_bc3_transform": 1, "dlt_bc3_untransform": 1,
                                 "dlt_bc3_regions": 1, "dlt_bc2_transform": 1,
                                 "dlt_bc2_untransform": 1, "dlt_bc2_regions": 1,
@@ -582,3 +587,96 @@ def test_mode_sort_and_rgb_batches_on_the_card(cuda, fmt):
         [(r.transformed, r.settings) for r in make("cpu").process(data)]
     assert UntransformBatchProcessor(fmt).process(
         [(r.transformed, r.settings) for r in got]) == data
+
+
+# the windowed count's ladders: offsets up to its SPAN-byte halo, beyond the near
+# kernel's 4096 bytes, and 40 offsets (the far instantiation)
+WINDOW_LADDERS = {"default": tuple(sorted(DEFAULT_OFFSETS)),
+                  "far": (1, 2, 4096, 4097, 8192, cuda_ltu.SPAN),
+                  "ladder40": LADDER_40[:-1] + (cuda_ltu.SPAN,)}
+
+
+@pytest.mark.parametrize("ladder", list(WINDOW_LADDERS))
+@pytest.mark.parametrize("nb,chunk", [(1, 70_001), (2, 40_000), (8, 1024), (8, 9_999)])
+def test_windowed_counts_kernel(cuda, nb, chunk, ladder):
+    """Each shard's window on the card against the plain version, and the shards'
+    sum against the per-row kernel on the uncut rows; chunks shorter and longer than
+    the halo, ragged valid lengths (0-3 among them)."""
+    span = cuda_ltu.SPAN
+    offsets = WINDOW_LADDERS[ladder]
+    ws = [offset_weight(k) for k in offsets]
+    length = nb * chunk
+    rng = np.random.default_rng(nb * chunk)
+    rows = torch.from_numpy(rng.integers(0, 3, (6, length), np.uint8)).to(cuda)
+    valid = torch.tensor([length, length - 77, 0, 3, 5, length // 2])
+    padded = torch.nn.functional.pad(rows, (span, span))
+    backend.reset_launch_counts()
+    total = torch.zeros(rows.shape[0], dtype=torch.int64, device=cuda)
+    for s in range(nb):
+        window = padded[:, s * chunk:(s + 1) * chunk + 2 * span].contiguous()
+        got = cuda_ltu.ltu_counts_windowed(window, valid, s * chunk - span, offsets, ws)
+        want = cuda_ltu.ltu_counts_windowed_plain(window, valid, s * chunk - span,
+                                                  offsets, ws)
+        assert torch.equal(got, want), s
+        total += got
+    assert backend.LAUNCHES["dlt_ltu_counts_windowed"] == nb
+    assert torch.equal(total, cuda_ltu.ltu_counts(rows, valid, offsets, ws))
+
+
+@pytest.mark.parametrize("fmt", ["bc1", "bc2", "bc3", "bc4", "bc5"])
+def test_batch_pipeline_under_a_mesh_on_the_card(cuda, fmt):
+    """``BatchProcessor`` under a (1, 8) and a (3, 2) mesh of the card repeated, in
+    both modes, equals the processor on one device; the LTU path launches the
+    windowed count kernel and not the per-row one."""
+    from dxt_lossless_transform_tpu_torch.estimate.zstd import ZstdEstimation
+    from dxt_lossless_transform_tpu_torch.parallel import BatchProcessor, make_mesh
+    from dxt_lossless_transform_tpu_torch.utils import testgen
+
+    size = 8 if fmt in ("bc1", "bc4") else 16
+    gen = {"bc1": testgen.bc1_realistic, "bc2": testgen.bc2_realistic,
+           "bc3": testgen.bc3_realistic}.get(fmt)
+    data = [gen(n, n) if gen else testgen.bc_blocks(n, size, n)
+            for n in (64, 100, 2048, 2049, 5000, 70_001)] + [b""]
+    want = [(r.transformed, r.settings) for r in BatchProcessor(fmt, max_batch=2).process(data)]
+    for n_devices in (8, 6):
+        mesh = make_mesh(devices=[cuda] * n_devices)
+        backend.reset_launch_counts()
+        got = BatchProcessor(fmt, mesh=mesh, max_batch=2).process(data)
+        torch.cuda.synchronize()
+        assert backend.LAUNCHES["dlt_ltu_counts_windowed"] > 0
+        assert backend.LAUNCHES["dlt_ltu_counts_rows"] == 0
+        assert [(r.transformed, r.settings) for r in got] == want
+        host = BatchProcessor(fmt, mesh=mesh, max_batch=2, estimator=ZstdEstimation(1))
+        assert [(r.transformed, r.settings) for r in host.process(data)] == \
+            [(r.transformed, r.settings) for r in BatchProcessor(
+                fmt, max_batch=2, estimator=ZstdEstimation(1)).process(data)]
+
+
+def test_mode_sort_and_untransform_steps_under_a_mesh_on_the_card(cuda):
+    from dxt_lossless_transform_tpu_torch.parallel import (
+        make_mesh, modesort_transform_step, untransform_step,
+    )
+    from dxt_lossless_transform_tpu_torch.utils import testgen
+
+    n = 4096 * 8
+    words = torch.stack([torch.frombuffer(bytearray(testgen.bc7_realistic(n, b)),
+                                          dtype=torch.int32) for b in range(3)])
+    valid = [n, n - 5001, 3]
+    cpu_mesh = make_mesh(devices=[torch.device("cpu")] * 8)
+    mesh = make_mesh(devices=[cuda] * 8)
+    for fmt in ("bc7", "bc6h"):
+        got = modesort_transform_step(mesh, fmt)(words.to(cuda), valid)
+        want = modesort_transform_step(cpu_mesh, fmt)(words, valid)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    s = Bc3TransformSettings(YCoCgVariant.VARIANT1, True, True)
+    payloads = [_blocks(2049 + b, "cpu", 16) for b in range(6)]
+    streams = []
+    transformed = [shuffle.bc3_transform(p[:16 * 2049], 1, True, True) for p in payloads]
+    pos = 0
+    for bpb in (1, 1, 6, 2, 2, 4):
+        streams.append(torch.stack([t[pos * 2049:(pos + bpb) * 2049] for t in transformed]))
+        pos += bpb
+    mesh = make_mesh(devices=[cuda] * 6)
+    out = untransform_step(mesh, "bc3", s)(*[st.to(cuda) for st in streams])
+    assert torch.equal(out.cpu().view(torch.uint8),
+                       torch.stack([p[:16 * 2049] for p in payloads]))

@@ -15,7 +15,6 @@ from dxt_lossless_transform_tpu.parallel import pipeline as jax_pipeline
 from dxt_lossless_transform_tpu.parallel import sharded as jax_sharded
 from dxt_lossless_transform_tpu.utils import testgen
 from dxt_lossless_transform_tpu_torch import backend, convert
-from dxt_lossless_transform_tpu_torch.errors import MultiDeviceNotPortedError
 from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
 from dxt_lossless_transform_tpu_torch.ops import auto, bc45
 from dxt_lossless_transform_tpu_torch.parallel import (
@@ -85,7 +84,8 @@ def test_bc5_sums_red_and_green_scores_as_jax_does():
     lambda: transform_corpus_bc1([b""], mesh="mesh", device="cpu"),
 ], ids=["processor", "bc1-processor", "regions-step", "corpus"])
 def test_a_mesh_raises(make):
-    with pytest.raises(MultiDeviceNotPortedError, match="multi-device"):
+    """A mesh that is not a ``Mesh`` (``make_mesh``) raises ``TypeError``."""
+    with pytest.raises(TypeError, match="expected a Mesh"):
         make()
 
 
