@@ -17,8 +17,9 @@ Phases, each printed as a JSON line with its wall time:
 3. check: each kernel against its plain PyTorch version, both on the card, byte for
    byte and for scores as exact integers: every setting (8 for BC1 and BC2, 16 for
    BC3, 2 for BC4 and BC5), n in {1, 3, 2048, 1,398,103} blocks, the FAST and
-   COMPREHENSIVE candidate sets; the count kernel also on offsets beyond its
-   4096-byte halo, on a 40-offset ladder and on 70,000 rows (more than a launch's
+   COMPREHENSIVE candidate sets; the count (the default-ladder kernel) also on the
+   generic kernel's ladders (offsets beyond its 4096-byte halo, a 40-offset ladder,
+   the default ladder without offset 3 and its first five offsets) and on 70,000 rows (more than a launch's
    grid.y holds); inputs shorter than one block through every auto-search; the
    BC7/BC6H mode-sort kernels for all 4 settings of both formats, n in {1, 2, 3,
    4095, 4096, 4097, 1,398,103}, on realistic BC7 blocks and on random blocks with
@@ -31,18 +32,21 @@ Phases, each printed as a JSON line with its wall time:
    input through the RGB auto-search; the word deinterleave for k in {2, 4} and N in
    {1, 2, 3, 4095, 4096, 4097, 1,398,103, 2,097,152} (the largest batch's), byte for
    byte; the per-row count kernel on rows whose lengths run from 0 to the row's
-   (0-3 and odd ones included) with the default, far and 40-offset ladders, on
+   (0-3 and odd ones included) with the default, far, 40-offset,
+   default-without-3 and five-offset ladders, on
    70,000 rows at their own lengths, and against the scalar kernel where every row
    has one length; the windowed count kernel on the rows each BC1 corpus batch
    scores cut into 1, 2 and 8 shards with their 32,768-byte halos (chunks of 1 KiB to
-   2 MiB), with the default ladder, one reaching 32,768 and 40 offsets, each shard
+   2 MiB), with the default ladder, one reaching 32,768, 40 offsets, the default
+   without 3 and its first five offsets, each shard
    against the plain version and the shards' sum against the per-row kernel on the
    uncut rows; and, on each mesh of the mesh phase, every kernel call its paths make
    (the windowed count, deinterleave and region kernels on each position's shard of
    every BC1-BC5 batch, LTU and host-scored, and of the 4096x4096 BC1 and BC3
    payloads on (1, 8); the untransform kernels on each position's streams in
    ``untransform_step``; the mode-sort kernel on each file's part of a position in
-   ``modesort_transform_step``), each against its plain version on the same inputs;
+   ``modesort_transform_step``), each against its plain version on the same inputs,
+   with each windowed launch's blocks beside the blocks the card holds at once;
 4. main: the production path through the entry points a user calls, one path per
    format: a 4096x4096 DDS file of each of BC1-BC5, BC7 and BC6H, each with its full
    13-level mip chain (1,398,103 blocks; payloads of 11,184,824 bytes for BC1 and
@@ -84,7 +88,8 @@ Phases, each printed as a JSON line with its wall time:
    search's; for BC7, each file's sort+planes transform on one device), every file
    must come back, and the LTU mesh paths must launch the windowed count kernel and
    not the per-row one;
-7. times: CUDA-event medians of each kernel at the main path's shapes beside its
+7. times: CUDA-event medians of each kernel at the main path's shapes (the L2 flushed
+   by reading 64 MiB before each launch) beside its
    plain version and its bound (the mode-sort kernels in every setting, with the
    ``.t().contiguous()`` call that computes the planes-only layout; the RGB kernels
    in every setting of each layout, with the same call for the split-only layout;
@@ -93,7 +98,9 @@ Phases, each printed as a JSON line with its wall time:
    the search, the identity guard's zstd time and the RGB files' reads and writes
    shown apart; the word deinterleave at the largest batch's N beside its plain
    version and ``.t().contiguous()``, the per-row count kernel on the BC1 batch's
-   rows (and the windowed one on them cut into 8 shards), and each format's batch and
+   rows (and the windowed one on them cut into 8 shards: the sum of its 8 launches'
+   medians), the count and untransform launches' grids and the blocks the card holds
+   at once, and each format's batch and
    batched load path against a loop of the per-file entry points, in files/s and
    MB/s, with host assembly, H2D, kernels, D2H and serialization apart; each mesh's
    batch of each BC1-BC5 corpus beside the single-device batch.
@@ -348,15 +355,17 @@ WORD_SIZES = (1, 2, 3, 4095, 4096, 4097, BLOCKS, LARGEST_BATCH_N)
 MODE_SORT_SIZES = (1, 2, 3, 4095, 4096, 4097, BLOCKS)
 # rows for the count kernel's many-rows case: more than one launch's grid.y (65,535)
 MANY_ROWS = 70_000
-# The count kernel's far instantiation: offsets beyond its 4096-byte halo, and a
-# 40-offset ladder (more than the near table's 32).
+# The generic count kernel (every ladder but the whole default one): offsets beyond
+# its 4096-byte halo in shared memory, a 40-offset ladder, and two ladders within the
+# halo (the default without offset 3, and the default's first five offsets, which
+# the default kernel, counting all twenty, would miscount on rows past 4,100 bytes).
 FAR_OFFSETS = (1, 2, 4096, 4097, 8192, 65536)
 LADDER_40 = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 20, 24, 28, 32,
              40, 48, 64, 80, 96, 128, 160, 256, 384, 512, 768, 1024, 1536, 2048, 3072,
              4096, 6144, 12288, 24576, 49152)
 # The windowed count kernel's ladders: its offsets reach at most its 32,768-byte halo
-# (SPAN): the far ladder with offsets beyond the near 4096 bytes up to SPAN, and
-# LADDER_40 with SPAN in place of 49,152. The shard counts it is checked at.
+# (SPAN): the far ladder with offsets beyond the 4096 bytes in shared memory up to
+# SPAN, and LADDER_40 with SPAN in place of 49,152. The shard counts it is checked at.
 WINDOW_SPAN = 32768
 WINDOW_FAR = (1, 2, 4096, 4097, 8192, WINDOW_SPAN)
 WINDOW_LADDER_40 = LADDER_40[:-1] + (WINDOW_SPAN,)
@@ -372,18 +381,22 @@ MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100": 3.35e12, "H200": 4.8e12}
 INT32_LANES_PER_SM = 64
 # Integer operations per item that the functions need, estimated from the
 # arithmetic in csrc/bc1_kernels.cu: 27 per YCoCg pair (shifts, masks, adds,
-# subtractions, packing); 4 to build a position's gram and 5 for each gram it
-# compares. The bounds use these.
+# subtractions, packing). The count, from the function and not from any kernel: a
+# position needs at least its gram and the add of its weight, and each gram compare
+# that the data needs (up to the nearest match) a compare and the select of its
+# weight, so 2 per position and 2 per compare.
 OPS_PAIR = 27
-OPS_GRAM, OPS_COMPARE = 4, 5
+OPS_GRAM, OPS_COMPARE = 2, 2
 # and, from csrc/bc7_kernels.cu, 24 per block to find its mode id, rank it (match,
 # two population counts, table reads and adds) and pack its nibble, when sorting
 OPS_MODE_SORT = 24
-# Integer instructions the compiled count kernel issues (python3
-# scripts/sass_ops.py, sm_90a): 13 in its compare loop and 19 more per position.
-# They give the count kernel's issue time, which the times phase prints beside its
-# bound.
-SASS_PER_COMPARE, SASS_PER_POSITION = 13, 19
+# Instructions the compiled default-ladder count kernel issues (python3
+# scripts/sass_ops.py --dump, ltu_default_kernel<false, false> on sm_90a): on the
+# path of its main loop without the stream-head guard, 252 in the four groups, the
+# 80 compares of a thread's four positions with their votes and merges, and 32 per
+# pass of four positions besides (the end marks, the window's words, the sum). They
+# give the count kernel's issue time, which the times phase prints beside its bound.
+SASS_PER_COMPARE, SASS_PER_POSITION = 252 / 80, 32 / 4
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -426,6 +439,60 @@ def batch_corpus(fmt: str) -> list:
                 for i, size in enumerate(BATCH_MODE_SORT_SIZES)] + [b""]
     return [make_uncompressed_dds(fmt, w, h, seed=SEED + i)[0x80:]
             for i, (w, h) in enumerate(BATCH_RGB_SIZES)] + [b""]
+
+
+def kernel_ms(fn, iters: int, flush) -> float:
+    """Median CUDA-event time of ``fn`` over ``iters`` calls after one untimed, with
+    L2 flushed before each by reading ``flush`` (64 MiB on the card), so that the
+    cache holds clean lines and the timed kernel writes back none of the flush's (a
+    write would leave ~50 MB of dirty lines). The one timing method of every kernel,
+    here and in ``scripts/time_kernels.py``."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bc1_batch_rows(corpus_bc1: list, dev) -> tuple:
+    """The timed per-row count input: the rows the BC1 batch step scores for the
+    four 2048x2048 chains of ``corpus_bc1`` (``batch_corpus("bc1")``) in their
+    524,288-block bucket, each candidate key's colour row -> ((R, L) uint8 rows on
+    ``dev``, the blocks of one chain)."""
+    import torch
+    from dxt_lossless_transform_tpu_torch.ops.cuda import regions
+    from dxt_lossless_transform_tpu_torch.parallel import sharded
+    from dxt_lossless_transform_tpu_torch.utils.testgen import chain_blocks
+
+    big = [d for d in corpus_bc1 if len(d) == 8 * chain_blocks(2048, 2048)]
+    bucket = LARGEST_BATCH_N // len(big)
+    flats = torch.zeros((len(big), 2 * bucket), dtype=torch.int32)
+    for row, d in enumerate(big):
+        flats[row, :len(d) // 4] = torch.frombuffer(bytearray(d), dtype=torch.int32)
+    n_big = len(big[0]) // 8
+    _, rows, _ = sharded._colour_rows_batched(
+        flats.to(dev), [n_big] * len(big), sharded._BC1_CANDIDATES, 2, regions.bc1_regions)
+    return rows.view(-1, rows.shape[2]), n_big
+
+
+def shard_windows(rows, nb: int) -> tuple:
+    """The (R, L) rows cut into ``nb`` shards, each shard's window [halo | chunk |
+    halo] as the mesh step makes it -> (the windows, the chunk length)."""
+    import torch
+
+    lc = rows.shape[1] // nb
+    padded = torch.nn.functional.pad(rows, (WINDOW_SPAN, WINDOW_SPAN))
+    return [padded[:, s * lc:(s + 1) * lc + 2 * WINDOW_SPAN].contiguous()
+            for s in range(nb)], lc
 
 
 def main() -> int:
@@ -511,6 +578,8 @@ def main() -> int:
     t0 = time.perf_counter()
     ks = sorted(DEFAULT_OFFSETS)
     ws = [offset_weight(k) for k in ks]
+    near = tuple(k for k in ks if k != 3)  # see FAR_OFFSETS
+    prefix = tuple(ks[:5])  # see FAR_OFFSETS
     dds = {fmt: make_dds(fmt, SIZE, SIZE, MIPS, seed=SEED) for fmt in FORMATS}
     for fmt, data in dds.items():
         if hashlib.sha256(data).hexdigest() != FILE_SHA256[fmt]:
@@ -629,8 +698,8 @@ def main() -> int:
             compare_counts(torch.stack(prefixes), ep * n, ks,
                            f"{fmt} n={n} endpoint rows")
         checked.append(n)
-    # the count kernel's far instantiation: the main file's BC3 rows, and rows that
-    # repeat with periods beyond the halo so that the far offsets match
+    # the generic count kernel: the main file's BC3 rows, and rows that repeat with
+    # periods beyond the halo so that the far offsets match
     far_rows = [alpha, colour]
     length = 140_002
     for period in (4097, 8192, 65536):
@@ -641,9 +710,9 @@ def main() -> int:
         far_rows.append(torch.from_numpy(row)[None, :].to(dev))
     far_counts = []
     for rows in far_rows:
-        for offsets in (FAR_OFFSETS, LADDER_40):
+        for offsets in (FAR_OFFSETS, LADDER_40, near, prefix):
             compare_counts(rows, rows.shape[1], offsets,
-                           f"far ladder of {len(offsets)}, rows {tuple(rows.shape)}")
+                           f"generic ladder of {len(offsets)}, rows {tuple(rows.shape)}")
             far_counts.append(int(cuda_ltu.ltu_counts(
                 rows, rows.shape[1], offsets,
                 [offset_weight(k) for k in offsets]).sum()))
@@ -807,7 +876,7 @@ def main() -> int:
                 torch.tensor(row_lengths)),
                (torch.cat(far_rows[2:]), torch.tensor([rows_len, 100_001, 65_537]))]
     for rows, valid in per_row:
-        for offsets in (ks, FAR_OFFSETS, LADDER_40):
+        for offsets in (ks, FAR_OFFSETS, LADDER_40, near, prefix):
             weights = [offset_weight(k) for k in offsets]
             compare("dlt_ltu_counts_rows", cuda_ltu.ltu_counts(rows, valid, offsets, weights),
                     cuda_ltu.ltu_counts_plain(rows, valid, offsets, weights),
@@ -845,12 +914,13 @@ def main() -> int:
         if not scored:
             fail(f"{what}: the step made no count call")
         for rows, valid, offsets, weights in scored:
-            if not isinstance(valid, torch.Tensor):
-                fail(f"{what}: a count call with one valid length for all rows")
-            compare("dlt_ltu_counts_rows", cuda_ltu.ltu_counts(rows, valid, offsets, weights),
-                    cuda_ltu.ltu_counts_plain(rows, valid, offsets, weights),
+            if not isinstance(valid, cuda_ltu.RowLengths):
+                fail(f"{what}: a count call without per-row lengths on the card")
+            compare("dlt_ltu_counts_rows",
+                    cuda_ltu.ltu_counts(rows, valid, offsets, weights),
+                    cuda_ltu.ltu_counts_plain(rows, valid.lengths, offsets, weights),
                     f"{what}: {tuple(rows.shape)} rows at lengths "
-                    f"{sorted(set(valid.tolist()))}")
+                    f"{sorted(set(valid.lengths.tolist()))}")
         batch_rows_checked.append([tuple(rows.shape) for rows, *_ in scored])
         scored.clear()
 
@@ -930,7 +1000,7 @@ def main() -> int:
         keys = rows.shape[1]
         rows = rows.reshape(-1, rows.shape[2])
         lengths = torch.tensor([v for v in valid for _ in range(keys)])
-        for offsets in (ks, WINDOW_FAR, WINDOW_LADDER_40):
+        for offsets in (ks, WINDOW_FAR, WINDOW_LADDER_40, near, prefix):
             weights = [offset_weight(k) for k in offsets]
             uncut = cuda_ltu.ltu_counts(rows, lengths, offsets, weights)
             for nb in WINDOW_SHARDS:
@@ -1000,9 +1070,12 @@ def main() -> int:
             words[row, :len(d) // 4] = np.frombuffer(d, np.int32)
         return data, ns, torch.from_numpy(words).to(dev)
 
+    def windowed_plain(rows, valid_rows, pos0, offsets, weights):
+        return cuda_ltu.ltu_counts_windowed_plain(rows, valid_rows.lengths, pos0, offsets,
+                                                  weights)
+
     mesh_checked = [
-        (sharded, "ltu_counts_windowed", cuda_ltu.ltu_counts_windowed_plain,
-         "dlt_ltu_counts_windowed"),
+        (sharded, "ltu_counts_windowed", windowed_plain, "dlt_ltu_counts_windowed"),
         (sharded, "deinterleave_words", planes.deinterleave_words_plain,
          "dlt_deinterleave_words"),
         (planes, "bc7_transform", planes.bc7_transform_plain, "dlt_bc7_transform"),
@@ -1011,6 +1084,9 @@ def main() -> int:
         *((shuffle, f"{fmt}_untransform", getattr(shuffle, f"{fmt}_untransform_plain"),
            f"dlt_{fmt}_untransform") for fmt in BATCH_FORMATS)]
     mesh_calls = {}  # per mesh path: each kernel's compared calls
+    # per mesh path: the windowed count launches' blocks (grid x rows) and the blocks
+    # the card holds at once, as the default-ladder kernel chooses its tiles
+    window_blocks = {}
 
     def checked_path(label: str, fn, expect) -> None:
         """Run ``fn`` with every wrapper of ``mesh_checked`` comparing each of its
@@ -1028,6 +1104,17 @@ def main() -> int:
                 for i, (g, w) in enumerate(pairs):
                     compare(kernel, g, w, f"mesh {label}: inputs {shapes}, output {i}")
                 calls[kernel] = calls.get(kernel, 0) + 1
+                if kernel == "dlt_ltu_counts_windowed":
+                    rows = cuda_ltu.byte_rows(args[0])
+                    shape = cuda_ltu.launch_shape(rows.shape[0], rows.shape[1] - 2 * WINDOW_SPAN,
+                                                  "windowed", dev)
+                    seen = window_blocks.setdefault(label, {
+                        "launches": 0, "min_blocks": shape["blocks"], "max_blocks": 0,
+                        "resident": shape["resident"], "below_resident": 0})
+                    seen["launches"] += 1
+                    seen["min_blocks"] = min(seen["min_blocks"], shape["blocks"])
+                    seen["max_blocks"] = max(seen["max_blocks"], shape["blocks"])
+                    seen["below_resident"] += shape["blocks"] < shape["resident"]
                 return got
             return call
 
@@ -1066,7 +1153,7 @@ def main() -> int:
             ["dlt_ltu_counts_windowed", "dlt_deinterleave_words", f"dlt_{fmt}_untransform",
              f"dlt_{fmt}_regions"])
     emit("check", t0, block_counts=checked, max_abs_err=max_err,
-         window_cuts=window_cuts, mesh_calls=mesh_calls,
+         window_cuts=window_cuts, mesh_calls=mesh_calls, window_blocks=window_blocks,
          batch_blocks=batch_blocks_checked, batch_count_rows=batch_rows_checked,
          word_counts=list(WORD_SIZES), per_row_lengths=row_lengths,
          far_counts=far_counts, many_rows=MANY_ROWS, many_rows_count_sum=many_rows_sum,
@@ -1489,22 +1576,10 @@ def main() -> int:
 
     # ---- 7. times ----------------------------------------------------------------------
     t0 = time.perf_counter()
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
 
     def event_ms(fn, iters: int) -> float:
-        """Median CUDA-event time of ``fn``, with L2 flushed before each run."""
-        fn()
-        times = []
-        for _ in range(iters):
-            flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+        return kernel_ms(fn, iters, flush)
 
     def compares_needed(r: torch.Tensor, valid: int) -> int:
         """Gram compares the scorer makes on these rows: for each position, up to and
@@ -1530,7 +1605,8 @@ def main() -> int:
             bytes=r.shape[0] * valid, positions=positions, compares=compares,
             ops=OPS_GRAM * positions + OPS_COMPARE * compares,
             issue_ms=(SASS_PER_POSITION * positions + SASS_PER_COMPARE * compares)
-            / int_rate * 1e3)
+            / int_rate * 1e3,
+            shape=cuda_ltu.launch_shape(r.shape[0], valid - 3, "scalar", dev))
 
     # the host side of one transform and one untransform of each file, and the
     # copies of its payload apart: medians of 5, before the kernel timings below
@@ -1735,7 +1811,8 @@ def main() -> int:
                 ms=event_ms(lambda: planes.bc7_untransform(tm, n, sort, split), 20),
                 plain_ms=event_ms(
                     lambda: planes.bc7_untransform_plain(tm, n, sort, split), 5),
-                bytes=moved, ops=ops)
+                bytes=moved, ops=ops,
+                shape=planes.untransform_launch_shape(n, sort, split, dev))
             if not sort:
                 timed[f"dlt_bc7_transform/{label}"]["library_ms"] = event_ms(
                     lambda: xm.view(n, 16).t().contiguous(), 20)
@@ -1789,53 +1866,54 @@ def main() -> int:
             bytes=8 * k * LARGEST_BATCH_N, ops=0)
     # the per-row count kernel on the BC1 batch's rows: the four 2048x2048 chains of
     # the 524,288-block bucket, each candidate key's row cut at the file's length
-    big = [d for d in corpus["bc1"] if len(d) == 8 * chain_blocks(2048, 2048)]
-    bucket = LARGEST_BATCH_N // len(big)
-    flats = torch.zeros((len(big), 2 * bucket), dtype=torch.int32)
-    for row, d in enumerate(big):
-        flats[row, :len(d) // 4] = torch.frombuffer(bytearray(d), dtype=torch.int32)
-    n_big = len(big[0]) // 8
-    _, rows, _ = sharded._colour_rows_batched(
-        flats.to(dev), [n_big] * len(big), sharded._BC1_CANDIDATES, 2, regions.bc1_regions)
-    rows = rows.view(-1, rows.shape[2])
+    rows, n_big = bc1_batch_rows(corpus["bc1"], dev)
     valid_rows = torch.full((rows.shape[0],), 4 * n_big)
+    # the lengths on the card with the longest from the host, as the batch and mesh
+    # steps pass them (one copy a step)
+    valid_on_card = cuda_ltu.device_lengths(valid_rows, dev)
     positions, compares = rows.shape[0] * (4 * n_big - 3), compares_needed(rows, 4 * n_big)
     timed["dlt_ltu_counts_rows/bc1_batch"] = dict(
-        ms=event_ms(lambda: cuda_ltu.ltu_counts(rows, valid_rows, ks, ws), 20),
+        ms=event_ms(lambda: cuda_ltu.ltu_counts(rows, valid_on_card, ks, ws), 20),
         plain_ms=event_ms(lambda: cuda_ltu.ltu_counts_plain(rows, valid_rows, ks, ws), 3),
         scalar_ms=event_ms(lambda: cuda_ltu.ltu_counts(rows, 4 * n_big, ks, ws), 20),
         bytes=rows.shape[0] * 4 * n_big, positions=positions, compares=compares,
         ops=OPS_GRAM * positions + OPS_COMPARE * compares,
         issue_ms=(SASS_PER_POSITION * positions + SASS_PER_COMPARE * compares)
-        / int_rate * 1e3)
-    compare("dlt_ltu_counts_rows", cuda_ltu.ltu_counts(rows, valid_rows, ks, ws),
+        / int_rate * 1e3,
+        shape=cuda_ltu.launch_shape(rows.shape[0], 4 * n_big - 3, "rows", dev))
+    compare("dlt_ltu_counts_rows", cuda_ltu.ltu_counts(rows, valid_on_card, ks, ws),
             cuda_ltu.ltu_counts_plain(rows, valid_rows, ks, ws), "the BC1 batch's timed rows")
     # the windowed count kernel on the same rows cut into 8 shards with their halos:
-    # the 8 launches of one mesh scoring, each shard's window as the mesh step makes it.
+    # the 8 launches of one mesh scoring, each shard's window as the mesh step makes it,
+    # timed as the sum of each launch's median (and so each plain call's).
     # Bytes: each shard's counted positions, the 4096 bytes before its first one and
     # the 3 after its last; operations and compares as for the uncut rows
     nb = 8
-    lc = rows.shape[1] // nb
-    padded = torch.nn.functional.pad(rows, (WINDOW_SPAN, WINDOW_SPAN))
-    windows = [padded[:, s * lc:(s + 1) * lc + 2 * WINDOW_SPAN].contiguous() for s in range(nb)]
+    windows, lc = shard_windows(rows, nb)
     counted = [min(max(4 * n_big - 3 - s * lc, 0), lc) for s in range(nb)]
+
+    def shard(s: int):
+        return lambda: cuda_ltu.ltu_counts_windowed(
+            windows[s], valid_on_card, s * lc - WINDOW_SPAN, ks, ws)
+
+    def shard_plain(s: int):
+        return lambda: cuda_ltu.ltu_counts_windowed_plain(
+            windows[s], valid_rows, s * lc - WINDOW_SPAN, ks, ws)
+
     timed["dlt_ltu_counts_windowed"] = dict(
-        ms=event_ms(lambda: [cuda_ltu.ltu_counts_windowed(w, valid_rows, s * lc - WINDOW_SPAN,
-                                                          ks, ws)
-                             for s, w in enumerate(windows)], 20),
-        plain_ms=event_ms(lambda: [cuda_ltu.ltu_counts_windowed_plain(
-            w, valid_rows, s * lc - WINDOW_SPAN, ks, ws) for s, w in enumerate(windows)], 3),
-        shards=nb, chunk=lc,
+        ms=sum(event_ms(shard(s), 20) for s in range(nb)),
+        plain_ms=sum(event_ms(shard_plain(s), 3) for s in range(nb)),
+        launches=nb, chunk=lc,
+        shape=cuda_ltu.launch_shape(rows.shape[0], lc, "windowed", dev),
         bytes=rows.shape[0] * sum(c + 4096 + 3 for c in counted if c),
         positions=positions, compares=compares,
         ops=OPS_GRAM * positions + OPS_COMPARE * compares,
         issue_ms=(SASS_PER_POSITION * positions + SASS_PER_COMPARE * compares)
         / int_rate * 1e3)
-    compare("dlt_ltu_counts_windowed", sum(
-        cuda_ltu.ltu_counts_windowed(w, valid_rows, s * lc - WINDOW_SPAN, ks, ws)
-        for s, w in enumerate(windows)), cuda_ltu.ltu_counts(rows, valid_rows, ks, ws),
-        "the BC1 batch's timed rows in 8 shards against the uncut rows")
-    del xw, flats, rows, padded, windows
+    compare("dlt_ltu_counts_windowed", sum(shard(s)() for s in range(nb)),
+            cuda_ltu.ltu_counts(rows, valid_rows, ks, ws),
+            "the BC1 batch's timed rows in 8 shards against the uncut rows")
+    del xw, rows, windows
     # each format's batch against a loop of the per-file entry points over the same
     # payloads, both directions, and the stages of one batch run with the device
     # synchronised around each (so that they do not overlap)
@@ -1915,7 +1993,8 @@ def main() -> int:
     tmp.cleanup()
     emit("times", t0, kernels=timed, host=copies, batch=throughput,
          host_scored_small_files=small_files, mesh_batch=mesh_batch,
-         note="kernel ms: CUDA-event medians with L2 flushed before each launch; "
+         note="kernel ms: CUDA-event medians with L2 flushed (a 64 MiB read) before "
+              "each launch (the windowed cut: the sum of its launches' medians); "
               "host s: medians of 5, batch: medians of 3",
          run_seconds=time.perf_counter() - run_start)
 

@@ -14,6 +14,8 @@ Importing the package builds nothing and imports no ``triton``: the CUDA library
 compiled by ``nvcc`` at first use (see :mod:`.backend`).
 """
 
+__version__ = "0.1.0"
+
 from .settings import (  # noqa: F401
     BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
     BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,

@@ -49,13 +49,13 @@ _SIGNATURES = {
     # (in, out, n_blocks, candidate code, n_candidates, stream)
     "dlt_bc1_regions": (_P, _P, _I, _I, _I, _P),
     # (rows, counts, n_rows, row_len, valid_len, offsets, weights, n_offsets,
-    #  far_table, stream)
+    #  table, stream)
     "dlt_ltu_counts": (_P, _P, _I, _I, _I, _P, _P, _I, _P, _P),
     # (rows, counts, n_rows, row_len, valid_rows, max_valid, offsets, weights,
-    #  n_offsets, far_table, stream)
+    #  n_offsets, table, stream)
     "dlt_ltu_counts_rows": (_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P),
     # (rows, counts, n_rows, row_len, valid_rows, pos0, lo, hi, offsets, weights,
-    #  n_offsets, far_table, stream)
+    #  n_offsets, table, stream)
     "dlt_ltu_counts_windowed": (_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P),
     # (in, out, n words per stream, k streams, stream)
     "dlt_deinterleave_words": (_P, _P, _I, _I, _P),
@@ -82,6 +82,15 @@ _SIGNATURES = {
     # (in, out, n_pixels, stride, ri, gi, bi, dec, split, stream)
     "dlt_rgb_transform": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dlt_rgb_untransform": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+}
+
+# Queries of a kernel's launch shape: they launch nothing and write int64 results
+# into their last argument.
+_QUERIES = {
+    # (n_rows, positions, form, out[4])
+    "dlt_ltu_counts_shape": (_I, _I, _I, _P),
+    # (n_blocks, sort, planes, out[4])
+    "dlt_bc7_untransform_shape": (_I, _I, _I, _P),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.
@@ -163,7 +172,7 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
@@ -180,6 +189,16 @@ def launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise KernelLaunchError(f"{name} failed with CUDA error {rc}")
     LAUNCHES[name] += 1
+
+
+def query(name: str, device: torch.device, *args) -> list:
+    """The four int64 results of launch-shape query ``name`` on ``device``."""
+    out = (ctypes.c_int64 * 4)()
+    with torch.cuda.device(device):
+        rc = getattr(library(), name)(*args, ctypes.addressof(out))
+    if rc != 0:
+        raise KernelLaunchError(f"{name} failed with CUDA error {rc}")
+    return list(out)
 
 
 def reset_launch_counts() -> None:

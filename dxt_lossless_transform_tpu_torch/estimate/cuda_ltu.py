@@ -20,7 +20,12 @@ grid.y).
 one length per row (``dlt_ltu_counts_rows``, the TPU kernel's ``valid_rows``): the
 batch pipeline scores every candidate row of a batch of files of different lengths
 in one launch. Each row then counts as if it were alone at its own length; the
-offsets are kept, and the far instantiation chosen, for the longest row.
+offsets are kept for the longest row. Lengths on the host are checked and copied to
+the rows' device once per call; a caller that scores several times with the same
+lengths (each shard of a mesh step) copies them once itself with
+:func:`device_lengths` and passes the :class:`RowLengths` it returns, which carry
+the longest length from the host, so that no count call reads anything back from
+the card or waits for it.
 
 :func:`ltu_counts_windowed` (``dlt_ltu_counts_windowed``) replaces
 ``pallas_ltu.py:328`` ``coverage_counts_windowed``, the partial count of one shard
@@ -30,19 +35,26 @@ position of its local byte 0 (the chunk's start - SPAN), and the positions of th
 chunk are counted on global terms (the valid lengths, the stream-head guard and the
 kept offsets), so that the shards' counts sum to the uncut row's. Offsets up to
 SPAN reach into the halo; a larger one raises ``ValueError``, as JAX asserts.
+
+Two kernels count. The estimator's whole default ladder (``ltu.DEFAULT_OFFSETS``
+with ``offset_weight``) takes the one that compiles that ladder in, in all three
+forms and at every row length (its stream-head guard zeroes the offsets that a
+short row does not reach); any other ladder, a prefix of the default one too, takes
+the generic kernel, which reads it from a table in device memory
+(:func:`default_ladder` is the one test). The default kernel chooses its tile
+length per launch, so that short launches (a mesh's shards) fill the card;
+:func:`launch_shape` reads what a launch would use.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Union
+from typing import NamedTuple, Sequence, Union
 
 import torch
 
 from .. import backend
 
-MAX_OFFSET = 4096   # the near instantiation's backward halo
-MAX_OFFSETS = 32    # the near instantiation's offset table
 MAX_WEIGHT = 255    # |weight|, so that a block's sum fits 32 bits
 SPAN = 32768        # a shard's halo on each side: the TPU kernel's tile
 
@@ -58,30 +70,73 @@ def byte_rows(rows: torch.Tensor) -> torch.Tensor:
     return rows
 
 
-ValidLen = Union[int, torch.Tensor]
+class RowLengths(NamedTuple):
+    """One valid length per row, already on the rows' device (``lengths``, (C,)
+    int64), with the longest of them from the host (``longest``), as
+    :func:`device_lengths` makes them. ``longest`` sizes the grid and keeps the
+    offsets, so it must be at least the largest length: it may exceed it (the rows of
+    a slice keep the whole step's), which costs only blocks that exit at once."""
+
+    lengths: torch.Tensor
+    longest: int
+
+    def slice(self, start: int, stop: int) -> "RowLengths":
+        """The lengths of rows ``start`` .. ``stop``, with the same ``longest``."""
+        return RowLengths(self.lengths[start:stop], self.longest)
+
+
+ValidLen = Union[int, torch.Tensor, RowLengths]
 
 
 def _check(rows: torch.Tensor, valid_len: ValidLen, offsets: Sequence[int],
            weights: Sequence[int]) -> None:
-    if isinstance(valid_len, torch.Tensor):
-        if valid_len.shape != (rows.shape[0],):
-            raise ValueError(f"valid lengths of shape {tuple(valid_len.shape)} for "
-                             f"{rows.shape[0]} rows")
-        if valid_len.numel() and not (0 <= int(valid_len.min())
-                                      and int(valid_len.max()) <= rows.shape[1]):
-            raise ValueError(f"a valid length lies outside [0, {rows.shape[1]}]")
-    elif not 0 <= valid_len <= rows.shape[1]:
+    if not isinstance(valid_len, (torch.Tensor, RowLengths)) and \
+            not 0 <= valid_len <= rows.shape[1]:
         raise ValueError(f"valid_len {valid_len} outside [0, {rows.shape[1]}]")
+    _check_ladder(offsets, weights)
+
+
+def _check_ladder(offsets: Sequence[int], weights: Sequence[int]) -> None:
     if len(offsets) != len(weights):
         raise ValueError("offsets and weights differ in length")
     if any(k < 1 for k in offsets) or list(offsets) != sorted(set(offsets)):
         raise ValueError(f"offsets must be positive and ascending, got {offsets}")
 
 
-def needs_far(offsets: Sequence[int], weights: Sequence[int]) -> bool:
-    """Whether the (kept) ladder needs the kernel's far instantiation."""
-    return (len(offsets) > MAX_OFFSETS or any(k > MAX_OFFSET for k in offsets)
-            or any(w < 0 for w in weights))
+def default_ladder(offsets: Sequence[int], weights: Sequence[int]) -> bool:
+    """Whether the ladder is the estimator's whole default ladder, which the default
+    kernel compiles in and counts rung for rung; every other ladder, a prefix of it
+    too, takes the generic kernel and its table in device memory."""
+    from .ltu import DEFAULT_OFFSETS, offset_weight  # ltu imports this module
+
+    default = [(k, offset_weight(k)) for k in sorted(DEFAULT_OFFSETS)]
+    return list(zip(offsets, weights)) == default
+
+
+def launch_shape(n_rows: int, positions: int, form: str, device: torch.device) -> dict:
+    """What a default-ladder launch of ``form`` (``"scalar"``, ``"rows"`` or
+    ``"windowed"``) over ``positions`` counted positions of ``n_rows`` rows uses on
+    ``device``: its tile length, the first launch's grid and the blocks the card holds
+    at once. Launches nothing."""
+    tile, gx, gy, resident = backend.query(
+        "dlt_ltu_counts_shape", device, n_rows, positions,
+        ("scalar", "rows", "windowed").index(form))
+    return {"tile": tile, "grid": [gx, gy], "blocks": gx * gy, "resident": resident}
+
+
+def device_lengths(lengths: torch.Tensor, device: torch.device) -> RowLengths:
+    """(C,) valid lengths on the host, checked there, copied to ``device`` as int64
+    once, with the longest of them."""
+    if not isinstance(lengths, torch.Tensor) or lengths.device.type != "cpu":
+        raise ValueError("lengths on a device come as RowLengths, with the longest "
+                         "one from the host")
+    if lengths.dim() != 1:
+        raise ValueError(f"expected (C,) valid lengths, got shape {tuple(lengths.shape)}")
+    lengths = lengths.to(torch.int64)
+    if lengths.numel() and int(lengths.min()) < 0:
+        raise ValueError("a valid length is negative")
+    longest = int(lengths.max()) if lengths.numel() else 0
+    return RowLengths(lengths.to(device, non_blocking=True), longest)
 
 
 def ltu_counts_plain(rows: torch.Tensor, valid_len: ValidLen, offsets: Sequence[int],
@@ -108,50 +163,69 @@ def ltu_counts_plain(rows: torch.Tensor, valid_len: ValidLen, offsets: Sequence[
 
 
 class _Tables:
-    """The offset and weight arguments of a count entry point: the ladder's offsets
+    """The offset and weight arguments of a count entry point, as host arrays, and
+    the table the generic kernel reads on ``device``. The whole default ladder goes
+    to the default kernel uncut, with no table. Any other ladder keeps its offsets
     below ``longest`` - 3 (an offset k counts only at positions i >= k, and i <
-    valid_len - 3), as host arrays, and the far table on ``device`` when the kept
-    ladder needs the far instantiation. The far table is freed once the object goes,
-    while the kernel may still read it: the caching allocator hands the block out
-    again only to work queued after it on this stream."""
+    valid_len - 3), in a table of at least one entry, so that its pointer is never
+    null (0 offsets count nothing). The table is freed once the object goes, while
+    the kernel may still read it: the caching allocator hands the block out again
+    only to work queued after it on this stream."""
 
     def __init__(self, offsets, weights, longest: int, device: torch.device):
         if any(abs(w) > MAX_WEIGHT for w in weights):
             raise ValueError(f"the kernel takes weights -{MAX_WEIGHT}..{MAX_WEIGHT}")
-        kept = [(k, w) for k, w in zip(offsets, weights) if k < longest - 3]
-        ks, ws = [k for k, _ in kept], [w for _, w in kept]
-        self._far = (torch.tensor(ks + ws, dtype=torch.int64).to(device)
-                     if needs_far(ks, ws) else None)
+        if default_ladder(offsets, weights):
+            ks, ws, self._table = list(offsets), list(weights), None
+        else:
+            kept = [(k, w) for k, w in zip(offsets, weights) if k < longest - 3]
+            ks, ws = [k for k, _ in kept], [w for _, w in kept]
+            self._table = torch.tensor(ks + ws or [0], dtype=torch.int64).to(device)
         self._k = (ctypes.c_int64 * max(len(ks), 1))(*ks)
         self._w = (ctypes.c_int64 * max(len(ws), 1))(*ws)
         self.args = (ctypes.addressof(self._k), ctypes.addressof(self._w), len(ks),
-                     None if self._far is None else self._far.data_ptr())
+                     None if self._table is None else self._table.data_ptr())
+
+
+def _lengths(valid_len: Union[torch.Tensor, RowLengths], rows: torch.Tensor,
+             window: bool = False) -> RowLengths:
+    """The rows' lengths on their device: copied there from the host by
+    :func:`device_lengths`, or given there, checked as far as the host can without
+    reading them. A window's lengths are its rows' global ones and may exceed L."""
+    if not isinstance(valid_len, RowLengths):
+        valid_len = device_lengths(valid_len, rows.device)
+    lengths, longest = valid_len
+    if lengths.device != rows.device or lengths.dtype != torch.int64 or \
+            lengths.shape != (rows.shape[0],):
+        raise ValueError(f"expected int64 lengths of shape ({rows.shape[0]},) on "
+                         f"{rows.device}, got {lengths.dtype}{tuple(lengths.shape)} "
+                         f"on {lengths.device}")
+    if longest < 0 or (not window and longest > rows.shape[1]):
+        raise ValueError(f"longest length {longest} outside [0, {rows.shape[1]}]")
+    return RowLengths(lengths.contiguous(), int(longest))
 
 
 def ltu_counts(rows: torch.Tensor, valid_len: ValidLen, offsets: Sequence[int],
                weights: Sequence[int]) -> torch.Tensor:
     """Weighted 4-gram coverage count of each row, as int64 (C,); ``valid_len`` is
-    one length or a (C,) tensor of lengths."""
+    one length, a (C,) tensor of lengths on the host, or :class:`RowLengths` on the
+    rows' device."""
     rows = byte_rows(rows)
     offsets, weights = [int(k) for k in offsets], [int(w) for w in weights]
-    per_row = isinstance(valid_len, torch.Tensor)
-    if per_row:
-        valid_len = valid_len.to(torch.int64)
     _check(rows, valid_len, offsets, weights)
+    per_row = isinstance(valid_len, (torch.Tensor, RowLengths))
+    if per_row:
+        valid_len, longest = _lengths(valid_len, rows)
     if not backend.dispatch(rows):
         return ltu_counts_plain(rows, valid_len, offsets, weights)
     backend.require_cuda_tensor(rows, "ltu_counts", torch.uint8, align=1)
-    longest = (int(valid_len.max()) if valid_len.numel() else 0) if per_row \
-        else valid_len
-    tables = _Tables(offsets, weights, longest, rows.device)
+    tables = _Tables(offsets, weights, longest if per_row else valid_len, rows.device)
     counts = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
     if rows.shape[0]:
         if per_row:
-            # freed on return like the far table
-            valid = valid_len.to(rows.device, non_blocking=True).contiguous()
             backend.launch("dlt_ltu_counts_rows", rows.device, rows.data_ptr(),
                            counts.data_ptr(), rows.shape[0], rows.shape[1],
-                           valid.data_ptr(), longest, *tables.args)
+                           valid_len.data_ptr(), longest, *tables.args)
         else:
             backend.launch("dlt_ltu_counts", rows.device, rows.data_ptr(),
                            counts.data_ptr(), rows.shape[0], rows.shape[1], valid_len,
@@ -159,17 +233,11 @@ def ltu_counts(rows: torch.Tensor, valid_len: ValidLen, offsets: Sequence[int],
     return counts
 
 
-def _check_window(rows: torch.Tensor, valid_rows: torch.Tensor, offsets, weights) -> None:
-    if valid_rows.shape != (rows.shape[0],):
-        raise ValueError(f"valid lengths of shape {tuple(valid_rows.shape)} for "
-                         f"{rows.shape[0]} rows")
+def _check_window(rows: torch.Tensor, offsets, weights) -> None:
     if rows.shape[1] < 2 * SPAN:
         raise ValueError(f"a window row holds two {SPAN}-byte halos, got "
                          f"{rows.shape[1]} bytes")
-    if len(offsets) != len(weights):
-        raise ValueError("offsets and weights differ in length")
-    if any(k < 1 for k in offsets) or list(offsets) != sorted(set(offsets)):
-        raise ValueError(f"offsets must be positive and ascending, got {offsets}")
+    _check_ladder(offsets, weights)
     if offsets and offsets[-1] > SPAN:
         raise ValueError(f"the halo covers offsets up to {SPAN}, got {offsets[-1]}")
 
@@ -192,26 +260,26 @@ def ltu_counts_windowed_plain(rows: torch.Tensor, valid_rows: torch.Tensor, pos0
     return torch.where(at < ends, w, 0).sum(dim=1)
 
 
-def ltu_counts_windowed(rows: torch.Tensor, valid_rows: torch.Tensor, pos0: int,
-                        offsets: Sequence[int], weights: Sequence[int]) -> torch.Tensor:
+def ltu_counts_windowed(rows: torch.Tensor, valid_rows: Union[torch.Tensor, RowLengths],
+                        pos0: int, offsets: Sequence[int],
+                        weights: Sequence[int]) -> torch.Tensor:
     """Partial weighted count of one shard's (C, SPAN + Lc + SPAN) window rows (uint8,
     or int32 words that carry the same bytes), as int64 (C,): the chunk's positions,
     each where its global position ``pos0`` + i is below its row's global valid length
-    (``valid_rows``, (C,)) - 3, a match at offset k only where ``pos0`` + i >= k."""
+    (``valid_rows``: (C,) on the host, or :class:`RowLengths` on the rows' device) -
+    3, a match at offset k only where ``pos0`` + i >= k."""
     rows = byte_rows(rows)
     offsets, weights = [int(k) for k in offsets], [int(w) for w in weights]
-    valid_rows = valid_rows.to(torch.int64)
-    _check_window(rows, valid_rows, offsets, weights)
+    _check_window(rows, offsets, weights)
+    valid_rows, longest = _lengths(valid_rows, rows, window=True)
     if not backend.dispatch(rows):
         return ltu_counts_windowed_plain(rows, valid_rows, int(pos0), offsets, weights)
     backend.require_cuda_tensor(rows, "ltu_counts_windowed", torch.uint8, align=1)
-    tables = _Tables(offsets, weights, int(valid_rows.max()) if valid_rows.numel() else 0,
-                     rows.device)
+    tables = _Tables(offsets, weights, longest, rows.device)
     counts = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
     if rows.shape[0]:
-        # freed on return like the far table
-        valid = valid_rows.to(rows.device, non_blocking=True).contiguous()
         backend.launch("dlt_ltu_counts_windowed", rows.device, rows.data_ptr(),
-                       counts.data_ptr(), rows.shape[0], rows.shape[1], valid.data_ptr(),
-                       int(pos0), SPAN, rows.shape[1] - SPAN, *tables.args)
+                       counts.data_ptr(), rows.shape[0], rows.shape[1],
+                       valid_rows.data_ptr(), int(pos0), SPAN, rows.shape[1] - SPAN,
+                       *tables.args)
     return counts

@@ -17,13 +17,13 @@ weighted total is below 2**24.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
 from .. import backend
 from .base import SizeEstimation
-from .cuda_ltu import ValidLen, byte_rows, ltu_counts
+from .cuda_ltu import ValidLen, byte_rows, device_lengths, ltu_counts
 from .gtable import ENTROPY_CAP, G_TABLE
 
 DEFAULT_OFFSETS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256,
@@ -47,9 +47,11 @@ def _g_table(device: torch.device) -> torch.Tensor:
     return _G_TABLES[device]
 
 
-def entropy_terms(rows: torch.Tensor, valid_len: ValidLen) -> torch.Tensor:
+def entropy_terms(rows: torch.Tensor, valid_len: ValidLen,
+                  longest: Optional[int] = None) -> torch.Tensor:
     """Prefix entropy term of each (C, L) uint8 row, as int64 (C,). ``valid_len`` is
-    one length or a (C,) tensor of lengths; row r's prefix is its first
+    one length or a (C,) tensor of lengths (with ``longest``, their largest, where
+    they lie on the device); row r's prefix is its first
     ``min(valid_len[r], ENTROPY_CAP)`` bytes, and no byte past it reaches the
     histogram."""
     c = rows.shape[0]
@@ -64,8 +66,9 @@ def entropy_terms(rows: torch.Tensor, valid_len: ValidLen) -> torch.Tensor:
         raw = g[n] - g[hist].sum(dim=1)
         return 3 * raw.clamp(min=0) // 8
     n = prefix_lengths(valid_len, rows.device)
-    longest = min(int(valid_len.max()) if c else 0, ENTROPY_CAP)
-    return entropy_from_histograms(prefix_histograms(rows, n, longest), n)
+    if longest is None:
+        longest = int(valid_len.max()) if c else 0
+    return entropy_from_histograms(prefix_histograms(rows, n, min(longest, ENTROPY_CAP)), n)
 
 
 def prefix_lengths(valid_len: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -105,17 +108,18 @@ def entropy_from_histograms(hist: torch.Tensor, n: torch.Tensor) -> torch.Tensor
 def coverage_scores(rows: torch.Tensor, valid_len: ValidLen,
                     offsets: Sequence[int] = DEFAULT_OFFSETS) -> torch.Tensor:
     """Scores of (C, L) uint8 rows (or (C, L/4) int32 words), of which the first
-    ``valid_len`` bytes are real (one length, or a (C,) tensor of one per row), as
-    exact int64 (C,). Lower is better."""
+    ``valid_len`` bytes are real (one length, or a (C,) tensor of one per row, on the
+    host), as exact int64 (C,). Lower is better."""
     rows = byte_rows(rows)
     ks = sorted(set(int(k) for k in offsets))
-    counts = ltu_counts(rows, valid_len, ks, [offset_weight(k) for k in ks])
+    ws = [offset_weight(k) for k in ks]
     if isinstance(valid_len, torch.Tensor):
-        # a CPU tensor of lengths takes no synchronisation on the way
-        valid_len = valid_len.to(torch.int64)
-        ent = entropy_terms(rows, valid_len)
-        return WEIGHT_SCALE * valid_len.to(rows.device, non_blocking=True) - counts + ent
-    return WEIGHT_SCALE * valid_len - counts + entropy_terms(rows, valid_len)
+        # one copy of the lengths to the rows' device serves every term
+        lengths = device_lengths(valid_len, rows.device)
+        return (WEIGHT_SCALE * lengths.lengths - ltu_counts(rows, lengths, ks, ws)
+                + entropy_terms(rows, lengths.lengths, lengths.longest))
+    return (WEIGHT_SCALE * valid_len - ltu_counts(rows, valid_len, ks, ws)
+            + entropy_terms(rows, valid_len))
 
 
 class LtuEstimation(SizeEstimation):

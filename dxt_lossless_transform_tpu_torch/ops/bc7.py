@@ -52,8 +52,11 @@ from .cuda.planes import (  # noqa: F401  (the host helpers, re-exported)
 
 
 def transformed_len(original_len: int, settings) -> int:
-    """Transformed payload size of an ``original_len``-byte texture."""
-    return planes.transformed_len(original_len // BLOCK_SIZE, settings.sort_by_mode)
+    """Transformed payload size of an ``original_len``-byte texture: the bytes
+    themselves (a remainder past the last whole block included, as in
+    ``oracle/bc7.py``) and, when sorting, the mode stream of the whole blocks."""
+    n = original_len // BLOCK_SIZE
+    return original_len + (mode_stream_len(n) if settings.sort_by_mode else 0)
 
 
 def original_len(transformed: int, settings) -> int:

@@ -179,6 +179,17 @@ def bc7_untransform(x: torch.Tensor, n: int, sort: bool, planes: bool) -> torch.
     return out
 
 
+def untransform_launch_shape(n: int, sort: bool, planes: bool,
+                             device: torch.device) -> dict:
+    """What ``dlt_bc7_untransform`` launches for n blocks on ``device``: its grid (one
+    thread block per span of blocks: a 1024-block tile, or with sorting a 4096-block
+    chunk), the blocks the card holds at once, the threads of a block and the span.
+    Launches nothing."""
+    grid, resident, threads, span = backend.query(
+        "dlt_bc7_untransform_shape", device, n, int(bool(sort)), int(bool(planes)))
+    return {"grid": grid, "resident": resident, "threads": threads, "span": span}
+
+
 def deinterleave_words_plain(x: torch.Tensor, k: int) -> tuple:
     return tuple(s.contiguous() for s in x.view(-1, k).unbind(1))
 

@@ -49,7 +49,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..estimate.cuda_ltu import SPAN, ltu_counts_windowed
+from ..estimate.cuda_ltu import SPAN, device_lengths, ltu_counts_windowed
 from ..estimate.gtable import ENTROPY_CAP
 from ..estimate.ltu import (
     DEFAULT_OFFSETS, WEIGHT_SCALE, coverage_scores, entropy_from_histograms,
@@ -569,20 +569,26 @@ class _Shards:
         mesh.run(first)
         mesh.run(later)
         mesh.run(self.halo_moves(windows.__getitem__, width))
-        valid = torch.tensor([per_block * n for n in self.ns], dtype=torch.int64)
+        # the step's lengths, each file's once per label as the rows lie, reach each
+        # device once; every shard's count and histogram reads its files' rows of them
+        # there, with the longest from the host
+        valid = torch.tensor([per_block * n for n in self.ns],
+                             dtype=torch.int64).repeat_interleave(x)
+        lengths = {dev: device_lengths(valid, dev)
+                   for dev in {*(w.device for w in windows.values()), mesh.home}}
         ks = sorted(set(int(k) for k in offsets))
         ws = [offset_weight(k) for k in ks]
         parts = {}
         for (f, s), win in windows.items():
             rows = win.view(self.bl * x, -1)
-            v = valid[f * self.bl:(f + 1) * self.bl].repeat_interleave(x)
+            v = lengths[rows.device].slice(f * self.bl * x, (f + 1) * self.bl * x)
             counts = ltu_counts_windowed(rows, v, s * width - SPAN, ks, ws)
             hist = prefix_histograms(rows[:, SPAN:SPAN + width],
-                                     prefix_lengths(v, rows.device), ENTROPY_CAP,
+                                     prefix_lengths(v.lengths, rows.device), ENTROPY_CAP,
                                      start=s * width)
             parts[f, s] = torch.cat([counts[:, None], hist], dim=1)
         total = mesh.sum_files(parts).view(-1, 257)
-        v = valid.repeat_interleave(x).to(mesh.home, non_blocking=True)
+        v = lengths[mesh.home].lengths
         scores = (WEIGHT_SCALE * v - total[:, 0]
                   + entropy_from_histograms(total[:, 1:], prefix_lengths(v, mesh.home)))
         return scores.view(-1, x)[:, [labels.index(c) for c in range(x)]]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Count the machine instructions (SASS) of the port's CUDA kernels.
 
-    python3 scripts/sass_ops.py [--dump PATH] [--same-as OTHER_DUMP]
+    python3 scripts/sass_ops.py [--dump PATH] [--same-as OTHER_DUMP [--changed REGEX]]
 
 Builds the kernel library of ``dxt_lossless_transform_tpu_torch`` if needed (nvcc),
 disassembles it with ``cuobjdump -sass`` and prints one JSON object: for each
@@ -10,7 +10,9 @@ instructions it jumps back over) the same counts. ``chip_smoke.py`` takes its
 integer-operation counts per item from this output; ``--dump`` also writes the
 whole disassembly to PATH. ``--same-as`` reads another build's ``--dump`` (of a
 parent commit, say) and adds which of its kernels have no twin here, instruction
-for instruction (opcodes and operands, addresses aside), whatever their names.
+for instruction (opcodes and operands, addresses aside), whatever their names;
+``--changed`` names (a regular expression over the mangled names) the kernels that
+a change meant to alter, and the script exits 1 when any other kernel lost its twin.
 
 Classes: ``alu`` is per-thread integer and logic work (IADD3, LOP3, SHF, ISETP,
 IMAD, LEA, PRMT, SEL, MOV, ...); ``uniform`` runs once per warp on the uniform
@@ -120,6 +122,8 @@ def main() -> int:
     ap.add_argument("--dump", help="also write the whole disassembly here")
     ap.add_argument("--same-as", help="another build's --dump: report its kernels "
                                       "that have no instruction-for-instruction twin")
+    ap.add_argument("--changed", help="with --same-as: the kernels that may lose their "
+                                      "twin (a regular expression); any other fails")
     args = ap.parse_args()
     from dxt_lossless_transform_tpu_torch import backend
 
@@ -139,11 +143,13 @@ def main() -> int:
         with open(args.same_as) as f:
             other = bodies(f.read())
         mine = {tuple(body) for body in bodies(sass).values()}
-        out["same_as"] = {"dump": args.same_as, "kernels": len(other),
-                          "without_twin": [name for name, body in other.items()
-                                           if tuple(body) not in mine]}
+        lost = [name for name, body in other.items() if tuple(body) not in mine]
+        out["same_as"] = {"dump": args.same_as, "kernels": len(other), "without_twin": lost}
+        if args.changed is not None:
+            out["same_as"]["unexpected"] = [name for name in lost
+                                            if not re.search(args.changed, name)]
     print(json.dumps(out, indent=1))
-    return 0
+    return 1 if out.get("same_as", {}).get("unexpected") else 0
 
 
 if __name__ == "__main__":

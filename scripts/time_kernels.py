@@ -1,32 +1,38 @@
 #!/usr/bin/env python3
-"""Time the BC1-, BC3-, BC7- and RGBA8888-path kernels and files of a checkout of
-the PyTorch port on one card, in a fresh process, so that two versions of the port
-can be compared in turns within one call (parent, change, change, parent).
+"""Time every kernel of the PyTorch port at the main path's shapes, on one card, for
+a checkout given by its directory, in a fresh process, so that two versions of the
+port can be compared in turns within one call (parent, change, change, parent).
 
     python3 scripts/time_kernels.py [--root DIR] [--iters N]
 
 ``--root`` is the directory that holds the ``dxt_lossless_transform_tpu_torch``
-package to time (default: this checkout). On the 4096x4096 BC1 file of
-``chip_smoke.py`` (1,398,103 blocks) it times ``dlt_bc1_transform`` and
-``dlt_bc1_untransform`` (variant 1, split), ``dlt_bc1_regions`` and
-``dlt_ltu_counts`` with the default offsets on the 8 COMPREHENSIVE colour rows:
-CUDA-event medians of N launches, the 50 MB L2 flushed before each, as
-``chip_smoke.py`` times them. On the 4096x4096 BC3 file it times
-``dlt_bc3_transform`` and ``dlt_bc3_untransform`` (variant 1, split alpha, split
-colour) and ``dlt_bc3_regions`` (COMPREHENSIVE). For both files it takes the host
-wall time of the whole FAST auto-transform of the file through ``DdsHandler`` and of
-its untransform (medians of 5, ``file_s``). Where the checkout has the BC7/BC6H
-slice (``ops/cuda/planes.py``), it also times ``dlt_bc7_transform`` and
-``dlt_bc7_untransform`` (sort and planes) on the 4096x4096 BC7 DX10 file of
-``chip_smoke.py`` and that file's LTU auto-transform and untransform. Where it has
-the RGB slice (``ops/cuda/channels.py``), it also times ``dlt_rgb_transform`` and
-``dlt_rgb_untransform`` (split only, the file's LTU pick, and decorrelate+split, the
-default) on the 4096x4096 RGBA8888 file of ``chip_smoke.py`` (16,777,216 pixels)
-and that file's LTU auto-transform and untransform. Where it has the batch
-pipeline's slice (``planes.deinterleave_words``), it also times
-``dlt_ltu_counts_rows`` on the BC1 COMPREHENSIVE rows, every row at the file's
-length, and ``dlt_deinterleave_words`` for k = 2 and 4 at N = 2,097,152 words per
-stream. Prints the ``nvidia-smi`` line and one JSON object.
+package to time (default: this checkout). Each entry of ``ms`` is a CUDA-event
+median of N calls of one kernel wrapper, the 50 MB L2 flushed before each by reading
+a 64 MiB buffer (``chip_smoke.kernel_ms``, the one timing method, which this script
+imports from this checkout with the shapes below), at the shapes of
+``chip_smoke.py``'s times phase: the 4096x4096 DDS files of ``chip_smoke.py``
+(1,398,103 blocks; BC1-BC5 from ``make_dds(seed=7)``, BC7 realistic and BC6H random
+blocks, RGBA8888, BGRA8888 and BGR888 at 16,777,216 pixels), each format's shuffle
+kernels in the setting ``chip_smoke.py`` times, the region kernels for the FAST and
+COMPREHENSIVE candidates, the count kernel (default ladder) on each search's
+candidate rows, the mode-sort kernels in their three launching settings on BC7 and
+BC6H, the RGB kernels in their three non-identity settings of each layout, the word
+deinterleave at the largest batch's N (2,097,152 words a stream), the per-row count
+kernel on the BC1 batch's 16 rows of 2,097,152 bytes and the windowed one on them
+cut into 8 shards, timed as the sum of its 8 launches' medians. ``library`` holds
+the one PyTorch call that moves the same bytes (``.t().contiguous()``) beside the
+mode-sort, deinterleave and RGB kernels. Where the checkout can say (its
+``launch_shape`` queries), ``shapes`` holds the count and untransform launches'
+grids and the blocks the card holds at once.
+
+``host_s`` holds host wall times, synchronised, medians of 5: the search alone and
+the untransform through ``DdsHandler`` of the 4096x4096 BC1 (FAST), BC7 and BC6H
+files, as ``chip_smoke.py`` takes them, and, medians of 3, the BC1 and BC7 batches
+of ``chip_smoke.py``'s corpus (``BatchProcessor``, ``ModeSortBatchProcessor``) with
+each stage of one ``timing=True`` run, and the BC1 batch on the (1, 1) and (1, 8)
+meshes of the card. They are taken in this fresh process, so that two trees compare
+without ``chip_smoke.py``'s check phase before them. Prints the ``nvidia-smi`` line
+and one JSON object.
 """
 
 from __future__ import annotations
@@ -39,12 +45,20 @@ import subprocess
 import sys
 import time
 
+# this script's checkout holds chip_smoke.py: its shapes, its corpus and its timing
+# method; the package timed stays the one under ``--root``, first on the path
+sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import (  # noqa: E402
+    BATCH_MAX, LARGEST_BATCH_N, MIPS, SEED, SIZE, batch_corpus, bc1_batch_rows,
+    kernel_ms, shard_windows,
+)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
     import torch
 
@@ -54,136 +68,217 @@ def main() -> int:
     from dxt_lossless_transform_tpu_torch import backend
     from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
     from dxt_lossless_transform_tpu_torch.estimate.ltu import (
-        DEFAULT_OFFSETS, offset_weight,
+        DEFAULT_OFFSETS, LtuEstimation, offset_weight,
     )
-    from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
+    from dxt_lossless_transform_tpu_torch.ops import auto, bc7, rgb
+    from dxt_lossless_transform_tpu_torch.ops.cuda import channels, planes, regions, shuffle
+    from dxt_lossless_transform_tpu_torch.settings import (
+        BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
+        BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
+        BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, RGB_FAST_CANDIDATES,
+    )
+    from dxt_lossless_transform_tpu_torch.utils.testgen import (
+        bc_blocks, chain_blocks, make_dds, make_dx10_dds, make_uncompressed_dds,
+    )
+
+    dev = torch.device("cuda", 0)
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+
+    def event_ms(fn) -> float:
+        return kernel_ms(fn, args.iters, flush)
+
+    ks = sorted(DEFAULT_OFFSETS)
+    ws = [offset_weight(k) for k in ks]
+    n = chain_blocks(SIZE, SIZE)
+    xs = {fmt: backend.upload(make_dds(fmt, SIZE, SIZE, MIPS, seed=SEED)[0x80:], dev)
+          for fmt in ("BC1", "BC2", "BC3", "BC4", "BC5")}
+    xs["BC7"] = backend.upload(make_dx10_dds("BC7", SIZE, SIZE, MIPS, seed=SEED)[0x94:], dev)
+    xs["BC6H"] = backend.upload(bc_blocks(n, 16, SEED), dev)
+    ms, library, shapes = {}, {}, {}
+
+    def counts(label: str, rows: torch.Tensor, valid: int) -> None:
+        ms[f"dlt_ltu_counts/{label}"] = event_ms(
+            lambda: cuda_ltu.ltu_counts(rows, valid, ks, ws))
+
+    # BC1 and BC2: variant 1 split; regions and counts for both candidate sets
+    for fmt, fast, comprehensive in (
+            ("bc1", BC1_FAST_CANDIDATES, BC1_COMPREHENSIVE_CANDIDATES),
+            ("bc2", BC2_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES)):
+        x = xs[fmt.upper()]
+        t = getattr(shuffle, f"{fmt}_transform")(x, 1, True)
+        ms[f"dlt_{fmt}_transform"] = event_ms(
+            lambda: getattr(shuffle, f"{fmt}_transform")(x, 1, True))
+        ms[f"dlt_{fmt}_untransform"] = event_ms(
+            lambda: getattr(shuffle, f"{fmt}_untransform")(t, 1, True))
+        for label, cand in (("fast", fast), ("comprehensive", comprehensive)):
+            key = auto.colour_keys(cand)[0]
+            region = getattr(regions, f"{fmt}_regions")
+            ms[f"dlt_{fmt}_regions/{label}"] = event_ms(lambda: region(x, key))
+            counts(f"{fmt}_{label}" if fmt != "bc1" else label, region(x, key), 4 * n)
+    # BC3: variant 1, split alpha, split colour
+    x3 = xs["BC3"]
+    t3 = shuffle.bc3_transform(x3, 1, True, True)
+    ms["dlt_bc3_transform"] = event_ms(lambda: shuffle.bc3_transform(x3, 1, True, True))
+    ms["dlt_bc3_untransform"] = event_ms(lambda: shuffle.bc3_untransform(t3, 1, True, True))
+    for label, cand in (("fast", BC3_FAST_CANDIDATES),
+                        ("comprehensive", BC3_COMPREHENSIVE_CANDIDATES)):
+        akeys, ckeys = auto.bc3_keys(cand)[:2]
+        ms[f"dlt_bc3_regions/{label}"] = event_ms(
+            lambda: regions.bc3_regions(x3, akeys, ckeys))
+        alpha, colour = regions.bc3_regions(x3, akeys, ckeys)
+        counts(f"bc3_alpha_{label}", alpha, 2 * n)
+        counts(f"bc3_colour_{label}", colour, 4 * n)
+    # BC4 and BC5: split; the endpoint rows of both settings
+    for fmt, ep in (("bc4", 2), ("bc5", 4)):
+        x = xs[fmt.upper()]
+        fwd, inv = getattr(shuffle, f"{fmt}_transform"), getattr(shuffle, f"{fmt}_untransform")
+        t = fwd(x, True)
+        ms[f"dlt_{fmt}_transform"] = event_ms(lambda: fwd(x, True))
+        ms[f"dlt_{fmt}_untransform"] = event_ms(lambda: inv(t, True))
+        counts(f"{fmt}_endpoints", torch.stack([fwd(x, True)[:ep * n],
+                                                fwd(x, False)[:ep * n]]), ep * n)
+    # BC7 and BC6H: the three launching settings of both directions, each beside the
+    # PyTorch call that moves the same bytes; the search's two scoring calls
+    for fmt, fmt_id, cand in (("BC7", planes.BC7, BC7_FAST_CANDIDATES),
+                              ("BC6H", planes.BC6H, BC6H_FAST_CANDIDATES)):
+        xm = xs[fmt]
+        for sort, split in ((False, True), (True, False), (True, True)):
+            label = f"{fmt.lower()}_{'sort_' if sort else ''}{'planes' if split else 'blocks'}"
+            tm = planes.bc7_transform(xm, fmt_id, sort, split)
+            ms[f"dlt_bc7_transform/{label}"] = event_ms(
+                lambda: planes.bc7_transform(xm, fmt_id, sort, split))
+            ms[f"dlt_bc7_untransform/{label}"] = event_ms(
+                lambda: planes.bc7_untransform(tm, n, sort, split))
+            library[f"dlt_bc7_untransform/{label}"] = event_ms(
+                lambda: tm[-16 * n:].view(16, n).t().contiguous())
+            if hasattr(planes, "untransform_launch_shape"):
+                shapes[f"dlt_bc7_untransform/{label}"] = planes.untransform_launch_shape(
+                    n, sort, split, dev)
+        library[f"dlt_bc7_transform/{fmt.lower()}_planes"] = event_ms(
+            lambda: xm.view(n, 16).t().contiguous())
+        _, streams = bc7.candidate_streams(xm, fmt_id, LtuEstimation(), cand, fmt)
+        for sort in (False, True):
+            rows = torch.stack([streams[sort, split] for split in (False, True)])
+            counts(f"{fmt.lower()}_{'sorted' if sort else 'unsorted'}", rows, rows.shape[1])
+    # RGB: every non-identity setting of each layout, both directions; the count
+    # kernel on each file's four candidate rows
+    pixels = SIZE * SIZE
+    for layout in ("rgba8888", "bgra8888", "bgr888"):
+        xr = backend.upload(make_uncompressed_dds(layout, SIZE, SIZE, seed=SEED)[0x80:], dev)
+        stride = channels.LAYOUTS[layout][0]
+        for dec, split in ((True, True), (True, False), (False, True)):
+            rgb_args = (*channels.LAYOUTS[layout], dec, split)
+            label = f"{layout}_{'dec_' if dec else ''}{'split' if split else 'interleaved'}"
+            tr = channels.rgb_transform(xr, *rgb_args)
+            ms[f"dlt_rgb_transform/{label}"] = event_ms(
+                lambda: channels.rgb_transform(xr, *rgb_args))
+            ms[f"dlt_rgb_untransform/{label}"] = event_ms(
+                lambda: channels.rgb_untransform(tr, *rgb_args))
+        library[f"dlt_rgb_transform/{layout}_split"] = event_ms(
+            lambda: xr.view(pixels, stride).t().contiguous())
+        _, rows = rgb.candidate_rows(xr, layout, LtuEstimation(), RGB_FAST_CANDIDATES)
+        rows = torch.stack(list(rows.values()))
+        counts(layout, rows, rows.shape[1])
+        del xr, tr, rows
+    # the word deinterleave at the largest batch's N, k = 2 and 4
+    for k in (2, 4):
+        xw = torch.zeros(k * LARGEST_BATCH_N, dtype=torch.int32, device=dev).random_()
+        ms[f"dlt_deinterleave_words/k{k}"] = event_ms(lambda: planes.deinterleave_words(xw, k))
+        library[f"dlt_deinterleave_words/k{k}"] = event_ms(
+            lambda: xw.view(-1, k).t().contiguous())
+    # the per-row count kernel on the BC1 batch's rows (the four 2048x2048 chains of
+    # the 524,288-block bucket, each candidate key's colour row) and the windowed one
+    # on them cut into 8 shards with their halos, the 8 launches of one mesh scoring;
+    # lengths on the host, as every checkout's wrapper takes them
+    brows, n_big = bc1_batch_rows(batch_corpus("bc1"), dev)
+    bvalid = torch.full((brows.shape[0],), 4 * n_big)
+    ms["dlt_ltu_counts_rows/bc1_batch"] = event_ms(
+        lambda: cuda_ltu.ltu_counts(brows, bvalid, ks, ws))
+    nb = 8
+    windows, lc = shard_windows(brows, nb)
+    ms["dlt_ltu_counts_windowed/8_shards"] = sum(
+        event_ms(lambda: cuda_ltu.ltu_counts_windowed(w, bvalid, s * lc - cuda_ltu.SPAN,
+                                                      ks, ws))
+        for s, w in enumerate(windows))
+    if hasattr(cuda_ltu, "launch_shape"):
+        shapes["dlt_ltu_counts/comprehensive"] = cuda_ltu.launch_shape(8, 4 * n - 3,
+                                                                       "scalar", dev)
+        shapes["dlt_ltu_counts_rows/bc1_batch"] = cuda_ltu.launch_shape(
+            brows.shape[0], 4 * n_big - 3, "rows", dev)
+        shapes["dlt_ltu_counts_windowed/8_shards"] = cuda_ltu.launch_shape(
+            brows.shape[0], lc, "windowed", dev)
+    del windows, brows
+    host_s = host_times(args.root, torch, dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(json.dumps({"root": args.root, "library_file": backend.library_path().name,
+                      "iters": args.iters, "ms": ms, "library": library,
+                      "windowed_launches": nb, "shapes": shapes, "host_s": host_s}))
+    return 0
+
+
+def host_times(root: str, torch, dev) -> dict:
+    """The host wall times of ``host_s`` (see the module's docstring)."""
+    from dxt_lossless_transform_tpu_torch import backend, parallel
     from dxt_lossless_transform_tpu_torch.api import (
-        Bc1AutoTransformBuilder, Bc3AutoTransformBuilder,
+        Bc1AutoTransformBuilder, Bc6hAutoTransformBuilder, Bc7AutoTransformBuilder,
     )
     from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
     from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
     from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
-    from dxt_lossless_transform_tpu_torch.ops import auto
+    from dxt_lossless_transform_tpu_torch.ops import auto, bc7
+    from dxt_lossless_transform_tpu_torch.ops.cuda import planes
     from dxt_lossless_transform_tpu_torch.settings import (
-        BC1_COMPREHENSIVE_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES,
+        BC1_FAST_CANDIDATES, BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES,
     )
-    from dxt_lossless_transform_tpu_torch.utils.testgen import make_dds
+    from dxt_lossless_transform_tpu_torch.utils.testgen import (
+        bc_blocks, chain_blocks, make_dds, make_dx10_dds,
+    )
 
-    dev = torch.device("cuda", 0)
-    dds = {fmt: make_dds(fmt, 4096, 4096, 13, seed=7) for fmt in ("BC1", "BC3")}
-    x = backend.upload(dds["BC1"][0x80:], dev)
-    x3 = backend.upload(dds["BC3"][0x80:], dev)
-    alpha_keys, colour_keys, _, _ = auto.bc3_keys(BC3_COMPREHENSIVE_CANDIDATES)
-    t3 = shuffle.bc3_transform(x3, 1, True, True)
-    n = x.numel() // 8
-    key = tuple((int(c.decorrelation_mode), c.split_colour_endpoints)
-                for c in BC1_COMPREHENSIVE_CANDIDATES)
-    ks = sorted(DEFAULT_OFFSETS)
-    ws = [offset_weight(k) for k in ks]
-    t = shuffle.bc1_transform(x, 1, True)
-    rows = regions.bc1_regions(x, key)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-
-    def event_ms(fn) -> float:
+    def wall_s(fn, reps: int) -> float:
         fn()
         times = []
-        for _ in range(args.iters):
-            flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
-    ms = {
-        "dlt_bc1_transform": event_ms(lambda: shuffle.bc1_transform(x, 1, True)),
-        "dlt_bc1_untransform": event_ms(lambda: shuffle.bc1_untransform(t, 1, True)),
-        "dlt_bc1_regions": event_ms(lambda: regions.bc1_regions(x, key)),
-        "dlt_ltu_counts": event_ms(lambda: cuda_ltu.ltu_counts(rows, 4 * n, ks, ws)),
-        "dlt_bc3_transform": event_ms(lambda: shuffle.bc3_transform(x3, 1, True, True)),
-        "dlt_bc3_untransform": event_ms(
-            lambda: shuffle.bc3_untransform(t3, 1, True, True)),
-        "dlt_bc3_regions": event_ms(
-            lambda: regions.bc3_regions(x3, alpha_keys, colour_keys)),
-    }
-    handler = DdsHandler()
-    bundles = {"BC1": TransformBundle(bc1=Bc1AutoTransformBuilder(LtuEstimation())),
-               "BC3": TransformBundle(bc3=Bc3AutoTransformBuilder(LtuEstimation()))}
-
-    def wall_s(fn) -> float:
-        fn()
-        times = []
-        for _ in range(5):
+        for _ in range(reps):
             start = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - start)
         return statistics.median(times)
 
-    try:
-        from dxt_lossless_transform_tpu_torch.api import Bc7AutoTransformBuilder
-        from dxt_lossless_transform_tpu_torch.ops.cuda import planes
-        from dxt_lossless_transform_tpu_torch.utils.testgen import make_dx10_dds
-    except ImportError:  # a checkout from before the BC7/BC6H slice
-        planes = None
-    if planes is not None:
-        dds["BC7"] = make_dx10_dds("BC7", 4096, 4096, 13, seed=7)
-        bundles["BC7"] = TransformBundle(bc7=Bc7AutoTransformBuilder(LtuEstimation()))
-        x7 = backend.upload(dds["BC7"][0x94:], dev)
-        t7 = planes.bc7_transform(x7, planes.BC7, True, True)
-        ms["dlt_bc7_transform"] = event_ms(
-            lambda: planes.bc7_transform(x7, planes.BC7, True, True))
-        ms["dlt_bc7_untransform"] = event_ms(
-            lambda: planes.bc7_untransform(t7, n, True, True))
-
-    try:
-        from dxt_lossless_transform_tpu_torch.api import RgbAutoTransformBuilder
-        from dxt_lossless_transform_tpu_torch.ops.cuda import channels
-        from dxt_lossless_transform_tpu_torch.utils.testgen import make_uncompressed_dds
-    except ImportError:  # a checkout from before the RGB slice
-        channels = None
-    if channels is not None:
-        dds["RGBA8888"] = make_uncompressed_dds("rgba8888", 4096, 4096, seed=7)
-        bundles["RGBA8888"] = TransformBundle(
-            rgba8888=RgbAutoTransformBuilder("rgba8888", LtuEstimation()))
-        xr = backend.upload(dds["RGBA8888"][0x80:], dev)
-        for dec in (False, True):
-            rgb_args = (*channels.LAYOUTS["rgba8888"], dec, True)
-            tr = channels.rgb_transform(xr, *rgb_args)
-            label = "dec_split" if dec else "split"
-            ms[f"dlt_rgb_transform/{label}"] = event_ms(
-                lambda: channels.rgb_transform(xr, *rgb_args))
-            ms[f"dlt_rgb_untransform/{label}"] = event_ms(
-                lambda: channels.rgb_untransform(tr, *rgb_args))
-
-    if planes is not None and hasattr(planes, "deinterleave_words"):
-        # the batch pipeline's slice: the per-row count kernel on the same 8 rows
-        # (every row at 4n, so it reads as the scalar kernel above), and the word
-        # deinterleave at the largest batch's N of chip_smoke.py's corpus
-        valid = torch.full((rows.shape[0],), 4 * n)
-        ms["dlt_ltu_counts_rows"] = event_ms(
-            lambda: cuda_ltu.ltu_counts(rows, valid, ks, ws))
-        for k in (2, 4):
-            xw = torch.zeros(k * 2_097_152, dtype=torch.int32, device=dev).random_()
-            ms[f"dlt_deinterleave_words/k{k}"] = event_ms(
-                lambda: planes.deinterleave_words(xw, k))
-
-    file_s = {}
-    for fmt, data in dds.items():
-        out = handler.transform_bundle(data, bundles[fmt])
-        file_s[f"{fmt}_transform_fast"] = wall_s(
-            lambda: handler.transform_bundle(data, bundles[fmt]))
-        file_s[f"{fmt}_untransform"] = wall_s(lambda: handler.untransform(out))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi)
-    print(json.dumps({"root": args.root, "library": backend.library_path().name,
-                      "iters": args.iters, "ms": ms, "file_s": file_s}))
-    return 0
+    out = {}
+    handler = DdsHandler()
+    files = {
+        "BC1": (make_dds("BC1", SIZE, SIZE, MIPS, seed=SEED),
+                TransformBundle(bc1=Bc1AutoTransformBuilder(LtuEstimation())), 0x80,
+                lambda x: auto.candidate_scores(x, LtuEstimation(), BC1_FAST_CANDIDATES)),
+        "BC7": (make_dx10_dds("BC7", SIZE, SIZE, MIPS, seed=SEED),
+                TransformBundle(bc7=Bc7AutoTransformBuilder(LtuEstimation())), 0x94,
+                lambda x: bc7.candidate_streams(x, planes.BC7, LtuEstimation(),
+                                                BC7_FAST_CANDIDATES, "BC7")),
+        "BC6H": (make_dx10_dds("BC6H", SIZE, SIZE, MIPS,
+                               payload=bc_blocks(chain_blocks(SIZE, SIZE), 16, SEED)),
+                 TransformBundle(bc6h=Bc6hAutoTransformBuilder(LtuEstimation())), 0x94,
+                 lambda x: bc7.candidate_streams(x, planes.BC6H, LtuEstimation(),
+                                                 BC6H_FAST_CANDIDATES, "BC6H"))}
+    for fmt, (data, bundle, header, search) in files.items():
+        x = backend.upload(data[header:], dev)
+        transformed = handler.transform_bundle(data, bundle)
+        out[f"{fmt}_search"] = wall_s(lambda: search(x), 5)
+        out[f"{fmt}_untransform_file"] = wall_s(lambda: handler.untransform(transformed), 5)
+    for fmt, make in (("bc1", parallel.BatchProcessor), ("bc7", parallel.ModeSortBatchProcessor)):
+        data = batch_corpus(fmt)
+        out[f"{fmt}_batch"] = wall_s(lambda: make(fmt, max_batch=BATCH_MAX).process(data), 3)
+        staged = make(fmt, max_batch=BATCH_MAX, timing=True)
+        staged.process(data)
+        out[f"{fmt}_batch_stages"] = staged.times.seconds
+    data = batch_corpus("bc1")
+    for name, devices in (("1x1", [dev]), ("1x8", [dev] * 8)):
+        mesh = parallel.make_mesh(devices=devices)
+        out[f"bc1_batch_mesh_{name}"] = wall_s(lambda: parallel.BatchProcessor(
+            "bc1", mesh=mesh, max_batch=BATCH_MAX).process(data), 3)
+    return out
 
 
 if __name__ == "__main__":

@@ -34,11 +34,14 @@ BC3_SIZES = [1, 2, 3, 5, 2047, 2049, 100003]
 BC2_SETTINGS = list(Bc2TransformSettings.all_combinations())
 # the sizes of the CPU tests against the JAX package, odd n included
 SLICE3_SIZES = [1, 2, 3, 5, 2047, 2049, 70000]
-# offsets beyond the 4096-byte halo, and a 40-offset ladder (the far instantiation)
+# ladders of the generic count kernel: offsets beyond the 4096-byte halo, a
+# 40-offset ladder, and one within the halo that is no prefix of the default ladder
+# (the default without offset 3)
 FAR_OFFSETS = (1, 2, 4096, 4097, 8192, 65536)
 LADDER_40 = tuple(sorted(set(DEFAULT_OFFSETS) | {
     7, 9, 10, 11, 13, 14, 15, 20, 28, 40, 80, 160, 384, 768, 1536, 3072, 6144, 12288,
     24576, 49152}))
+NEAR_LADDER = tuple(k for k in sorted(DEFAULT_OFFSETS) if k != 3)
 
 
 @pytest.fixture
@@ -135,7 +138,8 @@ def _periodic_rows(length, dev):
 
 
 @pytest.mark.parametrize("length", [5, 4101, 70001, 140002])
-@pytest.mark.parametrize("ks", [FAR_OFFSETS, LADDER_40], ids=["far", "ladder40"])
+@pytest.mark.parametrize("ks", [FAR_OFFSETS, LADDER_40, NEAR_LADDER],
+                         ids=["far", "ladder40", "near"])
 def test_scorer_kernel_far_and_many_offsets(cuda, ks, length):
     rows = _periodic_rows(length, cuda)
     ws = [offset_weight(k) for k in ks]
@@ -494,7 +498,8 @@ ROW_LENGTHS = [0, 1, 2, 3, 4, 5, 7, 4099, 8191, 8195, 20_001, 65_535, 65_536]
 
 
 @pytest.mark.parametrize("offsets", [tuple(sorted(DEFAULT_OFFSETS)), FAR_OFFSETS,
-                                     LADDER_40], ids=["default", "far", "ladder40"])
+                                     LADDER_40, NEAR_LADDER],
+                         ids=["default", "far", "ladder40", "near"])
 def test_counts_rows_kernel(cuda, offsets):
     rng = np.random.default_rng(len(offsets))
     rows = torch.from_numpy(rng.integers(0, 3, (len(ROW_LENGTHS), 65_536),
@@ -589,11 +594,13 @@ def test_mode_sort_and_rgb_batches_on_the_card(cuda, fmt):
         [(r.transformed, r.settings) for r in got]) == data
 
 
-# the windowed count's ladders: offsets up to its SPAN-byte halo, beyond the near
-# kernel's 4096 bytes, and 40 offsets (the far instantiation)
+# the windowed count's ladders: the default, offsets up to its SPAN-byte halo
+# (beyond the 4096 bytes staged in shared memory), 40 offsets, and the generic
+# kernel's ladder within 4096
 WINDOW_LADDERS = {"default": tuple(sorted(DEFAULT_OFFSETS)),
                   "far": (1, 2, 4096, 4097, 8192, cuda_ltu.SPAN),
-                  "ladder40": LADDER_40[:-1] + (cuda_ltu.SPAN,)}
+                  "ladder40": LADDER_40[:-1] + (cuda_ltu.SPAN,),
+                  "near": NEAR_LADDER}
 
 
 @pytest.mark.parametrize("ladder", list(WINDOW_LADDERS))
@@ -680,3 +687,188 @@ def test_mode_sort_and_untransform_steps_under_a_mesh_on_the_card(cuda):
     out = untransform_step(mesh, "bc3", s)(*[st.to(cuda) for st in streams])
     assert torch.equal(out.cpu().view(torch.uint8),
                        torch.stack([p[:16 * 2049] for p in payloads]))
+
+
+# ---- the default-ladder count kernel and the tiled untransform -----------------------
+
+DEFAULT_KS = tuple(sorted(DEFAULT_OFFSETS))
+DEFAULT_WS = tuple(offset_weight(k) for k in DEFAULT_KS)
+
+
+def _count_rows(kind, c, length, seed):
+    """Rows whose grams match at every distance (zeros), often (two byte values, or
+    a short period with a few flips) or seldom (random bytes)."""
+    rng = np.random.default_rng(seed)
+    if kind == "zeros":
+        return np.zeros((c, length), np.uint8)
+    if kind == "binary":
+        return rng.integers(0, 2, (c, length), np.uint8)
+    if kind == "random":
+        return rng.integers(0, 256, (c, length), np.uint8)
+    rows = np.empty((c, length), np.uint8)
+    for r in range(c):
+        rows[r] = np.resize(rng.integers(0, 4, int(rng.integers(1, 300)), np.uint8), length)
+        rows[r, rng.integers(0, length, length // 50)] ^= 1
+    return rows
+
+
+@pytest.mark.parametrize("kind", ["zeros", "binary", "periodic", "random"])
+@pytest.mark.parametrize("length", [5, 6, 7, 8, 33, 4098, 4099, 4100, 4101, 8195, 20001,
+                                    20002, 20003, 20004, 70003])
+def test_default_counts_kernel(cuda, length, kind):
+    """The default ladder at row lengths of every residue mod 4, from 5 bytes (one
+    position) to several tiles, rows shorter than the largest offset among them (the
+    wrapper passes the whole ladder, the kernel's stream-head guard zeroes the offsets
+    a row does not reach): one length for all rows, and ragged per-row lengths (0-3
+    among them)."""
+    rows = torch.from_numpy(_count_rows(kind, 5, length, length)).to(cuda)
+    for valid in sorted({length, max(length - 1, 0), max(length - 6, 0)}):
+        assert torch.equal(cuda_ltu.ltu_counts(rows, valid, DEFAULT_KS, DEFAULT_WS),
+                           cuda_ltu.ltu_counts_plain(rows, valid, DEFAULT_KS, DEFAULT_WS))
+    ragged = torch.tensor([length, length // 2, 3, 0, max(length - 5, 0)])
+    assert torch.equal(cuda_ltu.ltu_counts(rows, ragged, DEFAULT_KS, DEFAULT_WS),
+                       cuda_ltu.ltu_counts_plain(rows, ragged, DEFAULT_KS, DEFAULT_WS))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("length", [4097, 10003, 65538])
+def test_default_counts_of_unaligned_rows(cuda, offset, length):
+    """Rows that start at every byte alignment: a tensor at an odd offset into its
+    storage, and rows whose length is no multiple of 4."""
+    flat = torch.from_numpy(_count_rows("periodic", 1, 3 * length + offset, length)
+                            .reshape(-1)).to(cuda)
+    rows = flat[offset:].view(3, length)
+    assert torch.equal(cuda_ltu.ltu_counts(rows, length, DEFAULT_KS, DEFAULT_WS),
+                       cuda_ltu.ltu_counts_plain(rows, length, DEFAULT_KS, DEFAULT_WS))
+
+
+@pytest.mark.parametrize("kind", ["zeros", "periodic"])
+@pytest.mark.parametrize("nb,length", [(1, 40_000), (8, 8 * 1024), (6, 9_000),
+                                       (3, 70_001), (8, 262_147)])
+def test_default_windowed_counts_kernel(cuda, nb, length, kind):
+    """The default ladder's windows, shard 0 with a negative pos0, chunks shorter and
+    longer than the 32 KiB halo: each against its plain version, and the shards' sum
+    against the uncut rows."""
+    span = cuda_ltu.SPAN
+    rows = torch.from_numpy(_count_rows(kind, 4, length, nb * length)).to(cuda)
+    valid = torch.tensor([length, length - 777, 3, length // 3])
+    chunk = -(-length // nb)
+    padded = torch.nn.functional.pad(rows, (span, span + nb * chunk - length))
+    total = torch.zeros(rows.shape[0], dtype=torch.int64, device=cuda)
+    for s in range(nb):
+        window = padded[:, s * chunk:(s + 1) * chunk + 2 * span].contiguous()
+        got = cuda_ltu.ltu_counts_windowed(window, valid, s * chunk - span, DEFAULT_KS,
+                                           DEFAULT_WS)
+        assert torch.equal(got, cuda_ltu.ltu_counts_windowed_plain(
+            window, valid, s * chunk - span, DEFAULT_KS, DEFAULT_WS)), s
+        total += got
+    assert torch.equal(total, cuda_ltu.ltu_counts(rows, valid, DEFAULT_KS, DEFAULT_WS))
+
+
+@pytest.mark.parametrize("n", [1, 5, 19])
+def test_default_prefix_counts_its_own_rungs(cuda, n):
+    """A prefix of the default ladder on 70,000-byte rows, beyond the whole ladder's
+    reach, counts with its own rungs only (it takes the generic kernel's table), in
+    all three forms: one length, per-row lengths and the windows of 2 shards."""
+    span, ks, ws = cuda_ltu.SPAN, DEFAULT_KS[:n], DEFAULT_WS[:n]
+    rows = torch.from_numpy(_count_rows("periodic", 4, 70_000, n)).to(cuda)
+    want = cuda_ltu.ltu_counts_plain(rows, 70_000, ks, ws)
+    # the rows tell the prefix from the whole ladder
+    assert not torch.equal(want, cuda_ltu.ltu_counts_plain(rows, 70_000, DEFAULT_KS,
+                                                           DEFAULT_WS))
+    assert torch.equal(cuda_ltu.ltu_counts(rows, 70_000, ks, ws), want)
+    valid = torch.tensor([70_000, 69_999, 5_000, 4_101])
+    want = cuda_ltu.ltu_counts_plain(rows, valid, ks, ws)
+    assert torch.equal(cuda_ltu.ltu_counts(rows, valid, ks, ws), want)
+    padded = torch.nn.functional.pad(rows, (span, span))
+    total = torch.zeros(rows.shape[0], dtype=torch.int64, device=cuda)
+    for s in range(2):
+        window = padded[:, s * 35_000:(s + 1) * 35_000 + 2 * span].contiguous()
+        got = cuda_ltu.ltu_counts_windowed(window, valid, s * 35_000 - span, ks, ws)
+        assert torch.equal(got, cuda_ltu.ltu_counts_windowed_plain(
+            window, valid, s * 35_000 - span, ks, ws)), s
+        total += got
+    assert torch.equal(total, want)
+
+
+@pytest.mark.parametrize("shards", [1, 8, 6])
+def test_default_counts_launch_shape(cuda, shards):
+    """The windowed launches of the BC1 batch's 16 rows of 2,097,152 bytes cut into
+    1, 8 and 6 shards cover the blocks the card holds at once: the full 8192-position
+    tile where it does, else a tile of whole passes of 1024 positions (a word of four
+    a thread) no shorter than it must be; the uncut rows keep the full tile."""
+    chunk = -(-2_097_152 // shards)
+    shape = cuda_ltu.launch_shape(16, chunk, "windowed", cuda)
+    tile, resident = shape["tile"], shape["resident"]
+    assert resident > 0
+    assert tile % 1024 == 0 and 1024 <= tile <= 8192
+    if -(-chunk // 8192) * 16 >= resident:
+        assert tile == 8192
+    else:
+        assert chunk * 16 / resident < tile + 1024
+    assert shape["grid"] == [-(-chunk // tile), 16]
+    assert shape["blocks"] >= resident
+    rows = cuda_ltu.launch_shape(16, 2_097_149, "rows", cuda)
+    assert rows["tile"] == 8192 and rows["blocks"] >= rows["resident"]
+    assert cuda_ltu.launch_shape(70_000, 9, "scalar", cuda)["grid"] == [1, 65_535]
+
+
+@pytest.mark.parametrize("ks", [DEFAULT_OFFSETS, NEAR_LADDER, FAR_OFFSETS],
+                         ids=["default", "near", "far"])
+def test_counts_of_lengths_on_the_card(cuda, ks):
+    """Lengths copied to the card once, with the longest from the host, as a mesh
+    step passes them: the per-row and the windowed kernels count as with lengths on
+    the host."""
+    ks = tuple(sorted(ks))
+    ws = [offset_weight(k) for k in ks]
+    rows = torch.from_numpy(_count_rows("periodic", 6, 90_001, 6)).to(cuda)
+    host = torch.tensor([90_001, 77_777, 4_100, 5, 0, 65_537])
+    on_card = cuda_ltu.device_lengths(host, cuda)
+    assert on_card.longest == 90_001 and on_card.lengths.device == rows.device
+    assert torch.equal(cuda_ltu.ltu_counts(rows, on_card, ks, ws),
+                       cuda_ltu.ltu_counts_plain(rows, host, ks, ws))
+    assert torch.equal(cuda_ltu.ltu_counts(rows[2:5], on_card.slice(2, 5), ks, ws),
+                       cuda_ltu.ltu_counts_plain(rows[2:5], host[2:5], ks, ws))
+    if ks[-1] <= cuda_ltu.SPAN:
+        window = torch.nn.functional.pad(rows, (cuda_ltu.SPAN, cuda_ltu.SPAN))
+        assert torch.equal(
+            cuda_ltu.ltu_counts_windowed(window, on_card, -cuda_ltu.SPAN, ks, ws),
+            cuda_ltu.ltu_counts_windowed_plain(window, host, -cuda_ltu.SPAN, ks, ws))
+    with pytest.raises(ValueError):
+        cuda_ltu.ltu_counts(rows, on_card.lengths, ks, ws)
+
+
+UNTRANSFORM_SIZES = [1, 2, 3, 5, 1023, 1024, 1025, 4095, 4096, 4097, 8191, 8193, 12_289,
+                     65_537]
+
+
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+@pytest.mark.parametrize("n", UNTRANSFORM_SIZES)
+@pytest.mark.parametrize("planes_", [True, False], ids=["planes", "blocks"])
+@pytest.mark.parametrize("sort", [True, False], ids=["sort", "nosort"])
+@pytest.mark.parametrize("fmt", [planes.BC7, planes.BC6H], ids=["bc7", "bc6h"])
+def test_bc7_untransform_kernel(cuda, fmt, sort, planes_, n, offset):
+    """Every setting of both formats, n from 1 to past multiples of 4096 (odd ones:
+    the planes at m + p*n take every alignment mod 16), the transformed bytes at 4-byte
+    offsets into a larger tensor, against the plain version."""
+    x = _bc7_blocks(n, cuda, "random" if fmt == planes.BC7 else "realistic")
+    t = planes.bc7_transform_plain(x, fmt, sort, planes_)
+    buf = torch.zeros(t.numel() + 16, dtype=torch.uint8, device=cuda)
+    buf[offset:offset + t.numel()] = t
+    u = planes.bc7_untransform(buf[offset:offset + t.numel()], n, sort, planes_)
+    assert torch.equal(u, planes.bc7_untransform_plain(t, n, sort, planes_))
+    assert torch.equal(u, x)
+
+
+@pytest.mark.parametrize("planes_", [True, False], ids=["planes", "blocks"])
+@pytest.mark.parametrize("sort", [True, False], ids=["sort", "nosort"])
+def test_bc7_untransform_launch_shape(cuda, sort, planes_):
+    """A thread block per 1024-block tile, or with sorting per 4096-block chunk; the
+    sorted forms' chunks of the 4096x4096 file fit in one wave."""
+    n = 1_398_103
+    shape = planes.untransform_launch_shape(n, sort, planes_, cuda)
+    assert shape["span"] == (4096 if sort else 1024)
+    assert shape["grid"] == -(-n // shape["span"])
+    assert shape["threads"] == 256
+    if sort:
+        assert shape["resident"] >= shape["grid"]

@@ -126,13 +126,15 @@ def test_far_and_many_offsets_equal_numpy_twin(offsets, period):
 
 
 def test_far_ladder_selects_the_far_kernel():
+    """Offsets beyond 4096, 33 offsets and a negative weight take the generic kernel;
+    the default ladder takes the default kernel."""
     ks = list(FAR_OFFSETS)
     ws = [ltu.offset_weight(k) for k in ks]
-    assert cuda_ltu.needs_far(ks, ws) and cuda_ltu.needs_far(list(LADDER_40[:33]),
-                                                               [1] * 33)
-    assert cuda_ltu.needs_far([1, 2], [24, -1])
-    assert not cuda_ltu.needs_far(list(ltu.DEFAULT_OFFSETS),
-                                  [ltu.offset_weight(k) for k in ltu.DEFAULT_OFFSETS])
+    assert not cuda_ltu.default_ladder(ks, ws)
+    assert not cuda_ltu.default_ladder(list(LADDER_40[:33]), [1] * 33)
+    assert not cuda_ltu.default_ladder([1, 2], [24, -1])
+    assert cuda_ltu.default_ladder(list(ltu.DEFAULT_OFFSETS),
+                                   [ltu.offset_weight(k) for k in ltu.DEFAULT_OFFSETS])
 
 
 def test_negative_weights_are_summed_signed():
@@ -153,3 +155,45 @@ def test_counts_reject_bad_arguments(bad):
 def test_offset_weight_formula():
     assert [ltu.offset_weight(k) for k in (1, 2, 3, 4096)] == [
         24, 23, 24 - int(round(math.log2(3))), 12]
+
+
+@pytest.mark.parametrize("lengths", [[5000, 4097, 3, 0], [4100, 4100, 4100, 4100]])
+def test_lengths_given_with_the_longest_count_as_host_lengths(lengths):
+    """Lengths already on the rows' device with the longest from the host (a mesh
+    step's one copy, :func:`cuda_ltu.device_lengths`) count as lengths on the host
+    do, in the per-row and the windowed form, and so do the rows of a slice of them,
+    which keep the longest of the whole; the rows' device is the CPU here."""
+    rows = torch.from_numpy(_periodic(4 * 5000, 97).reshape(4, 5000).copy())
+    ks = list(ltu.DEFAULT_OFFSETS)
+    ws = [ltu.offset_weight(k) for k in ks]
+    host = torch.tensor(lengths)
+    given = cuda_ltu.device_lengths(host, rows.device)
+    assert given.longest == max(lengths)
+    assert torch.equal(cuda_ltu.ltu_counts(rows, given, ks, ws),
+                       cuda_ltu.ltu_counts(rows, host, ks, ws))
+    window = torch.nn.functional.pad(rows, (cuda_ltu.SPAN, cuda_ltu.SPAN))
+    assert torch.equal(
+        cuda_ltu.ltu_counts_windowed(window, given, -cuda_ltu.SPAN, ks, ws),
+        cuda_ltu.ltu_counts_windowed(window, host, -cuda_ltu.SPAN, ks, ws))
+    assert torch.equal(cuda_ltu.ltu_counts(rows[1:3], given.slice(1, 3), ks, ws),
+                       cuda_ltu.ltu_counts(rows[1:3], host[1:3], ks, ws))
+
+
+@pytest.mark.parametrize("given,longest", [(torch.tensor([10, 10], dtype=torch.int32), 10),
+                                           (torch.tensor([10], dtype=torch.int64), 10),
+                                           (torch.tensor([10, 10], dtype=torch.int64), 101),
+                                           (torch.tensor([10, 10], dtype=torch.int64), -1)])
+def test_given_lengths_are_checked(given, longest):
+    """Lengths passed with the longest: the wrong type or shape, or a longest past
+    the row, raise before any launch."""
+    rows = torch.zeros((2, 100), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        cuda_ltu.ltu_counts(rows, cuda_ltu.RowLengths(given, longest), [1], [24])
+
+
+@pytest.mark.parametrize("bad", [torch.tensor([[10, 10]]), torch.tensor([10, -1]),
+                                 [10, 10]])
+def test_device_lengths_checks_the_host_lengths(bad):
+    """Lengths to copy must be one (C,) tensor on the host, none negative."""
+    with pytest.raises(ValueError):
+        cuda_ltu.device_lengths(bad, torch.device("cpu"))
