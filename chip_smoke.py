@@ -23,8 +23,12 @@ Phases, each printed as a JSON line with its wall time:
    grid.y holds); inputs shorter than one block through every auto-search; the
    BC7/BC6H mode-sort kernels for all 4 settings of both formats, n in {1, 2, 3,
    4095, 4096, 4097, 1,398,103}, on realistic BC7 blocks and on random blocks with
-   some byte 0 forced to 0; the identity guard's two outcomes on a small input;
-   empty and unaligned input through both mode-sort auto-searches; the RGB channel
+   some byte 0 forced to 0, and on chunks that stress the counting sort (one id
+   throughout, every id in turn, ids descending, one chunk per id) at n in {4095,
+   4096, 4097, 8191, 8193, 1,398,103} and at one chunk per id with a one-block
+   ragged last chunk, each through the round trip, the transform also into rows at
+   byte offsets 0-15 of a larger tensor; the identity guard's two outcomes on a
+   small input; empty and unaligned input through both mode-sort auto-searches; the RGB channel
    kernels for the three non-identity settings of RGBA8888, BGRA8888 and BGR888,
    both directions, n in {1, 2, 3, 4, 5, 4095, 4096, 4097, 16,777,216} pixels, with
    input and output rows at byte offsets 1-3 into larger tensors, and the count
@@ -99,8 +103,8 @@ Phases, each printed as a JSON line with its wall time:
    shown apart; the word deinterleave at the largest batch's N beside its plain
    version and ``.t().contiguous()``, the per-row count kernel on the BC1 batch's
    rows (and the windowed one on them cut into 8 shards: the sum of its 8 launches'
-   medians), the count and untransform launches' grids and the blocks the card holds
-   at once, and each format's batch and
+   medians), the count, transform and untransform launches' grids and the blocks the
+   card holds at once, and each format's batch and
    batched load path against a loop of the per-file entry points, in files/s and
    MB/s, with host assembly, H2D, kernels, D2H and serialization apart; each mesh's
    batch of each BC1-BC5 corpus beside the single-device batch.
@@ -351,8 +355,13 @@ BATCH_REFERENCE = {
 # 2048x2048 chains in the 524,288-block bucket, 2,097,152 blocks
 LARGEST_BATCH_N = 4 * 524_288
 WORD_SIZES = (1, 2, 3, 4095, 4096, 4097, BLOCKS, LARGEST_BATCH_N)
-# the mode-sort kernels' block counts in the check phase
+# the mode-sort kernels' block counts in the check phase, and those of the chunks
+# that stress the transform's counting sort (testgen.mode_sort_edges; each format's
+# one chunk per id with a one-block ragged last chunk besides), the transform also
+# written into rows at every byte offset into a larger tensor
 MODE_SORT_SIZES = (1, 2, 3, 4095, 4096, 4097, BLOCKS)
+MODE_SORT_EDGE_SIZES = (4095, 4096, 4097, 8191, 8193, BLOCKS)
+MODE_SORT_OFFSETS = range(16)
 # rows for the count kernel's many-rows case: more than one launch's grid.y (65,535)
 MANY_ROWS = 70_000
 # The generic count kernel (every ladder but the whole default one): offsets beyond
@@ -536,8 +545,8 @@ def main() -> int:
         Bc4TransformSettings, Bc5TransformSettings, Bc7TransformSettings,
     )
     from dxt_lossless_transform_tpu_torch.utils.testgen import (
-        bc7_realistic, bc_blocks, chain_blocks, make_dds, make_dx10_dds,
-        make_uncompressed_dds,
+        MODE_BYTE0, MODE_SORT_EDGES, bc7_realistic, bc_blocks, chain_blocks, make_dds,
+        make_dx10_dds, make_uncompressed_dds, mode_sort_edges,
     )
 
     dev = torch.device("cuda", 0)
@@ -765,6 +774,37 @@ def main() -> int:
                     compare("dlt_bc7_untransform", u,
                             planes.bc7_untransform_plain(t, n, sort, split), what)
                     compare("dlt_bc7_untransform", u, x, f"{what} round trip")
+    # the counting sort's edge chunks, each format with its own ids, in every setting
+    for fmt, fmt_id in ms_fmt.items():
+        per_id = len(MODE_BYTE0[fmt]) * planes.SORT_CHUNK_BLOCKS + 1
+        for pattern in MODE_SORT_EDGES:
+            for n in MODE_SORT_EDGE_SIZES + (per_id,):
+                x = backend.upload(mode_sort_edges(fmt, n, pattern, seed=n), dev)
+                for sort, split in settings_4:
+                    what = f"{fmt} n={n} {pattern} sort={sort} planes={split}"
+                    t = planes.bc7_transform(x, fmt_id, sort, split)
+                    compare("dlt_bc7_transform", t,
+                            planes.bc7_transform_plain(x, fmt_id, sort, split), what)
+                    compare("dlt_bc7_untransform", planes.bc7_untransform(t, n, sort, split),
+                            x, f"{what} round trip")
+    # the transform into a row at each byte offset of a larger tensor, as the search
+    # writes its candidates: every misalignment of the mode stream, the sorted blocks
+    # and the plane rows; the bytes around the row stay as they were
+    n_row = 8193
+    for fmt, fmt_id in ms_fmt.items():
+        x = backend.upload(mode_sort_edges(fmt, n_row, "every_id", seed=n_row), dev)
+        for sort, split in settings_4:
+            length = planes.transformed_len(n_row, sort)
+            want = planes.bc7_transform_plain(x, fmt_id, sort, split)
+            for offset in MODE_SORT_OFFSETS:
+                buf = torch.full((length + 32,), 0xAB, dtype=torch.uint8, device=dev)
+                planes.bc7_transform(x, fmt_id, sort, split, out=buf[offset:offset + length])
+                what = (f"{fmt} n={n_row} sort={sort} planes={split} into a row at "
+                        f"offset {offset}")
+                compare("dlt_bc7_transform", buf[offset:offset + length], want, what)
+                outside = torch.cat([buf[:offset], buf[offset + length:]])
+                compare("dlt_bc7_transform", outside, torch.full_like(outside, 0xAB),
+                        f"{what}, the bytes around it")
     # the identity guard's two outcomes on a small input: a realistic sort+planes
     # winner is kept, a planes-only winner on random blocks goes back to the identity
     guard_checks = {}
@@ -1157,7 +1197,11 @@ def main() -> int:
          batch_blocks=batch_blocks_checked, batch_count_rows=batch_rows_checked,
          word_counts=list(WORD_SIZES), per_row_lengths=row_lengths,
          far_counts=far_counts, many_rows=MANY_ROWS, many_rows_count_sum=many_rows_sum,
-         mode_sort_block_counts=list(MODE_SORT_SIZES), guard=guard_checks,
+         mode_sort_block_counts=list(MODE_SORT_SIZES),
+         mode_sort_edges={"patterns": list(MODE_SORT_EDGES),
+                          "block_counts": list(MODE_SORT_EDGE_SIZES),
+                          "offsets": list(MODE_SORT_OFFSETS)},
+         guard=guard_checks,
          rgb_pixel_counts=list(RGB_SIZES), rgb_cases=rgb_cases,
          launches=dict(backend.LAUNCHES))
 
@@ -1806,7 +1850,8 @@ def main() -> int:
                 ms=event_ms(lambda: planes.bc7_transform(xm, fmt_id, sort, split), 20),
                 plain_ms=event_ms(
                     lambda: planes.bc7_transform_plain(xm, fmt_id, sort, split), 5),
-                bytes=moved, ops=ops)
+                bytes=moved, ops=ops,
+                shape=planes.transform_launch_shape(n, fmt_id, sort, split, dev))
             timed[f"dlt_bc7_untransform/{label}"] = dict(
                 ms=event_ms(lambda: planes.bc7_untransform(tm, n, sort, split), 20),
                 plain_ms=event_ms(

@@ -89,6 +89,8 @@ _SIGNATURES = {
 _QUERIES = {
     # (n_rows, positions, form, out[4])
     "dlt_ltu_counts_shape": (_I, _I, _I, _P),
+    # (n_blocks, fmt, sort, planes, out[4])
+    "dlt_bc7_transform_shape": (_I, _I, _I, _I, _P),
     # (n_blocks, sort, planes, out[4])
     "dlt_bc7_untransform_shape": (_I, _I, _I, _P),
 }

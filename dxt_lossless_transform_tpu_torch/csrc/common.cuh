@@ -3,8 +3,7 @@
 // colour-pair arithmetic, the launch shape, the writer of the candidate colour
 // regions that the BC1, BC2 and BC3 region kernels build, the loads and stores of
 // the 8-byte alpha section that BC3, BC4 and BC5 blocks share, and the block-wide
-// copies of byte ranges at any alignment that the BC7/BC6H mode-sort kernels and
-// the RGB kernels use.
+// copies of byte ranges at any alignment that the RGB kernels use.
 //
 // Everything here has internal linkage, so each source gets its own copy and the
 // one shared library links without clashes.
@@ -147,8 +146,7 @@ __device__ __forceinline__ uint2 load_alpha_section(const uint8_t* in, int64_t b
 }
 
 // ---- byte ranges at any alignment, between shared and global memory ---------------
-// The mode-sort layouts put streams at offsets such as ceil(n/2) + p*n, and the RGB
-// layouts channel planes at c*n, which may have any alignment. These copies move whole aligned 4-byte words in global memory,
+// The RGB layouts put channel planes at c*n, which may have any alignment. These copies move whole aligned 4-byte words in global memory,
 // each assembled from two 4-byte words of the shared buffer with a funnel shift;
 // only the up to 3 bytes at either end of the global range move one by one. Every
 // thread of the thread block takes part; neighbouring threads take neighbouring

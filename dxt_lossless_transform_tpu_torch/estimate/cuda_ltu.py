@@ -49,7 +49,7 @@ length per launch, so that short launches (a mesh's shards) fill the card;
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Union
+from typing import Sequence, Union
 
 import torch
 
@@ -70,19 +70,33 @@ def byte_rows(rows: torch.Tensor) -> torch.Tensor:
     return rows
 
 
-class RowLengths(NamedTuple):
+class RowLengths:
     """One valid length per row, already on the rows' device (``lengths``, (C,)
-    int64), with the longest of them from the host (``longest``), as
-    :func:`device_lengths` makes them. ``longest`` sizes the grid and keeps the
-    offsets, so it must be at least the largest length: it may exceed it (the rows of
-    a slice keep the whole step's), which costs only blocks that exit at once."""
+    int64), with the longest of them from the host (``longest``). ``longest`` sizes
+    the grid and keeps the offsets: one below the largest length would count rows
+    only in part. So only :func:`device_lengths`, which reads it from the host
+    lengths it copies, and :meth:`slice`, whose rows keep the whole set's longest (an
+    upper bound, which costs only blocks that exit at once), make one; calling the
+    class raises ``TypeError``."""
 
-    lengths: torch.Tensor
-    longest: int
+    __slots__ = ("lengths", "longest")
+
+    def __init__(self, *args, **kwargs):
+        raise TypeError("RowLengths come from cuda_ltu.device_lengths or "
+                        "RowLengths.slice, which take the longest from the host")
+
+    @classmethod
+    def _of(cls, lengths: torch.Tensor, longest: int) -> "RowLengths":
+        made = object.__new__(cls)
+        made.lengths, made.longest = lengths, longest
+        return made
+
+    def __iter__(self):
+        return iter((self.lengths, self.longest))
 
     def slice(self, start: int, stop: int) -> "RowLengths":
         """The lengths of rows ``start`` .. ``stop``, with the same ``longest``."""
-        return RowLengths(self.lengths[start:stop], self.longest)
+        return RowLengths._of(self.lengths[start:stop], self.longest)
 
 
 ValidLen = Union[int, torch.Tensor, RowLengths]
@@ -136,7 +150,7 @@ def device_lengths(lengths: torch.Tensor, device: torch.device) -> RowLengths:
     if lengths.numel() and int(lengths.min()) < 0:
         raise ValueError("a valid length is negative")
     longest = int(lengths.max()) if lengths.numel() else 0
-    return RowLengths(lengths.to(device, non_blocking=True), longest)
+    return RowLengths._of(lengths.to(device, non_blocking=True), longest)
 
 
 def ltu_counts_plain(rows: torch.Tensor, valid_len: ValidLen, offsets: Sequence[int],
@@ -202,7 +216,7 @@ def _lengths(valid_len: Union[torch.Tensor, RowLengths], rows: torch.Tensor,
                          f"on {lengths.device}")
     if longest < 0 or (not window and longest > rows.shape[1]):
         raise ValueError(f"longest length {longest} outside [0, {rows.shape[1]}]")
-    return RowLengths(lengths.contiguous(), int(longest))
+    return RowLengths._of(lengths.contiguous(), int(longest))
 
 
 def ltu_counts(rows: torch.Tensor, valid_len: ValidLen, offsets: Sequence[int],

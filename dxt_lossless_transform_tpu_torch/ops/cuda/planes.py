@@ -179,6 +179,16 @@ def bc7_untransform(x: torch.Tensor, n: int, sort: bool, planes: bool) -> torch.
     return out
 
 
+def transform_launch_shape(n: int, fmt: int, sort: bool, planes: bool,
+                           device: torch.device) -> dict:
+    """What ``dlt_bc7_transform`` launches for n blocks on ``device``: its grid (one
+    thread block per 4096-block chunk), the blocks the card holds at once, the
+    threads of a block and the span. Launches nothing."""
+    grid, resident, threads, span = backend.query(
+        "dlt_bc7_transform_shape", device, n, fmt, int(bool(sort)), int(bool(planes)))
+    return {"grid": grid, "resident": resident, "threads": threads, "span": span}
+
+
 def untransform_launch_shape(n: int, sort: bool, planes: bool,
                              device: torch.device) -> dict:
     """What ``dlt_bc7_untransform`` launches for n blocks on ``device``: its grid (one

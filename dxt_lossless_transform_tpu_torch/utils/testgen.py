@@ -3,7 +3,8 @@
 This package's copy of the BC1-BC7, BC6H and RGB parts of
 ``dxt_lossless_transform_tpu/utils/testgen.py`` (:25-73, :88-122, :124-212):
 the same seeds give the same bytes, which the tests check. ``chip_smoke.py`` uses
-it, since it cannot import the JAX package.
+it, since it cannot import the JAX package. :func:`mode_sort_edges` is the port's
+own: chunks that stress the mode sort's counting sort.
 """
 
 from __future__ import annotations
@@ -102,6 +103,33 @@ def bc7_realistic(num_blocks: int, seed: int = 0) -> bytes:
     noise = rng.integers(0, 24, (num_blocks, 16), np.uint8)
     blocks[:, 1:] = (base[None, 1:] + noise[:, 1:]
                      + (modes[:, None] * 31)).astype(np.uint8)
+    return blocks.tobytes()
+
+
+# byte 0 of a block of each mode id (planes.MODE_TABLES maps it back): BC7's 0-7 by
+# their trailing zero bits and the invalid 8 by 0; BC6H's 0-1 by the 2-bit modes,
+# 2-9 and 10-14 by the 5-bit patterns ending in 10 and 11
+MODE_BYTE0 = {"BC7": (1, 2, 4, 8, 16, 32, 64, 128, 0),
+              "BC6H": (0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15, 19)}
+MODE_SORT_EDGES = ("one_mode", "every_id", "descending", "chunk_per_id")
+_SORT_CHUNK = 4096
+
+
+def mode_sort_edges(fmt: str, num_blocks: int, pattern: str, seed: int = 0) -> bytes:
+    """Random ``fmt`` (BC7 or BC6H) blocks whose byte 0 gives each the mode id of
+    ``pattern``, over the mode sort's 4096-block chunks: one id throughout
+    (``one_mode``), every id in turn (``every_id``), ids descending over each chunk
+    (``descending``), or chunk c all of id c (``chunk_per_id``; at ``len(ids) *
+    4096 + 1`` blocks the ragged last chunk holds a single block)."""
+    byte0 = np.array(MODE_BYTE0[fmt], np.uint8)
+    k = len(byte0)
+    i = np.arange(num_blocks)
+    ids = {"one_mode": np.full(num_blocks, k // 2),
+           "every_id": i % k,
+           "descending": k - 1 - (i % _SORT_CHUNK) * k // _SORT_CHUNK,
+           "chunk_per_id": (i // _SORT_CHUNK) % k}[pattern]
+    blocks = np.random.default_rng(seed).integers(0, 256, (num_blocks, 16), np.uint8)
+    blocks[:, 0] = byte0[ids]
     return blocks.tobytes()
 
 

@@ -22,8 +22,13 @@ kernel on the BC1 batch's 16 rows of 2,097,152 bytes and the windowed one on the
 cut into 8 shards, timed as the sum of its 8 launches' medians. ``library`` holds
 the one PyTorch call that moves the same bytes (``.t().contiguous()``) beside the
 mode-sort, deinterleave and RGB kernels. Where the checkout can say (its
-``launch_shape`` queries), ``shapes`` holds the count and untransform launches'
+``launch_shape`` queries), ``shapes`` holds the count, transform and untransform launches'
 grids and the blocks the card holds at once.
+
+``profiled`` holds ``torch.profiler``'s device time of each ``dlt_bc7_transform``
+form and of each of the windowed cut's 8 launches (kernel, memory copies and other
+device work, per call), to set beside their event medians: what of an event window
+is device work. It is a record, not a second timing method.
 
 ``host_s`` holds host wall times, synchronised, medians of 5: the search alone and
 the untransform through ``DdsHandler`` of the 4096x4096 BC1 (FAST), BC7 and BC6H
@@ -95,6 +100,8 @@ def main() -> int:
     xs["BC7"] = backend.upload(make_dx10_dds("BC7", SIZE, SIZE, MIPS, seed=SEED)[0x94:], dev)
     xs["BC6H"] = backend.upload(bc_blocks(n, 16, SEED), dev)
     ms, library, shapes = {}, {}, {}
+    # label -> (call, name of the kernel it launches), for ``profiled``
+    profiled = {}
 
     def counts(label: str, rows: torch.Tensor, valid: int) -> None:
         ms[f"dlt_ltu_counts/{label}"] = event_ms(
@@ -147,6 +154,12 @@ def main() -> int:
             tm = planes.bc7_transform(xm, fmt_id, sort, split)
             ms[f"dlt_bc7_transform/{label}"] = event_ms(
                 lambda: planes.bc7_transform(xm, fmt_id, sort, split))
+            profiled[f"dlt_bc7_transform/{label}"] = (
+                lambda xm=xm, fmt_id=fmt_id, sort=sort, split=split:
+                planes.bc7_transform(xm, fmt_id, sort, split), "bc7_transform_kernel")
+            if hasattr(planes, "transform_launch_shape"):
+                shapes[f"dlt_bc7_transform/{label}"] = planes.transform_launch_shape(
+                    n, fmt_id, sort, split, dev)
             ms[f"dlt_bc7_untransform/{label}"] = event_ms(
                 lambda: planes.bc7_untransform(tm, n, sort, split))
             library[f"dlt_bc7_untransform/{label}"] = event_ms(
@@ -200,6 +213,11 @@ def main() -> int:
         event_ms(lambda: cuda_ltu.ltu_counts_windowed(w, bvalid, s * lc - cuda_ltu.SPAN,
                                                       ks, ws))
         for s, w in enumerate(windows))
+    for s, w in enumerate(windows):
+        profiled[f"dlt_ltu_counts_windowed/shard_{s}"] = (
+            lambda w=w, s=s: cuda_ltu.ltu_counts_windowed(w, bvalid, s * lc - cuda_ltu.SPAN,
+                                                          ks, ws), "ltu_default_kernel")
+    device = device_times(torch, profiled, flush, args.iters)
     if hasattr(cuda_ltu, "launch_shape"):
         shapes["dlt_ltu_counts/comprehensive"] = cuda_ltu.launch_shape(8, 4 * n - 3,
                                                                        "scalar", dev)
@@ -215,8 +233,45 @@ def main() -> int:
     print(smi)
     print(json.dumps({"root": args.root, "library_file": backend.library_path().name,
                       "iters": args.iters, "ms": ms, "library": library,
-                      "windowed_launches": nb, "shapes": shapes, "host_s": host_s}))
+                      "windowed_launches": nb, "shapes": shapes, "host_s": host_s,
+                      "profiled": device}))
     return 0
+
+
+def device_times(torch, calls: dict, flush, iters: int) -> dict:
+    """What ``torch.profiler`` (CPU and CUDA activities, ``key_averages()``) sees of
+    each call of ``calls`` (label -> (call, kernel name)), run ``iters`` times after
+    one untimed call, the L2 flushed before each as for ``ms``: per call, in ms, the
+    device time of the kernels whose name holds the kernel name, of memory copies and
+    sets, and of other device work besides the flush's reduction, with the kernel's
+    launches per call. A call whose device times are all 0 means the profiler saw
+    no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, (fn, kernel) in calls.items():
+        fn()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        got = {"kernel_ms": 0.0, "copy_ms": 0.0, "other_ms": 0.0, "kernel_launches": 0.0}
+        for avg in prof.key_averages():
+            if avg.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(avg, "self_device_time_total", None)
+            if us is None:
+                us = avg.self_cuda_time_total
+            if kernel in avg.key:
+                got["kernel_ms"] += us / 1e3 / iters
+                got["kernel_launches"] += avg.count / iters
+            elif "Memcpy" in avg.key or "Memset" in avg.key:
+                got["copy_ms"] += us / 1e3 / iters
+            elif "reduce" not in avg.key.lower():
+                got["other_ms"] += us / 1e3 / iters
+        out[label] = got
+    return out
 
 
 def host_times(root: str, torch, dev) -> dict:

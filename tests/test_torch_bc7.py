@@ -75,6 +75,37 @@ def test_transform_matches_the_jax_device_path(fmt, s, n, monkeypatch):
         jax_ops.untransform(out, jax_settings) == data
 
 
+# the chunks that stress the counting sort (testgen.mode_sort_edges) at sizes about
+# one and two chunks, and at one chunk per id with a one-block ragged last chunk
+EDGE_SIZES = [4095, 4096, 4097, 8191, 8193, "chunk_per_id"]
+
+
+@pytest.mark.parametrize("n", EDGE_SIZES, ids=str)
+@pytest.mark.parametrize("pattern", testgen.MODE_SORT_EDGES)
+@pytest.mark.parametrize("s", SETTINGS, ids=str)
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_edge_chunks_match_the_oracle(fmt, s, pattern, n):
+    port, oracle, _, _, jax_cls = FORMATS[fmt]
+    if n == "chunk_per_id":
+        n = len(testgen.MODE_BYTE0[fmt]) * planes.SORT_CHUNK_BLOCKS + 1
+    data = testgen.mode_sort_edges(fmt, n, pattern, seed=n)
+    settings = _settings(fmt, s)
+    out = port.transform(data, settings, device="cpu")
+    assert out == oracle.transform(data, jax_cls(s.sort_by_mode, s.split_byte_planes))
+    assert port.untransform(out, settings, device="cpu") == data
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_edge_chunks_hold_the_ids_they_name(fmt):
+    """Byte 0 of testgen.MODE_BYTE0[fmt][k] is id k by the oracle's table, so the
+    patterns hold every id, BC7's invalid 8 included."""
+    table = {"BC7": oracle_bc7._CTZ8, "BC6H": oracle_bc6h.MODE_LUT}[fmt]
+    byte0 = testgen.MODE_BYTE0[fmt]
+    assert [int(table[b]) for b in byte0] == list(range(len(byte0)))
+    data = np.frombuffer(testgen.mode_sort_edges(fmt, 3 * 4096 + 5, "every_id"), np.uint8)
+    assert set(table[data[0::16]].tolist()) == set(range(len(byte0)))
+
+
 def test_host_helpers_match_the_oracle():
     assert np.array_equal(bc7.MODE_TABLES[bc7.BC7], oracle_bc7._CTZ8)
     assert np.array_equal(bc7.MODE_TABLES[bc7.BC6H], oracle_bc6h.MODE_LUT)

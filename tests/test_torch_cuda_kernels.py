@@ -17,6 +17,7 @@ from dxt_lossless_transform_tpu_torch.estimate import cuda_ltu
 from dxt_lossless_transform_tpu_torch.estimate.ltu import DEFAULT_OFFSETS, offset_weight
 from dxt_lossless_transform_tpu_torch.ops.cuda import channels, planes, regions, shuffle
 from dxt_lossless_transform_tpu_torch.ops import auto, bc45, bc6h, bc7, rgb
+from dxt_lossless_transform_tpu_torch.utils import testgen
 from dxt_lossless_transform_tpu_torch.settings import (
     BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
     BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
@@ -350,17 +351,59 @@ def test_bc7_kernels(cuda, fmt, sort, planes_, n, kind):
     assert torch.equal(u, x)
 
 
-@pytest.mark.parametrize("offset", [1, 2, 3, 5])
-def test_bc7_transform_into_unaligned_rows(cuda, offset):
-    """The search writes each candidate into a row of one tensor: any alignment."""
+# the transform's three launching forms: (sort, planes)
+BC7_FORMS = [(True, True), (True, False), (False, True)]
+BC7_FORM_IDS = ["sort_planes", "sort_blocks", "planes"]
+
+
+@pytest.mark.parametrize("form", BC7_FORMS, ids=BC7_FORM_IDS)
+@pytest.mark.parametrize("fmt", [planes.BC7, planes.BC6H], ids=["bc7", "bc6h"])
+@pytest.mark.parametrize("offset", range(16))
+def test_bc7_transform_into_unaligned_rows(cuda, offset, fmt, form):
+    """The search writes each candidate into a row of one tensor: any alignment, so
+    every misalignment of the mode stream, the sorted blocks and each plane row, and
+    nothing written outside the row."""
+    sort, split = form
     n = 4099
-    x = _bc7_blocks(n, cuda, "realistic")
-    length = planes.transformed_len(n, True)
-    buf = torch.full((length + 16,), 0xAB, dtype=torch.uint8, device=cuda)
-    planes.bc7_transform(x, planes.BC7, True, True, out=buf[offset:offset + length])
+    x = _bc7_blocks(n, cuda, "random")
+    length = planes.transformed_len(n, sort)
+    buf = torch.full((length + 32,), 0xAB, dtype=torch.uint8, device=cuda)
+    planes.bc7_transform(x, fmt, sort, split, out=buf[offset:offset + length])
     assert torch.equal(buf[offset:offset + length],
-                       planes.bc7_transform_plain(x, planes.BC7, True, True))
+                       planes.bc7_transform_plain(x, fmt, sort, split))
     assert bool((buf[:offset] == 0xAB).all()) and bool((buf[offset + length:] == 0xAB).all())
+
+
+# the sizes about one and two chunks, one chunk per id (the ragged last chunk a
+# single block) and the 4096x4096 files' 342 chunks
+EDGE_SIZES = [4095, 4096, 4097, 8191, 8193, "chunk_per_id", 1_398_103]
+
+
+@pytest.mark.parametrize("form", BC7_FORMS, ids=BC7_FORM_IDS)
+@pytest.mark.parametrize("n", EDGE_SIZES, ids=str)
+@pytest.mark.parametrize("pattern", testgen.MODE_SORT_EDGES)
+@pytest.mark.parametrize("fmt", ["BC7", "BC6H"])
+def test_bc7_kernels_on_edge_chunks(cuda, fmt, pattern, n, form):
+    """Chunks that stress the counting sort: one id throughout, every id in turn
+    (BC7's invalid 8 included), ids descending, one chunk per id."""
+    sort, split = form
+    fmt_id = {"BC7": planes.BC7, "BC6H": planes.BC6H}[fmt]
+    if n == "chunk_per_id":
+        n = len(testgen.MODE_BYTE0[fmt]) * planes.SORT_CHUNK_BLOCKS + 1
+    x = backend.upload(testgen.mode_sort_edges(fmt, n, pattern, seed=n), cuda)
+    t = planes.bc7_transform(x, fmt_id, sort, split)
+    assert torch.equal(t, planes.bc7_transform_plain(x, fmt_id, sort, split))
+    assert torch.equal(planes.bc7_untransform(t, n, sort, split), x)
+
+
+@pytest.mark.parametrize("form", BC7_FORMS, ids=BC7_FORM_IDS)
+@pytest.mark.parametrize("fmt", [planes.BC7, planes.BC6H], ids=["bc7", "bc6h"])
+def test_bc7_transform_runs_in_one_wave(cuda, fmt, form):
+    """The 4096x4096 files' 342 chunks fit on the card at once: one 256-thread block
+    a chunk."""
+    shape = planes.transform_launch_shape(1_398_103, fmt, *form, cuda)
+    assert shape["grid"] == 342 and shape["threads"] == 256 and shape["span"] == 4096
+    assert shape["grid"] <= shape["resident"]
 
 
 @pytest.mark.parametrize("fmt", ["BC7", "BC6H"])

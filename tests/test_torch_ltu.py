@@ -179,16 +179,19 @@ def test_lengths_given_with_the_longest_count_as_host_lengths(lengths):
                        cuda_ltu.ltu_counts(rows[1:3], host[1:3], ks, ws))
 
 
-@pytest.mark.parametrize("given,longest", [(torch.tensor([10, 10], dtype=torch.int32), 10),
-                                           (torch.tensor([10], dtype=torch.int64), 10),
-                                           (torch.tensor([10, 10], dtype=torch.int64), 101),
-                                           (torch.tensor([10, 10], dtype=torch.int64), -1)])
-def test_given_lengths_are_checked(given, longest):
-    """Lengths passed with the longest: the wrong type or shape, or a longest past
-    the row, raise before any launch."""
+@pytest.mark.parametrize("given", [
+    lambda: cuda_ltu.device_lengths(torch.tensor([10]), torch.device("cpu")),
+    lambda: cuda_ltu.device_lengths(torch.tensor([10, 101]), torch.device("cpu")),
+    lambda: cuda_ltu.device_lengths(torch.tensor([10, 10]), torch.device("meta")),
+    lambda: cuda_ltu.device_lengths(torch.tensor([10, 10, 10]), torch.device("cpu")).slice(0, 1),
+], ids=["one_row_for_two", "longest_past_the_row", "other_device", "short_slice"])
+def test_given_lengths_are_checked(given):
+    """Lengths passed with the longest (only ``device_lengths`` and their slices make
+    them): the wrong shape or device, or a longest past the row, raise before any
+    launch."""
     rows = torch.zeros((2, 100), dtype=torch.uint8)
     with pytest.raises(ValueError):
-        cuda_ltu.ltu_counts(rows, cuda_ltu.RowLengths(given, longest), [1], [24])
+        cuda_ltu.ltu_counts(rows, given(), [1], [24])
 
 
 @pytest.mark.parametrize("bad", [torch.tensor([[10, 10]]), torch.tensor([10, -1]),

@@ -138,3 +138,20 @@ def test_per_row_cpu_takes_the_plain_version():
     rows = torch.from_numpy(_rows(2, 100, 9))
     cuda_ltu.ltu_counts(rows, torch.tensor([100, 50]), KS, WS)
     assert all(count == 0 for count in backend.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("longest", [0, 4, 5, 4098, 4099, 4100])
+def test_row_lengths_refuse_a_longest_given_by_hand(longest):
+    """Lengths on the rows' device carry the longest read from the host: one given by
+    hand is refused, whether too small (it would shrink the grid and count the rows
+    only in part), right or too large. ``device_lengths`` takes it from the lengths it
+    copies, and a slice keeps the whole set's, an upper bound; both count as the host
+    lengths do."""
+    host = torch.tensor([5, 4099, 7])
+    with pytest.raises(TypeError):
+        cuda_ltu.RowLengths(host, longest)
+    made = cuda_ltu.device_lengths(host, torch.device("cpu"))
+    assert made.longest == 4099 and made.slice(1, 3).longest == 4099
+    rows = torch.from_numpy(_rows(3, 4099, longest))
+    assert torch.equal(cuda_ltu.ltu_counts(rows, made, KS, WS),
+                       cuda_ltu.ltu_counts(rows, host, KS, WS))
