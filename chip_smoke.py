@@ -92,7 +92,33 @@ Phases, each printed as a JSON line with its wall time:
    search's; for BC7, each file's sort+planes transform on one device), every file
    must come back, and the LTU mesh paths must launch the windowed count kernel and
    not the per-row one;
-7. times: CUDA-event medians of each kernel at the main path's shapes (the L2 flushed
+7. cli: the port's CLI, ``main([...])`` in this process on the card, over a texture
+   tree written to a temporary directory (about 190 files, 260 MB, the size of a
+   game's texture folder): each non-empty payload of the batch corpus as its DDS
+   file (31 each of BC1-BC5 under legacy headers, 12 each of BC7 and BC6H under DX10
+   headers, 4 of each RGB layout), the main phase's 4096x4096 BC1 and BC7 files
+   (above the batch limits of the zstd presets and of the mode sort: they take the
+   per-file route there) and one ``junk.txt``. ``transform`` under ``low``,
+   ``medium``, ``optimal`` and ``max``, each with ``--batch`` and ``--no-batch``, at
+   the default ``--threads``; ``medium`` again at ``--threads 1``, both ways;
+   ``untransform`` of each output tree with ``--batch`` and ``--no-batch``, the
+   ``optimal`` batched tree with a truncated transformed file added; and a
+   ``--profile`` transform of the RGBA8888 files. Every DDS file must come back; the
+   only failures must be ``junk.txt`` (exit code 1) and the truncated file; every
+   file the batch carries must equal the header, the bytes before the payload, the
+   result of the preset's processor on its payload (under ``medium`` the batch
+   phase's result) and the bytes after; ``--batch`` must equal ``--no-batch`` but
+   where the batch step and the per-file search rank differently (under ``medium``
+   exactly the BC5 payloads of ``per_file_differs``), and there the ``--no-batch``
+   file must equal the per-file search's; ``--threads 1`` must equal the default;
+   the sha256 of the ``low`` and ``medium`` trees must equal the JAX CLI's (for
+   ``medium`` from the exact scores; ``optimal`` and ``max`` depend on the zstd
+   library and are printed beside theirs); no batch may fall back to per-file; the
+   batched ``medium`` transform and its load path must launch the deinterleave,
+   region, per-row count and untransform kernels once per batch, and fewer times
+   than there are files; the profiler's trace must name one of the port's kernels.
+   Each run's launches, wall time, files/s and MB/s are printed;
+8. times: CUDA-event medians of each kernel at the main path's shapes (the L2 flushed
    by reading 64 MiB before each launch) beside its
    plain version and its bound (the mode-sort kernels in every setting, with the
    ``.t().contiguous()`` call that computes the planes-only layout; the RGB kernels
@@ -351,6 +377,23 @@ BATCH_REFERENCE = {
         "picks": [3, 3, 2, 2, 3],
         "sha256": "066aad1d0e077b3fcd9226afc002e34ae20afa52cdf0efd856c2f5edefdc9718"},
 }
+# The cli phase's tree (cli_tree): each non-empty payload of the batch corpus as its
+# DDS file, the 4096x4096 BC1 and BC7 files of the main phase and one junk.txt; the
+# sha256 of the input tree, of the JAX CLI's low tree, of the medium tree with every
+# pick from the exact twin (the JAX CLI's own medium tree and the files where it
+# differs beside it), and of the JAX CLI's optimal and max trees, which depend on the
+# zstd library's version and are printed beside the run's:
+#     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --formats CLI
+CLI_REFERENCE = {
+    "files": 194, "bytes": 260328042,
+    "input_sha256": "53234ddee109fd83f5871e56fc1d86d9618aa57838faa03416674eaaf2d92b14",
+    "low": {"jax_sha256": "3924384914aa37e9cd209875aea1035e6dd736f8c4b4487e5b71e78b32d94d36"},
+    "medium": {"sha256": "70bac4646ffba699502f622cebb8e4ab0e48590270694e05395cef05da246428",
+               "jax_sha256": "70bac4646ffba699502f622cebb8e4ab0e48590270694e05395cef05da246428"},
+    "optimal": {"jax_sha256": "ebd4254b5cb0cd879235eba926ea026327a028714657b5c4f94c245d2d6459dc"},
+    "max": {"jax_sha256": "c7e755a520f31fb921050cdb72549b7c083cca70d49caec0b379818220863d09"},
+}
+CLI_PRESETS = ("low", "medium", "optimal", "max")
 # N words per stream in the deinterleave check: the largest batch is the four
 # 2048x2048 chains in the 524,288-block bucket, 2,097,152 blocks
 LARGEST_BATCH_N = 4 * 524_288
@@ -502,6 +545,296 @@ def shard_windows(rows, nb: int) -> tuple:
     padded = torch.nn.functional.pad(rows, (WINDOW_SPAN, WINDOW_SPAN))
     return [padded[:, s * lc:(s + 1) * lc + 2 * WINDOW_SPAN].contiguous()
             for s in range(nb)], lc
+
+
+def cli_tree(root: Path, corpus: dict, big: dict) -> dict:
+    """Write the cli phase's tree under ``root`` as
+    ``scripts/torch_port_reference.py:cli_tree`` does with the JAX package's
+    generators: one subdirectory per format, each non-empty payload of ``corpus``
+    (BC1-BC5 under legacy headers, BC7 and BC6H under DX10 headers, the RGB layouts as
+    their uncompressed files), the files of ``big`` (format -> the main phase's
+    4096x4096 file) and ``junk.txt``. Returns relative path -> (format, the payload's
+    index in the corpus, None for a file of ``big``)."""
+    from dxt_lossless_transform_tpu_torch.utils.testgen import (
+        make_dds, make_dx10_dds, make_uncompressed_dds,
+    )
+
+    where = {}
+
+    def write(rel: str, data: bytes, fmt: str, index) -> None:
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_bytes(data)
+        where[rel] = (fmt, index)
+
+    for fmt in BATCH_FORMATS:
+        for i, payload in enumerate(corpus[fmt]):
+            if payload:
+                w, h = CORPUS_SIZES[i % len(CORPUS_SIZES)]
+                header = make_dds(fmt.upper(), w, h, max(w, h).bit_length(),
+                                  realistic=False)[:0x80]
+                write(f"{fmt}/{i:02d}_{w}x{h}.dds", header + payload, fmt, i)
+    for fmt in ("bc7", "bc6h"):
+        for i, payload in enumerate(corpus[fmt]):
+            if payload:
+                w, h = BATCH_MODE_SORT_SIZES[i]
+                write(f"{fmt}/{i:02d}_{w}x{h}.dds", make_dx10_dds(
+                    fmt.upper(), w, h, max(w, h).bit_length(), payload=payload), fmt, i)
+    for layout in (fmt.lower() for fmt in RGB):
+        for i, (w, h) in enumerate(BATCH_RGB_SIZES):
+            write(f"{layout}/{i:02d}_{w}x{h}.dds",
+                  make_uncompressed_dds(layout, w, h, seed=SEED + i), layout, i)
+    for fmt, data in big.items():
+        write(f"{fmt}/{SIZE}x{SIZE}.dds", data, fmt, None)
+    (root / "junk.txt").write_bytes(b"not a texture\n")
+    return where
+
+
+def tree_files(root: Path) -> dict:
+    """Relative path -> bytes of every file under ``root``."""
+    return {p.relative_to(root).as_posix(): p.read_bytes()
+            for p in root.rglob("*") if p.is_file()}
+
+
+def tree_digest(files: dict) -> str:
+    """sha256 over the files of a tree: each one's relative path, a zero byte and its
+    bytes, in the order of the sorted paths (``torch_port_reference.py:tree_digest``)."""
+    h = hashlib.sha256()
+    for rel in sorted(files):
+        h.update(rel.encode() + b"\0")
+        h.update(files[rel])
+    return h.hexdigest()
+
+
+def cli_phase(dev, corpus: dict, big: dict, batch_out: dict, tmpdir: Path,
+              path_launches: dict) -> dict:
+    """The cli phase: the port's ``main([...])`` in this process, on the card, over
+    the tree of :func:`cli_tree` (the runs and checks are listed in the module
+    docstring). Each run's launch counts are set to 0 just before it and kept in
+    ``path_launches``. Returns the phase's results."""
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    import torch
+    from dxt_lossless_transform_tpu_torch import backend
+    from dxt_lossless_transform_tpu_torch.cli import main as cli_main
+    from dxt_lossless_transform_tpu_torch.formats.bundle import _SLOTS
+    from dxt_lossless_transform_tpu_torch.formats.dds import parse_dds
+    from dxt_lossless_transform_tpu_torch.formats.handlers import (
+        _DDS_TO_TRANSFORM, DdsHandler,
+    )
+    from dxt_lossless_transform_tpu_torch.parallel import pipeline
+
+    src = tmpdir / "cli_in"
+    where = cli_tree(src, corpus, big)
+    inputs = tree_files(src)
+    n_files, n_bytes = len(inputs), sum(map(len, inputs.values()))
+    if tree_digest(inputs) != CLI_REFERENCE["input_sha256"]:
+        fail("cli: the tree differs from the reference run's")
+    info = {rel: parse_dds(data) for rel, data in inputs.items() if rel in where}
+    fmt_of = {rel: _DDS_TO_TRANSFORM[i.format].name.lower() for rel, i in info.items()}
+    results = {"files": n_files, "bytes": n_bytes, "runs": {}}
+    runs = results["runs"]
+
+    def run(label: str, argv: list, root: Path) -> tuple:
+        """One command over the tree at ``root``: its counts set to 0 just before and
+        read just after; returns (exit code, the files it reported as failed)."""
+        out, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        backend.reset_launch_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = {name: count for name, count in backend.LAUNCHES.items() if count}
+        path_launches[f"cli/{label}"] = counts
+        if "falling back to per-file" in err.getvalue():
+            fail(f"cli {label}: a batch fell back to per-file: {err.getvalue()}")
+        failed = {Path(line[len("error: "):].split(": ")[0]).relative_to(root).as_posix()
+                  for line in err.getvalue().splitlines() if line.startswith("error: ")}
+        sizes = [p.stat().st_size for p in root.rglob("*") if p.is_file()]
+        runs[label] = {"rc": rc, "seconds": seconds, "files": len(sizes),
+                       "bytes": sum(sizes), "files_per_s": len(sizes) / seconds,
+                       "MB_per_s": sum(sizes) / seconds / 1e6, "launches": counts,
+                       "failed": sorted(failed), "stdout": out.getvalue().strip()}
+        print(json.dumps({"cli_run": label, **runs[label]}), flush=True)
+        return rc, failed
+
+    def transform(label: str, preset: str, *flags) -> dict:
+        dst = tmpdir / f"cli_{label}"
+        rc, failed = run(label, ["transform", str(src), str(dst), "--preset", preset,
+                                 *flags], src)
+        outs = tree_files(dst)
+        if rc != 1 or failed != {"junk.txt"} or set(outs) != set(info):
+            fail(f"cli {label}: exit code {rc}, failed {sorted(failed)}, missing "
+                 f"{sorted(set(info) - set(outs))}, extra {sorted(set(outs) - set(info))}")
+        return outs
+
+    def untransform(label: str, tree: str, flag: str, broken=()) -> None:
+        back, tree = tmpdir / f"cli_{label}", tmpdir / f"cli_{tree}"
+        rc, failed = run(label, ["untransform", str(tree), str(back), flag], tree)
+        backs = tree_files(back)
+        if rc != (1 if broken else 0) or failed != set(broken) \
+                or set(backs) != set(info) \
+                or any(backs[rel] != inputs[rel] for rel in info):
+            fail(f"cli {label}: exit code {rc}, failed {sorted(failed)}, or a file did "
+                 f"not come back")
+        shutil.rmtree(back)
+
+    def expected_batched(preset: str) -> dict:
+        """Relative path -> the file the batch writes for each file it carries: the
+        header of its result, the file's bytes 4..start, the result and the bytes
+        after the payload; the result from the preset's processor on the same
+        payload (under medium, the batch phase's result)."""
+        make = cli_main._batch_processors_for_preset(preset, 64, dev)
+        groups = {}
+        for rel, i in info.items():
+            if cli_main._batchable(fmt_of[rel], i.data_length, preset):
+                groups.setdefault(fmt_of[rel], []).append(rel)
+        want = {}
+        for fmt, rels in groups.items():
+            payloads = [inputs[rel][info[rel].data_offset:
+                                    info[rel].data_offset + info[rel].data_length]
+                        for rel in rels]
+            if preset == "medium":
+                fresh = [p for rel, p in zip(rels, payloads) if where[rel][1] is None]
+                fresh = iter(make(fmt).process(fresh) if fresh else [])
+                res = [next(fresh) if where[rel][1] is None
+                       else batch_out[fmt][where[rel][1]] for rel in rels]
+            else:
+                res = make(fmt).process(payloads)
+            for rel, r in zip(rels, res):
+                i, data = info[rel], inputs[rel]
+                header = _SLOTS[_DDS_TO_TRANSFORM[i.format]][1](r.settings)
+                want[rel] = (header.to_bytes() + data[4:i.data_offset] + r.transformed
+                             + data[i.data_offset + i.data_length:])
+        return want
+
+    digests = {}
+    for preset in CLI_PRESETS:
+        recorded = []
+        if preset == "medium":  # record the processors the CLI makes
+            original = cli_main._batch_processors_for_preset
+
+            def recording(*args, **kwargs):
+                make = original(*args, **kwargs)
+
+                def make_recorded(fmt):
+                    proc = make(fmt)
+                    recorded.append((fmt, proc))
+                    return proc
+                return make_recorded
+
+            cli_main._batch_processors_for_preset = recording
+        try:
+            batched = transform(f"{preset}/transform_batch", preset, "--batch")
+        finally:
+            if preset == "medium":
+                cli_main._batch_processors_for_preset = original
+        per_file = transform(f"{preset}/transform_no_batch", preset, "--no-batch")
+        digests[preset] = tree_digest(batched)
+        want = expected_batched(preset) if preset != "low" else {}
+        if any(batched[rel] != out for rel, out in want.items()):
+            fail(f"cli {preset}: a batched file differs from its processor's result: "
+                 f"{[rel for rel, out in want.items() if batched[rel] != out]}")
+        differs = sorted(rel for rel in info if batched[rel] != per_file[rel])
+        bundle = cli_main.make_preset_bundle(preset)
+        handler = DdsHandler(dev)
+        if any(per_file[rel] != handler.transform_bundle(inputs[rel], bundle)
+               for rel in differs):
+            fail(f"cli {preset}: a --no-batch file differs from the per-file search")
+        results[preset] = {"batched_files": len(want), "batch_differs": differs,
+                           "sha256": digests[preset]}
+        if preset == "medium":
+            expect = sorted(rel for rel, (fmt, index) in where.items() if fmt == "bc5"
+                            and index in BATCH_REFERENCE["bc5"]["per_file_differs"])
+            if differs != expect:
+                fail(f"cli medium: --batch and --no-batch differ on {differs}, "
+                     f"expected {expect}")
+            # launches once per batch, not once per file
+            counts = path_launches["cli/medium/transform_batch"]
+            batches = {}
+            for fmt, proc in recorded:
+                batches[fmt] = batches.get(fmt, 0) + proc.batches
+            want_counts = {"dlt_deinterleave_words": sum(batches.get(f, 0)
+                                                         for f in BATCH_FORMATS),
+                           "dlt_ltu_counts_rows": sum(batches.values()),
+                           **{f"dlt_{f}_regions": batches[f] for f in ("bc1", "bc2", "bc3")}}
+            got = {name: counts.get(name, 0) for name in want_counts}
+            carried = {fmt: sum(1 for rel in want if fmt_of[rel] == fmt) for fmt in batches}
+            if got != want_counts or any(batches[f] >= carried[f] for f in BATCH_FORMATS):
+                fail(f"cli medium: launches {got}, expected {want_counts} for batches "
+                     f"{batches} of files {carried}")
+            results["medium"].update(batches=batches, carried=carried)
+            for label, flags in (("threads1_batch", ["--batch"]),
+                                 ("threads1_no_batch", ["--no-batch"])):
+                outs = transform(f"medium/transform_{label}", "medium", "--threads", "1",
+                                 *flags)
+                if outs != (batched if flags == ["--batch"] else per_file):
+                    fail(f"cli medium {label}: differs from the default --threads")
+                shutil.rmtree(tmpdir / f"cli_medium/transform_{label}")
+        for label, outs in (("transform_batch", batched), ("transform_no_batch", per_file)):
+            broken = ()
+            if preset == "optimal" and label == "transform_batch":
+                # a truncated transformed file: only it fails, and only it is missing
+                rel = "bc1/zz_truncated.dds"
+                data = outs[min(r for r in outs if r.startswith("bc1/"))]
+                (tmpdir / f"cli_{preset}/{label}" / rel).write_bytes(data[:len(data) // 2])
+                broken = (rel,)
+            for flag in ("--batch", "--no-batch"):
+                unlabel = f"{preset}/untransform_{label[len('transform_'):]}{flag[1:]}"
+                if preset == "medium" and label == "transform_batch" and flag == "--batch":
+                    made = []
+
+                    class Recorded(pipeline.UntransformBatchProcessor):
+                        def __init__(self, *args, **kwargs):
+                            super().__init__(*args, **kwargs)
+                            made.append(self)
+
+                    original_un = pipeline.UntransformBatchProcessor
+                    pipeline.UntransformBatchProcessor = Recorded
+                    try:
+                        untransform(unlabel, f"{preset}/{label}", flag, broken)
+                    finally:
+                        pipeline.UntransformBatchProcessor = original_un
+                    counts = path_launches[f"cli/{unlabel}"]
+                    unbatches = {p.fmt: p.batches for p in made if p.fmt in BATCH_FORMATS}
+                    if any(counts.get(f"dlt_{fmt}_untransform", 0) != n
+                           or n >= sum(1 for rel in info if fmt_of[rel] == fmt)
+                           for fmt, n in unbatches.items()):
+                        fail(f"cli medium load path: launches {counts} for batches "
+                             f"{unbatches}")
+                    results["medium"]["untransform_batches"] = unbatches
+                else:
+                    untransform(unlabel, f"{preset}/{label}", flag, broken)
+        shutil.rmtree(tmpdir / f"cli_{preset}")
+    for preset in CLI_PRESETS:
+        ref = CLI_REFERENCE[preset]
+        results[preset]["reference"] = ref.get("sha256", ref["jax_sha256"])
+        results[preset]["matches_reference"] = digests[preset] == results[preset]["reference"]
+    if not (results["low"]["matches_reference"] and results["medium"]["matches_reference"]):
+        fail(f"cli: the low or medium tree differs from the reference: "
+             f"{ {p: results[p] for p in ('low', 'medium')} }")
+    # a small tree with --profile: the trace names one of the port's kernels
+    prof = tmpdir / "cli_profile"
+    rc, _ = run("profile", ["--profile", str(prof), "transform", str(src / "rgba8888"),
+                            str(tmpdir / "cli_profile_out"), "--preset", "medium"],
+                src / "rgba8888")
+    if rc != 0:
+        fail(f"cli --profile: exit code {rc}")
+    names = set()
+    for source in (Path(__file__).resolve().parent / CSRC).glob("*.cu"):
+        names.update(re.findall(r"^(\w+_kernel)\(", source.read_text(), re.M))
+    traces = list(prof.glob("*.json"))
+    named = sorted(name for name in names
+                   if any(name in t.read_text() for t in traces))
+    if not named:
+        fail(f"cli --profile: no trace in {prof} names a kernel of {sorted(names)}")
+    results["profile"] = {"traces": [t.name for t in traces], "kernels_named": named}
+    shutil.rmtree(src)
+    return results
 
 
 def main() -> int:
@@ -1610,15 +1943,21 @@ def main() -> int:
             fail(f"mesh {label}: the payload did not come back")
         mesh_results[label] = {"settings": str(results[0].settings),
                                "windowed_launches": counts["dlt_ltu_counts_windowed"]}
-    # each kernel's launches on the main paths: the earlier slices', the batch and the
-    # mesh ones
-    launches = {name: sum(counts.get(name, 0) for counts in path_launches.values())
-                for name in KERNELS}
     emit("mesh", t0, meshes={name: str(mesh) for name, mesh in meshes.items()},
          launches={k: v for k, v in path_launches.items() if k.startswith("mesh/")},
          results=mesh_results, wall={k: v for k, v in wall.items() if k.startswith("mesh_")})
 
-    # ---- 7. times ----------------------------------------------------------------------
+    # ---- 7. the CLI over a texture tree --------------------------------------------------
+    t0 = time.perf_counter()
+    cli_results = cli_phase(dev, corpus, {"bc1": dds["BC1"], "bc7": dds["BC7"]}, batch_out,
+                            tmpdir, path_launches)
+    emit("cli", t0, nvidia_smi=smi, **cli_results)
+    # each kernel's launches on the main paths: the earlier slices', the batch, the
+    # mesh and the CLI ones
+    launches = {name: sum(counts.get(name, 0) for counts in path_launches.values())
+                for name in KERNELS}
+
+    # ---- 8. times ----------------------------------------------------------------------
     t0 = time.perf_counter()
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
 
@@ -2043,7 +2382,7 @@ def main() -> int:
               "host s: medians of 5, batch: medians of 3",
          run_seconds=time.perf_counter() - run_start)
 
-    # ---- 8. the contract lines ----------------------------------------------------------
+    # ---- 9. the contract lines ----------------------------------------------------------
     # the row of each kernel: its COMPREHENSIVE shape where it has one, the count
     # kernel on the BC1 COMPREHENSIVE colour rows, as in earlier runs, the mode-sort
     # kernels in the BC7 file's shipped setting, sort and planes, and the RGB kernels

@@ -9,13 +9,16 @@ batch pipeline), which share ``csrc/common.cuh`` and have plain
 with one ``nvcc`` call into one shared library under ``build/cuda/`` at the
 repository root and loads it with :mod:`ctypes`. The file name carries a hash of
 every source and header and of the flags, and the library is written under a
-temporary name and renamed into place, so that processes building at the same time
-cannot see a half-written file. Nothing is built or loaded when the package is
+temporary name unique to the process and the thread and renamed into place, so that
+processes building at the same time cannot see a half-written file; within a process
+one lock covers the check, the build and the load, so that threads that reach the
+library at once run one ``nvcc``. Nothing is built or loaded when the package is
 imported.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises :class:`KernelLaunchError` when that
-is not 0 and otherwise adds one to the kernel's count in :data:`LAUNCHES`.
+is not 0 and otherwise adds one to the kernel's count in :data:`LAUNCHES`, under a
+lock, since the CLI launches from several threads.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional, Union
 
@@ -99,6 +103,9 @@ _QUERIES = {
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 _lib: Optional[ctypes.CDLL] = None
+# held across the check, the build and the load of the library
+_build_lock = threading.RLock()
+_launch_lock = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -153,32 +160,35 @@ def build() -> tuple:
 
     Returns ``(path, compiler_output)``; the output is empty when the library was
     already there."""
-    path = library_path()
-    if path.exists():
-        return path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    with _build_lock:
+        path = library_path()
+        if path.exists():
+            return path, ""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, path)
+        return path, proc.stdout + proc.stderr
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at the first call."""
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _lib = lib
+        with _build_lock:
+            if _lib is None:
+                path, _ = build()
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                _lib = lib
     return _lib
 
 
@@ -190,7 +200,8 @@ def launch(name: str, device: torch.device, *args) -> None:
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise KernelLaunchError(f"{name} failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def query(name: str, device: torch.device, *args) -> list:
@@ -204,8 +215,9 @@ def query(name: str, device: torch.device, *args) -> list:
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def require_cuda_tensor(t: torch.Tensor, what: str, dtype: torch.dtype,

@@ -48,14 +48,29 @@ concatenated outputs of those picks, and whether the JAX package's own
 settings come from the identity guard (zstd-1 through the native runtime) and their
 sha256 is printed with the exact picks; for BC1 and BC3 also the picks and sha256 of
 the JAX host-scored ``BatchProcessor(fmt, estimator=ZstdEstimation(1))``. Both of
-these depend on the zstd library's version. Runs on the CPU:
+these depend on the zstd library's version.
 
-    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py [--formats BC2 BC4 BATCH]
+``CLI`` is the texture tree of ``chip_smoke.py``'s cli phase (:func:`cli_tree`): each
+non-empty payload of the batch corpus as its DDS file (BC1-BC5 with legacy headers,
+BC7 and BC6H with DX10 headers, the RGB layouts as their uncompressed files), one
+subdirectory per format, with the 4096x4096 BC1 and BC7 files of the smoke run and
+one ``junk.txt``. It prints the sha256 of the tree (:func:`tree_digest`: the sorted
+relative paths and the bytes of every file), that of the JAX CLI's ``low`` output
+tree, that of the ``medium`` tree with every pick scored by the exact twin (each
+file through the route the CLI's ``_batchable`` gives it: the batch step's scores for
+BC1-BC5, each candidate's whole stream and the zstd-1 identity guard for BC7 and
+BC6H, the whole streams for the RGB layouts), whether the JAX CLI's own ``medium``
+tree is the same (and the files where it is not), and the digests of the JAX CLI's
+``optimal`` and ``max`` trees, which depend on the zstd library's version. Runs on the
+CPU:
+
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py [--formats BC2 BC4 BATCH CLI]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -368,6 +383,20 @@ def _joined_pick(data: bytes, cand) -> int:
                           for c in cand]))
 
 
+def _mode_sort_exact(oracle, cand, d: bytes) -> tuple:
+    """(exact pick, shipped candidate, shipped stream) of a BC7/BC6H payload: the
+    argmin of each candidate's whole stream under the exact twin, then the zstd-1
+    identity guard."""
+    ident = next(i for i, c in enumerate(cand)
+                 if not c.sort_by_mode and not c.split_byte_planes)
+    streams = [oracle.transform(d, c) for c in cand]
+    best = int(np.argmin([runtime.ltu_estimate(s) for s in streams]))
+    keep = best == ident or (lambda z: z[0] < z[1])(
+        runtime.zstd_estimate_batch([streams[best], d], 1))
+    ship = best if keep else ident
+    return best, ship, streams[ship]
+
+
 def batch() -> dict:
     from dxt_lossless_transform_tpu.estimate import ZstdEstimation
     from dxt_lossless_transform_tpu.oracle import bc1 as o1, bc2 as o2, bc3 as o3
@@ -405,21 +434,16 @@ def batch() -> dict:
         start = time.perf_counter()
         data = corpus(fmt)
         picks, shipped, outs = [], [], []
-        ident = next(i for i, c in enumerate(cand)
-                     if not c.sort_by_mode and not c.split_byte_planes)
         for d in data:
             if not d:
                 picks.append(len(cand) - 1)
                 shipped.append(len(cand) - 1)
                 outs.append(b"")
                 continue
-            streams = [oracle.transform(d, c) for c in cand]
-            best = int(np.argmin([runtime.ltu_estimate(s) for s in streams]))
+            best, ship, stream = _mode_sort_exact(oracle, cand, d)
             picks.append(best)
-            keep = best == ident or (lambda z: z[0] < z[1])(
-                runtime.zstd_estimate_batch([streams[best], d], 1))
-            shipped.append(best if keep else ident)
-            outs.append(streams[shipped[-1]])
+            shipped.append(ship)
+            outs.append(stream)
         jax = ModeSortBatchProcessor(fmt, max_batch=16).process(data)
         out[fmt] = {"payloads": len(data), "bytes": sum(map(len, data)), "picks": picks,
                     "shipped": shipped, "sha256": _digest(outs),
@@ -443,11 +467,131 @@ def batch() -> dict:
     return out
 
 
+def cli_tree(root) -> None:
+    """Write the cli phase's texture tree under ``root`` (see the module docstring)."""
+    from pathlib import Path
+
+    root = Path(root)
+    for fmt in list(BATCH_BLOCK) + ["bc7", "bc6h", "rgba8888", "bgra8888", "bgr888"]:
+        (root / fmt).mkdir(parents=True)
+    for fmt in BATCH_BLOCK:
+        for i, payload in enumerate(corpus(fmt)):
+            if payload:
+                w, h = CORPUS_SIZES[i % len(CORPUS_SIZES)]
+                header = make_dds(fmt.upper(), w, h, max(w, h).bit_length(),
+                                  realistic=False)[:0x80]
+                (root / fmt / f"{i:02d}_{w}x{h}.dds").write_bytes(header + payload)
+    for fmt in ("bc7", "bc6h"):
+        for i, payload in enumerate(corpus(fmt)):
+            if payload:
+                w, h = MODE_SORT_SIZES[i]
+                (root / fmt / f"{i:02d}_{w}x{h}.dds").write_bytes(make_dx10_dds(
+                    fmt.upper(), w, h, max(w, h).bit_length(), payload=payload))
+    for layout in ("rgba8888", "bgra8888", "bgr888"):
+        for i, (w, h) in enumerate(RGB_SIZES):
+            (root / layout / f"{i:02d}_{w}x{h}.dds").write_bytes(
+                make_uncompressed_dds(layout, w, h, seed=SEED + i))
+    (root / "bc1" / f"{SIZE}x{SIZE}.dds").write_bytes(
+        make_dds("BC1", SIZE, SIZE, MIPS, seed=SEED))
+    (root / "bc7" / f"{SIZE}x{SIZE}.dds").write_bytes(
+        make_dx10_dds("BC7", SIZE, SIZE, MIPS, seed=SEED))
+    (root / "junk.txt").write_bytes(b"not a texture\n")
+
+
+def tree_digest(root) -> str:
+    """sha256 over every file under ``root``: its relative path, a zero byte and its
+    bytes, in the order of the sorted relative paths."""
+    from pathlib import Path
+
+    root = Path(root)
+    h = hashlib.sha256()
+    for rel in sorted(p.relative_to(root).as_posix() for p in root.rglob("*")
+                      if p.is_file()):
+        h.update(rel.encode() + b"\0")
+        h.update((root / rel).read_bytes())
+    return h.hexdigest()
+
+
+def _medium_exact(src) -> dict:
+    """relative path -> the ``medium`` output file, each pick from the exact twin
+    on the route the CLI gives the file."""
+    from pathlib import Path
+
+    from dxt_lossless_transform_tpu.cli.main import _batchable
+    from dxt_lossless_transform_tpu.formats.dds import parse_dds
+    from dxt_lossless_transform_tpu.formats.handlers import _DDS_TO_TRANSFORM
+    from dxt_lossless_transform_tpu.parallel.pipeline import _FORMATS
+
+    manual = {"bc1": Bc1ManualTransformBuilder, "bc2": Bc2ManualTransformBuilder,
+              "bc3": Bc3ManualTransformBuilder, "bc4": Bc4ManualTransformBuilder,
+              "bc5": Bc5ManualTransformBuilder, "bc7": Bc7ManualTransformBuilder,
+              "bc6h": Bc6hManualTransformBuilder}
+    handler, out = DdsHandler(), {}
+    for f in sorted(p for p in Path(src).rglob("*") if p.is_file()):
+        data = f.read_bytes()
+        info = parse_dds(data)
+        if info is None:
+            continue
+        fmt = _DDS_TO_TRANSFORM[info.format].name.lower()
+        payload = data[info.data_offset:info.data_offset + info.data_length]
+        if fmt in BATCH_BLOCK:
+            if not _batchable(fmt, len(payload), "medium"):
+                raise AssertionError(f"{f}: medium batches every BC1-BC5 payload")
+            cand = tuple(_FORMATS[fmt]["candidates"])
+            settings = cand[int(np.argmin(_batch_scores(fmt, payload, cand)))]
+        elif fmt in ("bc7", "bc6h"):
+            # batched or not, the LTU search ranks whole streams and guards alike
+            oracle, cand = ((oracle_bc7, BC7_FAST_CANDIDATES) if fmt == "bc7"
+                            else (oracle_bc6h, BC6H_FAST_CANDIDATES))
+            settings = cand[_mode_sort_exact(oracle, cand, payload)[1]]
+        else:
+            cand = RGB_FAST_CANDIDATES
+            settings = cand[int(np.argmin([runtime.ltu_estimate(
+                oracle_rgb.transform(payload, fmt, c)) for c in cand]))]
+        builder = (RgbManualTransformBuilder(fmt, settings) if fmt not in manual
+                   else manual[fmt](settings))
+        out[f.relative_to(src).as_posix()] = handler.transform_bundle(
+            data, TransformBundle(**{fmt: builder}))
+    return out
+
+
+def cli() -> dict:
+    import tempfile
+    from pathlib import Path
+
+    from dxt_lossless_transform_tpu.cli.main import main as jax_cli
+
+    with tempfile.TemporaryDirectory(prefix="cli_reference_") as tmp:
+        tmp = Path(tmp)
+        src = tmp / "in"
+        cli_tree(src)
+        out = {"files": sum(1 for p in src.rglob("*") if p.is_file()),
+               "bytes": sum(p.stat().st_size for p in src.rglob("*") if p.is_file()),
+               "input_sha256": tree_digest(src)}
+        for preset in ("low", "medium", "optimal", "max"):
+            start = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):  # stdout holds the JSON only
+                rc = jax_cli(["transform", str(src), str(tmp / preset), "--preset",
+                              preset, "--threads", "4"])
+            out[preset] = {"rc": rc, "jax_sha256": tree_digest(tmp / preset),
+                           "seconds": round(time.perf_counter() - start, 1)}
+        exact = tmp / "medium_exact"
+        for rel, data in _medium_exact(src).items():
+            (exact / rel).parent.mkdir(parents=True, exist_ok=True)
+            (exact / rel).write_bytes(data)
+        out["medium"]["sha256"] = tree_digest(exact)
+        out["medium"]["jax_differs"] = sorted(
+            rel.relative_to(exact).as_posix() for rel in exact.rglob("*")
+            if rel.is_file() and rel.read_bytes() !=
+            (tmp / "medium" / rel.relative_to(exact)).read_bytes())
+    return out
+
+
 FORMATS = {"BC1": bc1, "BC2": bc2, "BC3": bc3, "BC4": lambda: bc45("BC4"),
            "BC5": lambda: bc45("BC5"), "BC7": lambda: mode_sort("BC7"),
            "BC6H": lambda: mode_sort("BC6H"), "RGBA8888": lambda: rgb("rgba8888"),
            "BGRA8888": lambda: rgb("bgra8888"), "BGR888": lambda: rgb("bgr888"),
-           "BATCH": batch}
+           "BATCH": batch, "CLI": cli}
 
 
 def main() -> None:

@@ -2,9 +2,12 @@
 and that importing it builds nothing."""
 
 import ast
+import contextlib
 import os
 import subprocess
 import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
@@ -63,7 +66,9 @@ def test_scan_covers_the_package():
             "estimate/zstd.py", "ops/rgb.py", "ops/cuda/channels.py",
             "formats/api.py", "formats/file_io.py", "ops/lanes.py", "ops/hostwrap.py",
             "parallel/__init__.py", "parallel/pipeline.py",
-            "parallel/sharded.py"} <= names
+            "parallel/sharded.py", "cli/main.py", "cli/debug.py", "cli/__main__.py",
+            "utils/cache.py", "utils/profiling.py", "utils/throughput.py",
+            "oracle/decode.py", "oracle/color565.py"} <= names
 
 
 def test_import_builds_nothing_and_imports_no_triton():
@@ -384,6 +389,64 @@ def test_build_writes_the_hash_named_library_once(tmp_path, monkeypatch):
     assert (bindir / "log").read_text() == \
         "call bc1_kernels.cu bc2_kernels.cu bc3_kernels.cu bc45_kernels.cu " \
         "bc7_kernels.cu rgb_kernels.cu words_kernels.cu \n"
+
+
+def test_build_from_threads_compiles_once(tmp_path, monkeypatch):
+    """Eight threads that reach the library at once on a cold build directory (the
+    CLI's per-file workers) run one compile, all get the one whole file, and no
+    temporary file is left."""
+    bindir = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done\n'
+                                  'echo call >> "$(dirname "$0")/log"\n'
+                                  'printf part > "$2"; sleep 0.3\n'
+                                  'echo " whole" >> "$2"\n')
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(backend, "BUILD_DIR", tmp_path / "build" / "cuda")
+    barrier = threading.Barrier(8)
+
+    def build():
+        barrier.wait(timeout=30)
+        path, _ = backend.build()
+        return path, path.read_text()
+
+    with ThreadPoolExecutor(8) as pool:
+        results = [f.result(timeout=60) for f in [pool.submit(build) for _ in range(8)]]
+    assert results == [(backend.library_path(), "part whole\n")] * 8
+    assert (bindir / "log").read_text() == "call\n"
+    assert [p.name for p in backend.BUILD_DIR.iterdir()] == \
+        [backend.library_path().name]
+
+
+def test_launch_counts_lose_no_increment_across_threads(monkeypatch):
+    """Launches from many threads at once, with the interpreter switching threads
+    as often as it can, are all counted."""
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(backend, "_lib", Lib())
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: Stream())
+    backend.reset_launch_counts()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(2000):
+                backend.launch("dlt_bc1_transform", None)
+
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert backend.LAUNCHES["dlt_bc1_transform"] == 16 * 2000
+    backend.reset_launch_counts()
 
 
 def test_build_failure_raises_and_leaves_nothing(tmp_path, monkeypatch):

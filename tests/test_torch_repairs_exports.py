@@ -93,8 +93,14 @@ def test_cli_names_import_without_jax_or_zstd():
         "    LtuEstimation, NoEstimation, SizeEstimation, ZstdEstimation)\n"
         "from dxt_lossless_transform_tpu_torch.ops import bc1, bc2, bc3, ycocg\n"
         "from dxt_lossless_transform_tpu_torch.estimate import zstd\n"
+        "from dxt_lossless_transform_tpu_torch.cli import debug, main\n"
+        "from dxt_lossless_transform_tpu_torch.cli.main import make_preset_bundle\n"
         "assert zstd._lib is None\n"
         "assert callable(file_io.transform_file_with_multiple_handlers)\n"
+        "assert callable(main.main) and callable(debug.register)\n"
+        "assert main._build_parser().parse_args(['transform', 'a', 'b']).device == 'cuda'\n"
+        "make_preset_bundle('low'), make_preset_bundle('medium')\n"
+        "assert zstd._lib is None\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'zstandard', 'dxt_lossless_transform_tpu')]\n"
         "assert not bad, bad\n"
