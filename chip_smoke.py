@@ -118,7 +118,30 @@ Phases, each printed as a JSON line with its wall time:
    region, per-row count and untransform kernels once per batch, and fewer times
    than there are files; the profiler's trace must name one of the port's kernels.
    Each run's launches, wall time, files/s and MB/s are printed;
-8. times: CUDA-event medians of each kernel at the main path's shapes (the L2 flushed
+8. normalize: the normalize-then-auto search (Path A): a
+   4096x4096 BC1, BC2 and BC3 file each (the main phase's, seed 7, with
+   :func:`normalizable`'s solid, transparent and uniform-alpha blocks mixed in), decoded
+   on the card by ``ops/decode`` and held to the numpy decoder; every normalization mode
+   (3 for BC1 and BC2, the 4 x 3 grid for BC3) normalized on the card and held to the
+   JAX oracle's sha256 and changed-block count (not 0 but for NONE), to the original's
+   pixels and to the CPU on the first 65,536 blocks; each mode's auto-search on the
+   normalized payload where it lies, its pick and the exact cross-mode score of the
+   regions ``_scored_auto`` reads held to the reference's; then
+   ``transform_bcN_auto_with_normalization`` under LTU, FAST and COMPREHENSIVE, its
+   pick and the sha256 of its output held to the reference's, and the output embedded
+   with ``TransformHeader.for_bcN(settings)`` and restored through ``DdsHandler`` to
+   the normalized file. The region, count, transform and untransform kernels on the
+   picks' payloads are held to their plain versions; decode and normalize times
+   (CUDA-event medians), each search's wall and seconds per mode are printed; each
+   format's counts are set to 0 just before and read just after;
+9. endian: the endian harness (Path B) on the card at 4096 blocks: every format and
+   setting through the port's own transforms and untransforms on the native and the
+   simulated big-endian host, both ways, the header on both hosts, three synthetic
+   containers through ``DdsHandler`` and the batch leg through the BC1-BC5 processors;
+   then ``debug-endian``, ``debug-endian-transform`` and ``debug-endian-untransform``
+   in this process over synthetic ``r2-256-bc{1,2,3,7}.dds`` files, each exiting 0;
+   every transform and untransform kernel must have run under it;
+10. times: CUDA-event medians of each kernel at the main path's shapes (the L2 flushed
    by reading 64 MiB before each launch) beside its
    plain version and its bound (the mode-sort kernels in every setting, with the
    ``.t().contiguous()`` call that computes the planes-only layout; the RGB kernels
@@ -394,6 +417,122 @@ CLI_REFERENCE = {
     "max": {"jax_sha256": "c7e755a520f31fb921050cdb72549b7c083cca70d49caec0b379818220863d09"},
 }
 CLI_PRESETS = ("low", "medium", "optimal", "max")
+# The normalize phase's files (make_dds(fmt, 4096, 4096, 13, seed=7) with the blocks of
+# normalizable(fmt, payload, 7)): the file's sha256; for each mode ("c" for BC1 and
+# BC2, "a,c" for BC3) the sha256 of the payload the JAX oracle normalizes and the
+# blocks that change; for FAST and COMPREHENSIVE under LTU, each mode's pick and the
+# exact score of the regions _scored_auto reads on its output, the overall pick
+# (modes and settings) and the sha256 of its output. The JAX package's own search
+# picks the same in all six:
+#     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --formats NORMALIZE
+NORMALIZE_REFERENCE = {
+    "BC1": {
+        "file_sha256": "58cb3c3ab5ff14963a6f39e6ab8164a1210eb35691c3a4f44e1e672515f46eab",
+        "normalized": {
+            "0": "b04b4a473f6107e3399301f1422fe3f32364e9bb917ab3d8b5b9025cce89d180",
+            "1": "c397a23da1faf49c49f88082d9f38975f9671ef4054fdb366cbb926e64658877",
+            "2": "26ed5a0ac2cfd62385603ad7ec4c77335e7d3114e36322d6bfc973666146193a",
+        },
+        "changed_blocks": {"0": 0, "1": 480618, "2": 305811},
+        "fast": {
+            "modes": [
+                {"modes": [0], "pick": [1, False], "cross_score": 131210107},
+                {"modes": [1], "pick": [1, True], "cross_score": 128314675},
+                {"modes": [2], "pick": [0, False], "cross_score": 130587841},
+            ],
+            "pick_modes": [1], "pick": [1, True],
+            "sha256": "6af98d0767aa94474373165399f926778d329ad13e5b15885acee18d9bd210c4"},
+        "comprehensive": {
+            "modes": [
+                {"modes": [0], "pick": [1, False], "cross_score": 131210107},
+                {"modes": [1], "pick": [2, True], "cross_score": 127990728},
+                {"modes": [2], "pick": [0, False], "cross_score": 130587841},
+            ],
+            "pick_modes": [1], "pick": [2, True],
+            "sha256": "007759679d8036d2ef89fcf8ed61478d9f6ebaa77e2899e3c3bc18d12d4e7039"},
+    },
+    "BC2": {
+        "file_sha256": "61b2cf5d82eb3ff4bf5c3196d2f792525fec15bda25485402f7d832039db9f9b",
+        "normalized": {
+            "0": "a653d5ad3315a3bc335068cca449dcad55334087d28a82671433a9c348cf596b",
+            "1": "6c85ca4a76f76ab327ef1540ef3fe60cba71c5e76f79b3b5e4a1f44090d1d2f6",
+            "2": "ee04a2cf33bf766b7fcafd188cc7432fdaeb8fd47df24e6d4bbf914bf221163d",
+        },
+        "changed_blocks": {"0": 0, "1": 441832, "2": 267025},
+        "fast": {
+            "modes": [
+                {"modes": [0], "pick": [1, False], "cross_score": 133429254},
+                {"modes": [1], "pick": [1, True], "cross_score": 125918170},
+                {"modes": [2], "pick": [1, False], "cross_score": 133428526},
+            ],
+            "pick_modes": [1], "pick": [1, True],
+            "sha256": "e629bfc09b30d793825493e6ed3f662531b7446c073f7bc3e93db4c875331826"},
+        "comprehensive": {
+            "modes": [
+                {"modes": [0], "pick": [1, False], "cross_score": 133429254},
+                {"modes": [1], "pick": [1, True], "cross_score": 125918170},
+                {"modes": [2], "pick": [1, False], "cross_score": 133428526},
+            ],
+            "pick_modes": [1], "pick": [1, True],
+            "sha256": "e629bfc09b30d793825493e6ed3f662531b7446c073f7bc3e93db4c875331826"},
+    },
+    "BC3": {
+        "file_sha256": "7198ae5a0eab43743407da01bea93ce5084e98346032729df10fddcb7c3fa052",
+        "normalized": {
+            "0,0": "62428f5196dc9f0a9f164530153d7c4179710dcb469c220eb78a5aea5feaec2d",
+            "0,1": "59fadaeaea8d781609d501957792e2d59386d19eac2da39dd82886cd648033d7",
+            "0,2": "5b7e12d652478699db49a767634b3e15329a93ffa3ad2852e260b776fda2ead7",
+            "1,0": "a233687577ab0bd7a2b3f330b02b3f662b49bccc901dea53b536264ad73f2d46",
+            "1,1": "4dc2b6af231e433628a2ceafb78c2075cef4d9b4ecfff4233bc533bcd5bf2c9b",
+            "1,2": "0687b7dce00aa93078a08703272f3986c4a95285b1d84dbb47c863b90e0ec377",
+            "2,0": "d591213e7f7ca052927b5aa4f97a99cec5736fdc086ab7a524d2a715d539bd78",
+            "2,1": "714c4aca670b374ba08e443a4c693bf97ee018c5d82e3ec0594530f5c80f809a",
+            "2,2": "123431f08909662488b1c0772cb182295d33b3236f1364bfb4a4826f4e77853b",
+            "3,0": "464b1efbe5635fb75f6dcd5a1308ac50ace0994b9991eaec18dfe7dd6b40a758",
+            "3,1": "98c88fa2eda3034bb00e16a7d38a023f830411d1e19dc46236fedde71fd15ea2",
+            "3,2": "7062d61ba30c54a758c8d4d769c8ee0961e5e77891dd1fe142103258361b3ba6",
+        },
+        "changed_blocks": {
+            "0,0": 0, "0,1": 441832, "0,2": 267025, "1,0": 357960, "1,1": 686522,
+            "1,2": 556579, "2,0": 358406, "2,1": 686840, "2,2": 556949, "3,0": 358406,
+            "3,1": 686840, "3,2": 556949
+        },
+        "fast": {
+            "modes": [
+                {"modes": [0, 0], "pick": [1, True, False], "cross_score": 200704688},
+                {"modes": [0, 1], "pick": [1, True, True], "cross_score": 193193604},
+                {"modes": [0, 2], "pick": [1, True, False], "cross_score": 200703960},
+                {"modes": [1, 0], "pick": [1, True, False], "cross_score": 200655478},
+                {"modes": [1, 1], "pick": [1, True, True], "cross_score": 193144394},
+                {"modes": [1, 2], "pick": [1, True, False], "cross_score": 200654750},
+                {"modes": [2, 0], "pick": [1, False, False], "cross_score": 200641927},
+                {"modes": [2, 1], "pick": [1, False, True], "cross_score": 193130843},
+                {"modes": [2, 2], "pick": [1, False, False], "cross_score": 200641199},
+                {"modes": [3, 0], "pick": [1, False, False], "cross_score": 200595702},
+                {"modes": [3, 1], "pick": [1, False, True], "cross_score": 193084618},
+                {"modes": [3, 2], "pick": [1, False, False], "cross_score": 200594974},
+            ],
+            "pick_modes": [3, 1], "pick": [1, False, True],
+            "sha256": "bff1ea0e124f2c7293798ab47f22f92d716fe3b8f4ae3393af44a0a09b863453"},
+        "comprehensive": {
+            "modes": [
+                {"modes": [0, 0], "pick": [1, True, False], "cross_score": 200704688},
+                {"modes": [0, 1], "pick": [1, True, True], "cross_score": 193193604},
+                {"modes": [0, 2], "pick": [1, True, False], "cross_score": 200703960},
+                {"modes": [1, 0], "pick": [1, True, False], "cross_score": 200655478},
+                {"modes": [1, 1], "pick": [1, True, True], "cross_score": 193144394},
+                {"modes": [1, 2], "pick": [1, True, False], "cross_score": 200654750},
+                {"modes": [2, 0], "pick": [1, False, False], "cross_score": 200641927},
+                {"modes": [2, 1], "pick": [1, False, True], "cross_score": 193130843},
+                {"modes": [2, 2], "pick": [1, False, False], "cross_score": 200641199},
+                {"modes": [3, 0], "pick": [1, False, False], "cross_score": 200595702},
+                {"modes": [3, 1], "pick": [1, False, True], "cross_score": 193084618},
+                {"modes": [3, 2], "pick": [1, False, False], "cross_score": 200594974},
+            ],
+            "pick_modes": [3, 1], "pick": [1, False, True],
+            "sha256": "bff1ea0e124f2c7293798ab47f22f92d716fe3b8f4ae3393af44a0a09b863453"},
+    },
+}
 # N words per stream in the deinterleave check: the largest batch is the four
 # 2048x2048 chains in the 524,288-block bucket, 2,097,152 blocks
 LARGEST_BATCH_N = 4 * 524_288
@@ -491,6 +630,290 @@ def batch_corpus(fmt: str) -> list:
                 for i, size in enumerate(BATCH_MODE_SORT_SIZES)] + [b""]
     return [make_uncompressed_dds(fmt, w, h, seed=SEED + i)[0x80:]
             for i, (w, h) in enumerate(BATCH_RGB_SIZES)] + [b""]
+
+
+def normalizable(fmt: str, payload: bytes, seed: int) -> bytes:
+    """``payload`` (BC1, BC2 or BC3 blocks) with the blocks that normalization
+    rewrites mixed in, after the JAX package's recipe (``tests/test_normalize.py``
+    ``_mixed_bc1``): about a quarter solid colour with indices 0 (half of them with
+    c0 == c1, as that recipe writes them, half with another c1, which
+    ``REPLICATE_COLOR`` rewrites too); for BC1 about an eighth fully transparent; for
+    BC3 about a quarter with uniform alpha (a0 = v, another a1, indices 0), a third of
+    those opaque. The normalize phase's data, the reference script's and the tests'."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cols = 2 if fmt == "BC1" else 4
+    words = np.frombuffer(payload, "<u4").reshape(-1, cols).copy()
+    n, colour = len(words), cols - 2
+    solid = rng.random(n) < 0.25
+    c0 = rng.integers(0, 65536, n, np.uint32)
+    c1 = np.where(rng.random(n) < 0.5, c0, rng.integers(0, 65536, n, np.uint32))
+    words[solid, colour] = (c0 | (c1 << 16))[solid]
+    words[solid, colour + 1] = 0
+    if fmt == "BC1":
+        transparent = (rng.random(n) < 0.125) & ~solid
+        words[transparent, 0] = 0x12340000  # c0 = 0 <= c1: three colours, index 3
+        words[transparent, 1] = 0xFFFFFFFF
+    if fmt == "BC3":
+        uniform = rng.random(n) < 0.25
+        value = np.where(rng.random(n) < 1 / 3, 255,
+                         rng.integers(0, 256, n)).astype(np.uint32)
+        a1 = rng.integers(0, 256, n, np.uint32)
+        words[uniform, 0] = (value | (a1 << 8))[uniform]
+        words[uniform, 1] = 0
+    return words.tobytes()
+
+
+NORMALIZE_FORMATS = ("BC1", "BC2", "BC3")
+# the blocks the normalize phase runs on the CPU beside the card
+NORMALIZE_CPU_BLOCKS = 65_536
+# the kernels of each normalize path: the region, count and transform kernels of its
+# searches and the untransform of its load path
+NORMALIZE_KERNELS = {fmt: [f"dlt_{fmt.lower()}_regions", "dlt_ltu_counts",
+                           f"dlt_{fmt.lower()}_transform", f"dlt_{fmt.lower()}_untransform"]
+                     for fmt in NORMALIZE_FORMATS}
+# the kernels that the endian harness must launch under the simulation: every
+# transform and untransform, and on its batch leg the deinterleave, the region
+# kernels and the per-row count
+ENDIAN_KERNELS = ("dlt_bc1_transform", "dlt_bc1_untransform", "dlt_bc2_transform",
+                  "dlt_bc2_untransform", "dlt_bc3_transform", "dlt_bc3_untransform",
+                  "dlt_bc4_transform", "dlt_bc4_untransform", "dlt_bc5_transform",
+                  "dlt_bc5_untransform", "dlt_bc7_transform", "dlt_bc7_untransform",
+                  "dlt_rgb_transform", "dlt_rgb_untransform", "dlt_deinterleave_words",
+                  "dlt_bc1_regions", "dlt_bc2_regions", "dlt_bc3_regions",
+                  "dlt_ltu_counts_rows")
+
+
+def normalize_phase(dev, path_launches: dict, compare, compare_counts) -> dict:
+    """The normalize phase (Path A): for each of BC1, BC2 and BC3, the 4096x4096 file
+    with :func:`normalizable`'s blocks, decoded on the card and held to the numpy
+    decoder; each mode normalized on the card and held to the reference's sha256 and
+    changed blocks, to the original's pixels and to the CPU on the first
+    :data:`NORMALIZE_CPU_BLOCKS` blocks; each mode's search (the auto-search on the
+    normalized payload where it lies and the exact score of the regions
+    ``_scored_auto`` reads) held to the reference's pick and cross-mode score; then the
+    public ``transform_bcN_auto_with_normalization`` under LTU, FAST and
+    COMPREHENSIVE, held to the reference's pick and sha256, its output embedded with
+    its header and restored through ``DdsHandler`` to the normalized file. The
+    region, transform, untransform and count kernels on the picks' payloads are held
+    to their plain versions. Each drive of the public entry point (one per format
+    under FAST and one under COMPREHENSIVE: the search and the restore of its output)
+    has its counts set to 0 just before and read just after; the checks' own decodes,
+    searches and scores run outside that window. Returns the phase's results."""
+    import numpy as np
+    import torch
+    from dxt_lossless_transform_tpu_torch import backend
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+    from dxt_lossless_transform_tpu_torch.formats.embed import TransformHeader
+    from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
+    from dxt_lossless_transform_tpu_torch.ops import auto, decode, normalize
+    from dxt_lossless_transform_tpu_torch.ops.cuda import regions, shuffle
+    from dxt_lossless_transform_tpu_torch.oracle import decode as odecode
+    from dxt_lossless_transform_tpu_torch.settings import (
+        BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
+        BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
+    )
+    from dxt_lossless_transform_tpu_torch.utils.testgen import make_dds
+
+    sync = torch.cuda.synchronize
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+    candidates = {"BC1": (BC1_FAST_CANDIDATES, BC1_COMPREHENSIVE_CANDIDATES),
+                  "BC2": (BC2_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES),
+                  "BC3": (BC3_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES)}
+    handler = DdsHandler(dev)
+    est = LtuEstimation()
+    results = {}
+
+    def key(settings) -> list:
+        return ([int(settings.decorrelation_mode)]
+                + ([settings.split_alpha_endpoints]
+                   if hasattr(settings, "split_alpha_endpoints") else [])
+                + [settings.split_colour_endpoints])
+
+    def cross_score(fmt: str, out: torch.Tensor) -> int:
+        """The exact score of the regions ``_scored_auto`` reads on ``out``."""
+        n = out.numel()
+        parts = ([out[: n // 8], out[n // 2: 3 * n // 4]] if fmt == "BC3" else
+                 [out[n // 2: n // 2 + n // 4]] if fmt == "BC2" else [out[: n // 2]])
+        return sum(int(est.estimate_batch_device(r.reshape(1, -1), r.numel())[0])
+                   for r in parts)
+
+    def seconds(fn):
+        sync()
+        t = time.perf_counter()
+        value = fn()
+        sync()
+        return value, time.perf_counter() - t
+
+    for fmt in NORMALIZE_FORMATS:
+        ref = NORMALIZE_REFERENCE[fmt]
+        lower, bs = fmt.lower(), 8 if fmt == "BC1" else 16
+        cols = bs // 4
+        base = make_dds(fmt, SIZE, SIZE, MIPS, seed=SEED)
+        payload = normalizable(fmt, base[0x80:], SEED)
+        dds = base[:0x80] + payload
+        if hashlib.sha256(dds).hexdigest() != ref["file_sha256"]:
+            fail(f"normalize {fmt}: the mixed file differs from the reference run's")
+        entry = {"blocks": len(payload) // bs, "modes": {}}
+        x = backend.upload(payload, dev)
+        words = decode.words(x, cols)
+        decoder = getattr(decode, f"decode_{lower}")
+        planes = decoder(words)
+        host_pixels = getattr(odecode, f"decode_{lower}")(payload)
+        if not np.array_equal(np.moveaxis(planes.cpu().numpy(), 0, -1).reshape(
+                -1, 4, 4, 4), host_pixels):
+            fail(f"normalize {fmt}: the card's decode differs from the numpy decoder")
+        entry["decode_ms"] = kernel_ms(lambda: decoder(words), 5, flush)
+        grid = ([(a, c) for a in normalize.AM.all_values() for c in normalize.CM.all_values()]
+                if fmt == "BC3" else [(c,) for c in normalize.CM.all_values()])
+        normalize_words = getattr(normalize, f"normalize_words_{lower}")
+        normalized = {}
+        cpu_n = NORMALIZE_CPU_BLOCKS * bs
+        for modes in grid:
+            label = ",".join(str(int(m)) for m in modes)
+            w = normalize_words(words, *modes)
+            data = backend.download(w.reshape(-1).view(torch.uint8))
+            normalized[modes] = w
+            changed = int((w != words).any(dim=1).sum())
+            if hashlib.sha256(data).hexdigest() != ref["normalized"][label]:
+                fail(f"normalize {fmt} {label}: differs from the JAX oracle's")
+            if changed != ref["changed_blocks"][label] or (changed == 0) != (
+                    all(int(m) == 0 for m in modes)):
+                fail(f"normalize {fmt} {label}: {changed} blocks changed")
+            if not torch.equal(decoder(w), planes):
+                fail(f"normalize {fmt} {label}: the pixels differ from the original's")
+            if data[:cpu_n] != getattr(normalize, f"normalize_blocks_{lower}")(
+                    payload[:cpu_n], *modes, device="cpu"):
+                fail(f"normalize {fmt} {label}: the card and the CPU differ")
+            entry["modes"][label] = {
+                "changed_blocks": changed,
+                "normalize_ms": kernel_ms(lambda: normalize_words(words, *modes), 5, flush)}
+        for name, cand in zip(("fast", "comprehensive"), candidates[fmt]):
+            want = ref[name]
+            per_mode = []
+            for modes, mode_ref in zip(grid, want["modes"]):
+                if mode_ref["modes"] != [int(m) for m in modes]:
+                    fail(f"normalize {fmt}: the reference's modes are in another order")
+                nx = normalized[modes].reshape(-1).view(torch.uint8)
+                (out, settings), secs = seconds(
+                    lambda: auto.transform_auto_tensor(fmt, nx, est, cand))
+                score = cross_score(fmt, out)
+                if key(settings) != mode_ref["pick"] or score != mode_ref["cross_score"]:
+                    fail(f"normalize {fmt} {name} {modes}: pick {key(settings)}, score "
+                         f"{score}; the reference {mode_ref['pick']}, "
+                         f"{mode_ref['cross_score']}")
+                per_mode.append({"modes": [int(m) for m in modes], "pick": key(settings),
+                                 "cross_score": score, "search_s": secs})
+            api = getattr(normalize, f"transform_{lower}_auto_with_normalization")
+            # the main path alone: the search and the restore of its output
+            sync()
+            backend.reset_launch_counts()
+            (out, settings, *modes), wall = seconds(lambda: api(
+                payload, est, name == "comprehensive", device=dev))
+            header = getattr(TransformHeader, f"for_{lower}")(settings)
+            (back, restore_s) = seconds(lambda: handler.untransform(
+                header.to_bytes() + dds[4:0x80] + out))
+            counts = {k: v for k, v in backend.LAUNCHES.items() if v}
+            path_launches[f"normalize/{fmt}/{name}"] = counts
+            if any(counts.get(k, 0) == 0 for k in NORMALIZE_KERNELS[fmt]):
+                fail(f"a kernel of the normalize {fmt} {name} path was not launched on "
+                     f"it: {counts}")
+            if (key(settings), [int(m) for m in modes]) != (want["pick"],
+                                                             want["pick_modes"]):
+                fail(f"normalize {fmt} {name}: picks {key(settings)} {modes}, the "
+                     f"reference {want['pick']} {want['pick_modes']}")
+            if hashlib.sha256(out).hexdigest() != want["sha256"]:
+                fail(f"normalize {fmt} {name}: the output differs from the reference's")
+            if back != dds[:0x80] + backend.download(
+                    normalized[tuple(modes)].reshape(-1).view(torch.uint8)):
+                fail(f"normalize {fmt} {name}: the load path did not give the normalized "
+                     f"file")
+            entry[name] = {"settings": str(settings), "modes": [int(m) for m in modes],
+                           "wall_s": wall, "s_per_mode": wall / len(grid),
+                           "restore_s": restore_s, "per_mode": per_mode}
+        # the kernels on the COMPREHENSIVE pick's payload against their plain versions
+        nx = normalized[tuple(ref["comprehensive"]["pick_modes"])].reshape(-1).view(
+            torch.uint8)
+        n = nx.numel() // bs
+        ckeys = auto.colour_keys(candidates[fmt][1])[0]
+        if fmt == "BC3":
+            akeys = (False, True)
+            alpha, colour = regions.bc3_regions(nx, akeys, ckeys)
+            want_alpha, want_colour = regions.bc3_regions_plain(nx, akeys, ckeys)
+            compare("dlt_bc3_regions", alpha, want_alpha, "normalize alpha rows")
+            compare("dlt_bc3_regions", colour, want_colour, "normalize colour rows")
+            compare_counts(alpha, 2 * n, "normalize BC3 alpha rows")
+            rows = colour
+        else:
+            rows = getattr(regions, f"{lower}_regions")(nx, ckeys)
+            compare(f"dlt_{lower}_regions", rows,
+                    getattr(regions, f"{lower}_regions_plain")(nx, ckeys),
+                    f"normalize {fmt} rows")
+        compare_counts(rows, 4 * n, f"normalize {fmt} colour rows")
+        args = ((1, True, True) if fmt == "BC3" else (1, True))
+        t = getattr(shuffle, f"{lower}_transform")(nx, *args)
+        compare(f"dlt_{lower}_transform", t,
+                getattr(shuffle, f"{lower}_transform_plain")(nx, *args), f"normalize {fmt}")
+        compare(f"dlt_{lower}_untransform", getattr(shuffle, f"{lower}_untransform")(t, *args),
+                getattr(shuffle, f"{lower}_untransform_plain")(t, *args), f"normalize {fmt}")
+        del normalized, planes, x, words
+        results[fmt] = entry
+    return results
+
+
+def endian_phase(dev, path_launches: dict, tmpdir: Path) -> dict:
+    """The endian phase (Path B): the endian harness on the card at 4096 blocks (every
+    format and setting through the port's transforms, both hosts, both ways; the
+    synthetic containers through ``DdsHandler``; the batch leg), then the three
+    ``debug-endian*`` commands in this process over a directory of synthetic
+    ``r2-256-bc{1,2,3,7}.dds`` files. Its counts are set to 0 just before and read just
+    after. Returns the phase's results."""
+    import contextlib
+    import io
+
+    import torch
+    from dxt_lossless_transform_tpu_torch import backend
+    from dxt_lossless_transform_tpu_torch.cli import main as cli_main
+    from dxt_lossless_transform_tpu_torch.utils.endian_harness import run_matrix
+    from dxt_lossless_transform_tpu_torch.utils.testgen import make_dds, make_dx10_dds
+
+    assets, exchange = tmpdir / "endian_assets", tmpdir / "endian_exchange"
+    assets.mkdir()
+    for fmt in ("BC1", "BC2", "BC3"):
+        (assets / f"r2-256-{fmt.lower()}.dds").write_bytes(
+            make_dds(fmt, 256, 256, 9, seed=SEED))
+    (assets / "r2-256-bc7.dds").write_bytes(make_dx10_dds("BC7", 256, 256, 9, seed=SEED))
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    t = time.perf_counter()
+    report = run_matrix(n_blocks=4096, device=dev)
+    matrix_s = time.perf_counter() - t
+    if len(report.per_format) != 10 or report.containers != 3 or report.batches != 5:
+        fail(f"endian: the matrix covered {report}")
+    commands = {}
+    for label, argv in (
+            ("debug-endian", ["debug-endian", "--assets", str(assets)]),
+            ("debug-endian-transform", ["debug-endian-transform", "--assets", str(assets),
+                                        "--exchange", str(exchange)]),
+            ("debug-endian-untransform", ["debug-endian-untransform", "--assets",
+                                          str(assets), "--exchange", str(exchange)])):
+        out, err = io.StringIO(), io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main.main(["--device", str(dev), *argv])
+        commands[label] = {"rc": rc, "seconds": time.perf_counter() - t,
+                           "last_line": out.getvalue().strip().splitlines()[-1:]}
+        if rc != 0:
+            fail(f"endian: {label} exited {rc}: {err.getvalue()}")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in backend.LAUNCHES.items() if v}
+    path_launches["endian"] = counts
+    if any(counts.get(k, 0) == 0 for k in ENDIAN_KERNELS):
+        fail(f"endian: a kernel was not launched under the harness: {counts}")
+    return {"checks": report.checks, "per_format": report.per_format,
+            "containers": report.containers, "batches": report.batches,
+            "matrix_s": matrix_s, "commands": commands}
 
 
 def kernel_ms(fn, iters: int, flush) -> float:
@@ -1952,12 +2375,24 @@ def main() -> int:
     cli_results = cli_phase(dev, corpus, {"bc1": dds["BC1"], "bc7": dds["BC7"]}, batch_out,
                             tmpdir, path_launches)
     emit("cli", t0, nvidia_smi=smi, **cli_results)
+
+    # ---- 8. the normalize-then-auto search (Path A) --------------------------------------
+    t0 = time.perf_counter()
+    emit("normalize", t0, nvidia_smi=smi,
+         **normalize_phase(dev, path_launches, compare,
+                           lambda r, v, what: compare_counts(r, v, ks, what)),
+         launches={k: v for k, v in path_launches.items() if k.startswith("normalize/")})
+
+    # ---- 9. the endian matrix and the debug-endian commands (Path B) ----------------------
+    t0 = time.perf_counter()
+    emit("endian", t0, **endian_phase(dev, path_launches, tmpdir),
+         launches=path_launches["endian"])
     # each kernel's launches on the main paths: the earlier slices', the batch, the
-    # mesh and the CLI ones
+    # mesh, the CLI, the normalize and the endian ones
     launches = {name: sum(counts.get(name, 0) for counts in path_launches.values())
                 for name in KERNELS}
 
-    # ---- 8. times ----------------------------------------------------------------------
+    # ---- 10. times ---------------------------------------------------------------------
     t0 = time.perf_counter()
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
 
@@ -2382,7 +2817,7 @@ def main() -> int:
               "host s: medians of 5, batch: medians of 3",
          run_seconds=time.perf_counter() - run_start)
 
-    # ---- 9. the contract lines ----------------------------------------------------------
+    # ---- 11. the contract lines ----------------------------------------------------------
     # the row of each kernel: its COMPREHENSIVE shape where it has one, the count
     # kernel on the BC1 COMPREHENSIVE colour rows, as in earlier runs, the mode-sort
     # kernels in the BC7 file's shipped setting, sort and planes, and the RGB kernels

@@ -8,10 +8,16 @@ over bytes in memory or file in, file out (:mod:`.formats.api`,
 :mod:`.formats.file_io`). Entry points run on the
 CUDA device by default (``device="cuda"``) and raise
 :class:`~.errors.DeviceUnavailableError` when there is none; ``device="cpu"`` runs
-the plain PyTorch versions of the kernels.
+the plain PyTorch versions of the kernels. Besides these paths it carries the BC1-BC3
+decoders and the normalize-then-auto search (:mod:`.ops.decode`,
+:mod:`.ops.normalize`), block extraction (:mod:`.formats.debug`), the batch pipeline
+(:mod:`.parallel`) and the CLI (:mod:`.cli`).
 
 Importing the package builds nothing and imports no ``triton``: the CUDA library is
 compiled by ``nvcc`` at first use (see :mod:`.backend`).
+
+The host boundary where bytes become multi-byte integers and back is
+:mod:`.endian`, with a simulated big-endian host for the ``debug-endian`` harness.
 """
 
 __version__ = "0.1.0"
@@ -24,3 +30,4 @@ from .settings import (  # noqa: F401
     Bc3TransformSettings, Bc4TransformSettings, Bc5TransformSettings,
     Bc6hTransformSettings, Bc7TransformSettings, RgbTransformSettings, YCoCgVariant,
 )
+from . import endian  # noqa: F401,E402

@@ -4,12 +4,15 @@ reference CLI's ``debug-bcN`` suite, ``commands/debug_bc1/*.rs``).
 
 Every transform and untransform runs on the command's ``--device``; compression is
 zstd through the system library (:class:`~..estimate.ZstdEstimation`). The
-``debug-endian*`` subcommands are not here: they wait for the endian layer.
+``debug-endian``, ``debug-endian-transform`` and ``debug-endian-untransform``
+subcommands run the endian harness (:mod:`..utils.endian_harness`) and its two-phase
+exchange. Unlike the JAX CLI, no argument defaults to a path of the machine:
+``debug-endian`` runs the synthetic matrix and containers unless ``--assets`` names
+the reference DDS assets, and the two exchange commands require ``--assets``.
 """
 
 from __future__ import annotations
 
-import struct
 import sys
 import time
 from collections import Counter
@@ -17,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import endian
 from ..estimate import LtuEstimation, ZstdEstimation
 from ..formats.dds import BLOCK_SIZES, DdsFormat, parse_dds
 from ..oracle import decode as odecode
@@ -213,8 +217,8 @@ def cmd_format_analysis(args):
         files += 1
         formats[info.format.name] += 1
         total_payload += info.data_length
-        w = struct.unpack_from("<I", data, 0x10)[0]
-        h = struct.unpack_from("<I", data, 0x0C)[0]
+        w = endian.unpack_u32(data[0x10:0x14])
+        h = endian.unpack_u32(data[0x0C:0x10])
         sizes[f"{w}x{h}"] += 1
     if not files:
         print("no DDS files found", file=sys.stderr)
@@ -227,10 +231,100 @@ def cmd_format_analysis(args):
     return 0
 
 
+def cmd_endian(args):
+    """The endian-portability proof (``debug-endian``): every format x settings, the
+    containers and the batch leg through the simulated big-endian host in both
+    directions, byte-compared; the reference assets' containers too with
+    ``--assets``."""
+    from ..utils.endian_harness import run_matrix
+
+    try:
+        report = run_matrix(assets_dir=args.assets, n_blocks=args.blocks, log=print,
+                            device=args.device)
+    except AssertionError as e:
+        print(f"ENDIAN MISMATCH: {e}", file=sys.stderr)
+        return 1
+    print(f"endian matrix ok: {report.checks} checks across "
+          f"{len(report.per_format)} formats, {report.containers} whole-container "
+          f"and {report.batches} batch round trips (LE<->BE both directions)")
+    return 0
+
+
+def cmd_endian_transform(args):
+    """One half of the two-phase exchange (``debug-endian-transform``): transform the
+    asset files on the simulated big-endian host and write them into the exchange
+    directory for :func:`cmd_endian_untransform`."""
+    return _endian_phase(args, transform=True)
+
+
+def cmd_endian_untransform(args):
+    """The other half (``debug-endian-untransform``): untransform the exchange
+    directory's files on the native host; a byte-exact restore of each asset proves
+    the big-endian -> little-endian leg (the other leg is in ``debug-endian``)."""
+    return _endian_phase(args, transform=False)
+
+
+def _endian_phase(args, transform: bool):
+    import os
+
+    from ..formats.handlers import DdsHandler
+    from ..utils.endian_harness import ASSET_FMT, _formats
+
+    fmts = {f.name: f for f in _formats()}
+    handler = DdsHandler(args.device)
+    os.makedirs(args.exchange, exist_ok=True)
+    ok = 0
+    for fname, fmt in ASSET_FMT.items():
+        src = os.path.join(args.assets, fname)
+        if not os.path.isfile(src):
+            continue
+        f = fmts[fmt]
+        with open(src, "rb") as fh:
+            data = fh.read()
+        dst = os.path.join(args.exchange, fname)
+        if transform:
+            with endian.simulate_big_endian():
+                out = handler.transform_bundle(data, f.builder(f.settings[0]))
+            with open(dst, "wb") as fh:
+                fh.write(out)
+            print(f"{fname}: transformed on the BE host -> {args.exchange}")
+        else:
+            with open(dst, "rb") as fh:
+                back = handler.untransform(fh.read())
+            if back != data:
+                print(f"ENDIAN MISMATCH: {fname}", file=sys.stderr)
+                return 1
+            print(f"{fname}: untransformed natively == original (BE->LE leg byte-exact)")
+        ok += 1
+    if not ok:
+        print("no reference assets found", file=sys.stderr)
+        return 1
+    return 0
+
+
 def register(sub):
     p_fa = sub.add_parser("debug-format-analysis", help="corpus composition report")
     p_fa.add_argument("input")
     p_fa.set_defaults(fn=cmd_format_analysis)
+
+    for name, fn in (("debug-endian-transform", cmd_endian_transform),
+                     ("debug-endian-untransform", cmd_endian_untransform)):
+        p = sub.add_parser(name, help="one half of the two-phase endian exchange")
+        p.add_argument("--assets", required=True,
+                       help="directory of the r2-256-bc{1,2,3,7}.dds reference assets")
+        p.add_argument("--exchange", required=True,
+                       help="directory exchanged between the two phases")
+        p.set_defaults(fn=fn)
+
+    p_e = sub.add_parser("debug-endian",
+                         help="prove the on-disk format is endian-portable "
+                              "(simulated big-endian host)")
+    p_e.add_argument("--assets", default=None,
+                     help="directory of the reference DDS assets (default: none, "
+                          "the synthetic matrix and containers only)")
+    p_e.add_argument("--blocks", type=int, default=256,
+                     help="synthetic payload size in blocks")
+    p_e.set_defaults(fn=cmd_endian)
 
     for fmt in ("bc1", "bc2", "bc3", "bc7"):
         p = sub.add_parser(f"debug-{fmt}", help=f"debug commands for {fmt.upper()}")

@@ -17,7 +17,10 @@ from .errors import (  # noqa: F401
     UnknownTransformFormat,
 )
 from .bundle import TransformBundle  # noqa: F401
-from .handlers import DdsHandler, dispatch_transform, dispatch_untransform  # noqa: F401
+from .handlers import (  # noqa: F401
+    DdsHandler, FileFormatDetection, FileFormatHandler, FileFormatUntransformDetection,
+    dispatch_transform, dispatch_untransform,
+)
 from .api import (  # noqa: F401
     transform_slice_with_bundle,
     untransform_slice,
@@ -25,3 +28,4 @@ from .api import (  # noqa: F401
     untransform_slice_with_multiple_handlers,
 )
 from . import file_io  # noqa: F401
+from .debug import ExtractedBlocks, TransformFormatFilter, extract_blocks_from_dds  # noqa: F401

@@ -11,10 +11,10 @@ rounding per level.
 from __future__ import annotations
 
 import enum
-import struct
 from dataclasses import dataclass
 from typing import Optional
 
+from .. import endian
 
 DDS_MAGIC = 0x20534444  # 'DDS ' little-endian
 DDS_HEADER_SIZE = 0x80
@@ -49,7 +49,7 @@ _DDPF_LUMINANCE = 0x20000
 
 
 def _fourcc(s: bytes) -> int:
-    return struct.unpack("<I", s)[0]
+    return endian.unpack_u32(s)
 
 
 _FOURCC_DX10 = _fourcc(b"DX10")
@@ -115,8 +115,9 @@ def likely_dds(data: bytes) -> bool:
 
 
 def _u32(data, off) -> int:
-    # every DDS header field is a little-endian u32 (``parse_dds.rs``)
-    return struct.unpack_from("<I", data, off)[0]
+    # every DDS header field is a little-endian u32 (``parse_dds.rs``), read through
+    # the endian layer
+    return endian.unpack_u32(data[off:off + 4])
 
 
 def parse_dds(data: bytes) -> Optional[DdsInfo]:

@@ -18,9 +18,9 @@ BC6H and RGB packing (:94-110, :139-218). On disk it is one little-endian u32:
 from __future__ import annotations
 
 import enum
-import struct
 from dataclasses import dataclass
 
+from .. import endian
 from ..settings import (
     Bc1TransformSettings, Bc2TransformSettings, Bc3TransformSettings,
     Bc4TransformSettings, Bc5TransformSettings, Bc6hTransformSettings,
@@ -29,6 +29,9 @@ from ..settings import (
 from .errors import CorruptedEmbeddedData, UnknownTransformFormat
 
 TRANSFORM_HEADER_SIZE = 4
+# the names of JAX embed.py:65-66, which no code of either package reads
+BC7_ADDITIONAL_SPACE = 48
+BC6H_ADDITIONAL_SPACE = 80
 
 
 class TransformFormat(enum.IntEnum):
@@ -98,14 +101,13 @@ class TransformHeader:
     data: int  # 28-bit format-specific field
 
     def to_bytes(self) -> bytes:
-        return struct.pack("<I", (int(self.format) & 0xF)
-                           | ((self.data & 0x0FFFFFFF) << 4))
+        return endian.pack_u32((int(self.format) & 0xF) | ((self.data & 0x0FFFFFFF) << 4))
 
     @staticmethod
     def from_bytes(raw: bytes) -> "TransformHeader":
         if len(raw) < TRANSFORM_HEADER_SIZE:
             raise UnknownTransformFormat(raw)
-        word = struct.unpack_from("<I", raw)[0]
+        word = endian.unpack_u32(raw)
         try:
             fmt = TransformFormat(word & 0xF)
         except ValueError:

@@ -17,6 +17,7 @@ from typing import Optional, Protocol, Union, runtime_checkable
 
 import torch
 
+from .. import endian
 from ..ops import bc1 as ops_bc1, bc2 as ops_bc2, bc3 as ops_bc3, bc45 as ops_bc45
 from ..ops import bc6h as ops_bc6h, bc7 as ops_bc7, rgb as ops_rgb
 from .bundle import TransformBundle
@@ -122,6 +123,19 @@ class FileFormatHandler(Protocol):
     def untransform(self, data: bytes) -> bytes: ...
 
 
+class FileFormatDetection(Protocol):
+    """A handler that can tell whether it can transform ``data``."""
+
+    def can_handle(self, data: bytes, file_extension: Optional[str] = None) -> bool: ...
+
+
+class FileFormatUntransformDetection(Protocol):
+    """A handler that can tell whether ``data`` is a file it transformed."""
+
+    def can_handle_untransform(self, data: bytes,
+                               file_extension: Optional[str] = None) -> bool: ...
+
+
 class DdsHandler:
     """DDS container handler. ``device`` is where both directions run: the
     bundle's builders transform there and :meth:`untransform` inverts there."""
@@ -158,7 +172,7 @@ class DdsHandler:
         if len(data) < end:
             raise InputTooShortForStatedTextureSize(end, len(data))
         payload = dispatch_untransform(header, data[start:end], self.device)
-        return DDS_MAGIC.to_bytes(4, "little") + data[4:start] + payload + data[end:]
+        return endian.pack_u32(DDS_MAGIC) + data[4:start] + payload + data[end:]
 
     # detection (JAX handlers.py:164-177)
 

@@ -5,4 +5,4 @@ Counterpart of ``dxt_lossless_transform_tpu/ops``, with the same modules at the
 package level.
 """
 
-from . import ycocg, bc1, bc2, bc3  # noqa: F401
+from . import ycocg, bc1, bc2, bc3, decode, normalize  # noqa: F401

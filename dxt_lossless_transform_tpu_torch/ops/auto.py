@@ -99,12 +99,7 @@ def transform_bc1_auto(data, estimator: SizeEstimation,
     cand = tuple(candidates if candidates is not None else
                  (BC1_COMPREHENSIVE_CANDIDATES if use_all_decorrelation_modes
                   else BC1_FAST_CANDIDATES))
-    dev = start("BC1", data, ops_bc1.BLOCK_SIZE, device)
-    if dev is None:
-        return b"", cand[-1]
-    x = backend.upload(data, dev)
-    best = cand[int(np.argmin(candidate_scores(x, estimator, cand)))]
-    return backend.download(ops_bc1.transform_tensor(x, best)), best
+    return _auto("BC1", data, estimator, cand, device)
 
 
 def bc2_candidate_scores(x: torch.Tensor, estimator: SizeEstimation,
@@ -124,12 +119,7 @@ def transform_bc2_auto(data, estimator: SizeEstimation,
     cand = tuple(candidates if candidates is not None else
                  (BC2_COMPREHENSIVE_CANDIDATES if use_all_decorrelation_modes
                   else BC2_FAST_CANDIDATES))
-    dev = start("BC2", data, ops_bc2.BLOCK_SIZE, device)
-    if dev is None:
-        return b"", cand[-1]
-    x = backend.upload(data, dev)
-    best = cand[int(np.argmin(bc2_candidate_scores(x, estimator, cand)))]
-    return backend.download(ops_bc2.transform_tensor(x, best)), best
+    return _auto("BC2", data, estimator, cand, device)
 
 
 def bc3_keys(candidates: Sequence[Bc3TransformSettings]) -> tuple:
@@ -161,9 +151,27 @@ def transform_bc3_auto(data, estimator: SizeEstimation,
     cand = tuple(candidates if candidates is not None else
                  (BC3_COMPREHENSIVE_CANDIDATES if use_all_decorrelation_modes
                   else BC3_FAST_CANDIDATES))
-    dev = start("BC3", data, ops_bc3.BLOCK_SIZE, device)
+    return _auto("BC3", data, estimator, cand, device)
+
+
+# each format's candidate scores and transform module
+_SEARCH = {"BC1": (candidate_scores, ops_bc1), "BC2": (bc2_candidate_scores, ops_bc2),
+           "BC3": (bc3_candidate_scores, ops_bc3)}
+
+
+def transform_auto_tensor(fmt: str, x: torch.Tensor, estimator: SizeEstimation,
+                          candidates: Sequence) -> tuple:
+    """The ``fmt`` ("BC1", "BC2" or "BC3") search on blocks ``x`` (uint8, n >= 1
+    blocks) where they lie: ``(the winner's output tensor, its settings)``."""
+    scores, ops = _SEARCH[fmt]
+    best = candidates[int(np.argmin(scores(x, estimator, candidates)))]
+    return ops.transform_tensor(x, best), best
+
+
+def _auto(fmt: str, data, estimator: SizeEstimation, cand: tuple, device) -> tuple:
+    """:func:`transform_auto_tensor` on ``data`` uploaded once; ``(bytes, settings)``."""
+    dev = start(fmt, data, _SEARCH[fmt][1].BLOCK_SIZE, device)
     if dev is None:
         return b"", cand[-1]
-    x = backend.upload(data, dev)
-    best = cand[int(np.argmin(bc3_candidate_scores(x, estimator, cand)))]
-    return backend.download(ops_bc3.transform_tensor(x, best)), best
+    out, best = transform_auto_tensor(fmt, backend.upload(data, dev), estimator, cand)
+    return backend.download(out), best

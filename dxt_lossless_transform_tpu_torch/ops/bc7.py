@@ -51,6 +51,23 @@ from .cuda.planes import (  # noqa: F401  (the host helpers, re-exported)
 )
 
 
+def extract_msb_bits(byte, start: int, end: int):
+    """Bits ``start``..``end`` of a byte in MSB order (position 0 is the most
+    significant bit), right-aligned (JAX ``ops/bc7.py:47``). Elementwise on Python
+    ints, numpy arrays and tensors."""
+    assert 0 <= start <= end <= 7
+    return (byte >> (7 - end)) & ((1 << (end - start + 1)) - 1)
+
+
+def insert_msb_bits(byte, value, start: int, end: int):
+    """``byte`` with bits ``start``..``end`` (MSB order) set to ``value`` (JAX
+    ``ops/bc7.py:59``)."""
+    assert 0 <= start <= end <= 7
+    shift = 7 - end
+    mask = ((1 << (end - start + 1)) - 1) << shift
+    return (byte & ~mask & 0xFF) | ((value << shift) & mask)
+
+
 def transformed_len(original_len: int, settings) -> int:
     """Transformed payload size of an ``original_len``-byte texture: the bytes
     themselves (a remainder past the last whole block included, as in

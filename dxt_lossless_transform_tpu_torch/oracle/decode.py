@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import endian
 from . import color565
 
 
@@ -66,7 +67,7 @@ def _gather_color_pixels(dict_rgb, dict_a, idx_u32):
 
 def decode_bc1(data) -> np.ndarray:
     """Decode BC1 bytes to (N,4,4,4) uint8 RGBA."""
-    words = np.frombuffer(data, dtype="<u4").reshape(-1, 2)
+    words = endian.from_bytes(data, "u4").reshape(-1, 2)
     c0 = (words[:, 0] & 0xFFFF).astype(np.uint16)
     c1 = (words[:, 0] >> 16).astype(np.uint16)
     dict_rgb, dict_a = _color_dict_4(c0, c1, always_four=False)
@@ -75,7 +76,7 @@ def decode_bc1(data) -> np.ndarray:
 
 def decode_bc2(data) -> np.ndarray:
     """Decode BC2 bytes to (N,4,4,4) uint8 RGBA (explicit 4-bit alpha, scaled x17)."""
-    words = np.frombuffer(data, dtype="<u4").reshape(-1, 4)
+    words = endian.from_bytes(data, "u4").reshape(-1, 4)
     alpha = words[:, 0].astype(np.uint64) | (words[:, 1].astype(np.uint64) << np.uint64(32))
     c0 = (words[:, 2] & 0xFFFF).astype(np.uint16)
     c1 = (words[:, 2] >> 16).astype(np.uint16)
@@ -89,7 +90,7 @@ def decode_bc2(data) -> np.ndarray:
 
 def decode_bc3(data) -> np.ndarray:
     """Decode BC3 bytes to (N,4,4,4) uint8 RGBA (BC4-style interpolated alpha)."""
-    words = np.frombuffer(data, dtype="<u4").reshape(-1, 4)
+    words = endian.from_bytes(data, "u4").reshape(-1, 4)
     n = len(words)
     a0 = (words[:, 0] & 0xFF).astype(np.uint32)
     a1 = ((words[:, 0] >> 8) & 0xFF).astype(np.uint32)

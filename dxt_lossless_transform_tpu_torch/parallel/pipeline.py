@@ -46,7 +46,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .. import backend
+from .. import backend, endian
 from ..estimate.ltu import DEFAULT_OFFSETS
 from ..ops import bc45 as ops_bc45, bc6h as ops_bc6h, bc7 as ops_bc7
 from ..ops import hostwrap, lanes, rgb as ops_rgb
@@ -70,18 +70,18 @@ class BatchResult:
 
 
 def _u16s(arr, n) -> bytes:
-    return arr[:n].astype("<u2").tobytes()
+    return endian.to_bytes(arr[:n], "u2")
 
 
 def _u32s(arr, n) -> bytes:
-    return arr[:n].astype("<u4").tobytes()
+    return endian.to_bytes(arr[:n], "u4")
 
 
 def _pair_u16(a, b, n) -> bytes:
-    out = np.empty((n, 2), "<u2")
+    out = endian.empty((n, 2), "u2")
     out[:, 0] = a[:n]
     out[:, 1] = b[:n]
-    return out.tobytes()
+    return endian.to_bytes(out, "u2")
 
 
 def _colours(d0, d1, n, split: bool) -> bytes:
@@ -94,10 +94,10 @@ def _serialize_bc1(streams, n, s) -> bytes:
 
 
 def _alpha_words(a_lo, a_hi, n) -> bytes:
-    alpha = np.empty((n, 2), "<u4")
+    alpha = endian.empty((n, 2), "u4")
     alpha[:, 0] = a_lo[:n]
     alpha[:, 1] = a_hi[:n]
-    return alpha.tobytes()
+    return endian.to_bytes(alpha, "u4")
 
 
 def _serialize_bc2(streams, n, s) -> bytes:
@@ -108,9 +108,9 @@ def _serialize_bc2(streams, n, s) -> bytes:
 
 def _idx_u16s(h1, h2, h3, n) -> bytes:
     """Three u16 index lanes -> the interleaved per-block 6-byte index stream."""
-    idx = np.empty((n, 3), "<u2")
+    idx = endian.empty((n, 3), "u2")
     idx[:, 0], idx[:, 1], idx[:, 2] = h1[:n], h2[:n], h3[:n]
-    return idx.tobytes()
+    return endian.to_bytes(idx, "u2")
 
 
 def _ep_bytes(ep, n, split: bool) -> bytes:
@@ -245,13 +245,15 @@ class BatchProcessor:
                 with self.times("assemble"):
                     flats = backend.host_buffer((padded, wpb * bucket), torch.int32,
                                                 self.device)
-                    host = flats.numpy().view(np.uint32)
+                    # the payloads' bytes as they are: the card reads them as
+                    # little-endian words, so nothing is reinterpreted on the host
+                    host = flats.numpy().view(np.uint8)
                     valid = []
                     for row, idx in enumerate(chunk):
-                        w = np.frombuffer(payloads[idx], "<u4")
-                        host[row, :len(w)] = w
-                        host[row, len(w):] = 0
-                        valid.append(4 * (len(w) // wpb))
+                        size = len(payloads[idx])
+                        host[row, :size] = np.frombuffer(payloads[idx], np.uint8)
+                        host[row, size:] = 0
+                        valid.append(4 * (size // bs))
                     host[len(chunk):] = host[len(chunk) - 1]
                     valid += valid[-1:] * (padded - len(chunk))
                 yield chunk, flats, valid

@@ -62,9 +62,20 @@ BC1-BC5, each candidate's whole stream and the zstd-1 identity guard for BC7 and
 BC6H, the whole streams for the RGB layouts), whether the JAX CLI's own ``medium``
 tree is the same (and the files where it is not), and the digests of the JAX CLI's
 ``optimal`` and ``max`` trees, which depend on the zstd library's version. Runs on the
-CPU:
+CPU.
 
-    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py [--formats BC2 BC4 BATCH CLI]
+``NORMALIZE`` is the data of ``chip_smoke.py``'s normalize phase: the 4096x4096 BC1,
+BC2 and BC3 files of the smoke run with the blocks that normalization rewrites mixed
+into their payloads (``chip_smoke.normalizable``, seed 7). For each normalization
+mode (3 for BC1 and BC2, the 4 x 3 grid for BC3) it prints the sha256 of the payload
+that the JAX oracle (``oracle/normalize.py``) normalizes and the count of blocks that
+change; and, for FAST and COMPREHENSIVE, each mode's exact candidate scores, its pick
+and the exact score of the regions the JAX package's ``_scored_auto`` reads on the
+pick's output (its cross-mode score), the overall pick (the first mode with the
+smallest), the sha256 of its output, and whether the JAX package's own
+``transform_bcN_auto_with_normalization`` picks the same (``jax_pick_agrees``).
+
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py [--formats BC2 BC4 BATCH CLI NORMALIZE]
 """
 
 from __future__ import annotations
@@ -587,11 +598,103 @@ def cli() -> dict:
     return out
 
 
+def _exact(row: bytes) -> int:
+    """The exact LTU score (the native twin where it is built, else the numpy one)."""
+    return runtime.ltu_estimate(row) if runtime.available() else _score(row)
+
+
+def _normalize_search(fmt: str, payload: bytes, grid, cand) -> dict:
+    """The normalize-then-auto search with exact scores: for each mode tuple of
+    ``grid`` (in order) the normalized payload (the JAX oracle), each candidate's exact
+    score, the pick, and the exact score of the regions ``_scored_auto`` reads on the
+    pick's output; the first mode with the smallest of those wins."""
+    from dxt_lossless_transform_tpu.oracle import bc1 as o1, bc2 as o2, bc3 as o3
+    from dxt_lossless_transform_tpu.oracle import normalize as onorm
+
+    oracle = {"BC1": o1, "BC2": o2, "BC3": o3}[fmt]
+    cols = 2 if fmt == "BC1" else 4
+    key = [(int(c.decorrelation_mode), c.split_colour_endpoints) for c in cand]
+    modes, best = [], None
+    for m in grid:
+        normalized = getattr(onorm, f"normalize_blocks_{fmt.lower()}")(payload, *m)
+        words = np.frombuffer(normalized, "<u4").reshape(-1, cols)
+        colour = {k: _exact(r) for k, r in zip(
+            dict.fromkeys(key), _host_colour_regions(words[:, cols - 2].copy(),
+                                                     list(dict.fromkeys(key))))}
+        scores = [colour[k] for k in key]
+        if fmt == "BC3":
+            ep = (words[:, 0] & 0xFFFF).astype(np.int64)
+            alpha = {False: _exact(ep.astype("<u2").tobytes()),
+                     True: _exact((ep & 0xFF).astype(np.uint8).tobytes()
+                                  + (ep >> 8).astype(np.uint8).tobytes())}
+            scores = [alpha[c.split_alpha_endpoints] + s for c, s in zip(cand, scores)]
+        pick = int(np.argmin(scores))
+        out = oracle.transform(normalized, cand[pick])
+        n = len(normalized)
+        if fmt == "BC3":
+            b = n // 16
+            cross = _exact(out[:2 * b]) + _exact(out[8 * b:12 * b])
+        elif fmt == "BC2":
+            cross = _exact(out[n // 2:n // 2 + n // 4])
+        else:
+            cross = _exact(out[:n // 2])
+        modes.append({"modes": list(m), "scores": scores, "pick": _key(cand[pick]),
+                      "cross_score": cross})
+        if best is None or cross < best[0]:
+            best = (cross, m, cand[pick], out)
+    return {"modes": modes, "pick_modes": list(best[1]), "pick": _key(best[2]),
+            "sha256": hashlib.sha256(best[3]).hexdigest()}
+
+
+def normalize() -> dict:
+    """``NORMALIZE``: the normalize phase's three files (the 4096x4096 BC1, BC2 and
+    BC3 files of the smoke run with ``chip_smoke.normalizable``'s blocks mixed into
+    their payloads): each mode's normalized sha256 and changed blocks (the JAX
+    oracle), and the search under LTU, FAST and COMPREHENSIVE, from the exact scores,
+    with whether the JAX package's own search picks the same."""
+    import chip_smoke
+    from dxt_lossless_transform_tpu.ops import normalize as jax_norm
+    from dxt_lossless_transform_tpu.oracle import normalize as onorm
+
+    cm = tuple(int(m) for m in onorm.ColorNormalizationMode.all_values())
+    am = tuple(int(m) for m in onorm.AlphaNormalizationMode.all_values())
+    out = {}
+    for fmt, cand_sets in (("BC1", (BC1_FAST_CANDIDATES, BC1_COMPREHENSIVE_CANDIDATES)),
+                           ("BC2", (BC2_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES)),
+                           ("BC3", (BC3_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES))):
+        dds = make_dds(fmt, SIZE, SIZE, MIPS, seed=SEED)
+        payload = chip_smoke.normalizable(fmt, dds[0x80:], SEED)
+        bs = 8 if fmt == "BC1" else 16
+        grid = [(a, c) for a in am for c in cm] if fmt == "BC3" else [(c,) for c in cm]
+        result = {"file_sha256": hashlib.sha256(dds[:0x80] + payload).hexdigest(),
+                  "normalized": {}, "changed_blocks": {}}
+        for m in grid:
+            normalized = getattr(onorm, f"normalize_blocks_{fmt.lower()}")(payload, *m)
+            label = ",".join(map(str, m))
+            result["normalized"][label] = hashlib.sha256(normalized).hexdigest()
+            result["changed_blocks"][label] = int(
+                (np.frombuffer(normalized, np.uint8).reshape(-1, bs)
+                 != np.frombuffer(payload, np.uint8).reshape(-1, bs)).any(axis=1).sum())
+        for name, cand in zip(("fast", "comprehensive"), cand_sets):
+            r = _normalize_search(fmt, payload, grid, cand)
+            start = time.perf_counter()
+            jax_out = getattr(jax_norm, f"transform_{fmt.lower()}_auto_with_normalization")(
+                payload, LtuEstimation(), name == "comprehensive")
+            r["jax_pick"] = _key(jax_out[1])
+            r["jax_pick_modes"] = [int(m) for m in jax_out[2:]]
+            r["jax_pick_agrees"] = (r["jax_pick"], r["jax_pick_modes"]) == \
+                (r["pick"], r["pick_modes"])
+            r["jax_search_s"] = round(time.perf_counter() - start, 1)
+            result[name] = r
+        out[fmt] = result
+    return out
+
+
 FORMATS = {"BC1": bc1, "BC2": bc2, "BC3": bc3, "BC4": lambda: bc45("BC4"),
            "BC5": lambda: bc45("BC5"), "BC7": lambda: mode_sort("BC7"),
            "BC6H": lambda: mode_sort("BC6H"), "RGBA8888": lambda: rgb("rgba8888"),
            "BGRA8888": lambda: rgb("bgra8888"), "BGR888": lambda: rgb("bgr888"),
-           "BATCH": batch, "CLI": cli}
+           "BATCH": batch, "CLI": cli, "NORMALIZE": normalize}
 
 
 def main() -> None:

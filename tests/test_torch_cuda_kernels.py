@@ -1,6 +1,7 @@
 """The twenty-one CUDA kernel entry points against their plain versions, on the
 card, and the batch pipeline, on one device and under a mesh of the card repeated,
-on the card against its plain versions on the CPU.
+the decoders, normalization and its search, and the endian harness, on the card
+against the same code on the CPU.
 
 Marked ``cuda``: without a CUDA device they skip. On a machine with one (and
 without JAX, which ``tests/conftest.py`` imports):
@@ -915,3 +916,43 @@ def test_bc7_untransform_launch_shape(cuda, sort, planes_):
     assert shape["threads"] == 256
     if sort:
         assert shape["resident"] >= shape["grid"]
+
+
+# the decoders, normalization and its search, and the endian harness on the card,
+# against the same code on the CPU
+
+@pytest.mark.parametrize("fmt", ["bc1", "bc2", "bc3"])
+def test_decode_and_normalize_on_the_card_match_the_cpu(cuda, fmt):
+    from dxt_lossless_transform_tpu_torch.ops import decode, normalize
+
+    bs = 8 if fmt == "bc1" else 16
+    rng = np.random.default_rng(11)
+    words = rng.integers(0, 2**32, (4099, bs // 4), dtype=np.uint64).astype(np.uint32)
+    words[::3, bs // 4 - 1] = 0  # solid blocks where both endpoints decode alike
+    words[::3, bs // 4 - 2] = (words[::3, bs // 4 - 2] & 0xFFFF) * 0x10001
+    data = words.tobytes()
+    dec = getattr(decode, f"decode_{fmt}_bytes")
+    assert torch.equal(dec(data, device=cuda).cpu(), dec(data, device="cpu"))
+    grid = ([(a, c) for a in normalize.AM for c in normalize.CM] if fmt == "bc3"
+            else [(c,) for c in normalize.CM])
+    blocks = getattr(normalize, f"normalize_blocks_{fmt}")
+    for modes in grid:
+        assert blocks(data, *modes, device=cuda) == blocks(data, *modes, device="cpu")
+    search = getattr(normalize, f"transform_{fmt}_auto_with_normalization")
+    from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+
+    got = search(data, LtuEstimation(), True, device=cuda)
+    want = search(data, LtuEstimation(), True, device="cpu")
+    assert got[0] == want[0] and got[1:] == want[1:]
+
+
+def test_endian_matrix_on_the_card(cuda):
+    from dxt_lossless_transform_tpu_torch.utils.endian_harness import run_matrix
+
+    backend.reset_launch_counts()
+    report = run_matrix(n_blocks=300, device=cuda)
+    assert len(report.per_format) == 10 and report.containers == 3
+    assert report.batches == 5
+    for name in ("dlt_bc1_transform", "dlt_bc3_untransform", "dlt_bc7_transform",
+                 "dlt_rgb_untransform", "dlt_deinterleave_words", "dlt_ltu_counts_rows"):
+        assert backend.LAUNCHES[name] > 0, name

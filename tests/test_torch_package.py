@@ -33,6 +33,8 @@ from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
 from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
 from dxt_lossless_transform_tpu_torch.formats import api as formats_api, file_io
 from dxt_lossless_transform_tpu_torch.ops import auto, bc1, bc2, bc3, bc45, bc6h, bc7, rgb
+from dxt_lossless_transform_tpu_torch.ops import decode, normalize
+from dxt_lossless_transform_tpu_torch.utils import endian_harness
 from dxt_lossless_transform_tpu_torch.ops.cuda import channels, planes, regions, shuffle
 from dxt_lossless_transform_tpu_torch.utils import testgen
 
@@ -68,7 +70,9 @@ def test_scan_covers_the_package():
             "parallel/__init__.py", "parallel/pipeline.py",
             "parallel/sharded.py", "cli/main.py", "cli/debug.py", "cli/__main__.py",
             "utils/cache.py", "utils/profiling.py", "utils/throughput.py",
-            "oracle/decode.py", "oracle/color565.py"} <= names
+            "oracle/decode.py", "oracle/color565.py", "ops/decode.py",
+            "ops/normalize.py", "formats/debug.py", "endian.py",
+            "utils/endian_harness.py"} <= names
 
 
 def test_import_builds_nothing_and_imports_no_triton():
@@ -205,6 +209,20 @@ ENTRY_POINTS = {
     "parallel.ModeSortBatchProcessor": lambda: parallel.ModeSortBatchProcessor("bc6h"),
     "parallel.RgbBatchProcessor": lambda: parallel.RgbBatchProcessor(
         "bgr888", LtuEstimation()),
+    "decode.decode_bc1_bytes": lambda: decode.decode_bc1_bytes(DATA),
+    "decode.decode_bc3_bytes": lambda: decode.decode_bc3_bytes(DATA),
+    "normalize.normalize_blocks_bc1": lambda: normalize.normalize_blocks_bc1(DATA, 1),
+    "normalize.normalize_blocks_bc2 NONE": lambda: normalize.normalize_blocks_bc2(DATA, 0),
+    "normalize.normalize_blocks_all_modes_bc3": lambda: (
+        normalize.normalize_blocks_all_modes_bc3(DATA)),
+    "normalize.transform_bc2_with_normalize_blocks": lambda: (
+        normalize.transform_bc2_with_normalize_blocks(
+            DATA, settings.Bc2TransformSettings(), 2)),
+    "normalize.transform_bc1_auto_with_normalization": lambda: (
+        normalize.transform_bc1_auto_with_normalization(DATA, LtuEstimation())),
+    "normalize.transform_bc3_auto_with_normalization": lambda: (
+        normalize.transform_bc3_auto_with_normalization(DATA, LtuEstimation())),
+    "endian_harness.run_matrix": lambda: endian_harness.run_matrix(n_blocks=4),
 }
 
 
