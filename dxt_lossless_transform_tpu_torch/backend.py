@@ -19,6 +19,13 @@ Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises :class:`KernelLaunchError` when that
 is not 0 and otherwise adds one to the kernel's count in :data:`LAUNCHES`, under a
 lock, since the CLI launches from several threads.
+
+Beside it, :func:`count` adds to the program's other counters, always on and under
+the same lock: ``batch.blocks_real`` and ``batch.blocks_launched`` (the payloads'
+blocks and the bucket-padded rows that ``BatchProcessor`` launched).
+:func:`counters` snapshots them as plain ints, with ``pinned_pool_growths``, the
+times PyTorch's pinned-memory pool grew (``num_host_alloc`` of its host allocator's
+statistics, read at the snapshot).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from .errors import DeviceUnavailableError
+from .utils.profiling import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
@@ -102,9 +110,13 @@ _QUERIES = {
 #: Launches per kernel since the last :func:`reset_launch_counts`.
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 
+#: The program's counters since the last :func:`reset_counters`; read :func:`counters`.
+COUNTS = dict.fromkeys(("batch.blocks_real", "batch.blocks_launched"), 0)
+
 _lib: Optional[ctypes.CDLL] = None
 # held across the check, the build and the load of the library
 _build_lock = threading.RLock()
+# guards LAUNCHES and COUNTS
 _launch_lock = threading.Lock()
 
 
@@ -220,6 +232,27 @@ def reset_launch_counts() -> None:
             LAUNCHES[name] = 0
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` to counter ``name``."""
+    with _launch_lock:
+        COUNTS[name] += n
+
+
+def counters() -> dict:
+    """A snapshot of the counters and of the pinned pool's growths, as plain ints."""
+    with _launch_lock:
+        out = dict(COUNTS)
+    stats = torch.cuda.host_memory_stats()  # empty until CUDA is initialised
+    out["pinned_pool_growths"] = int(stats.get("num_host_alloc", 0))
+    return out
+
+
+def reset_counters() -> None:
+    with _launch_lock:
+        for name in COUNTS:
+            COUNTS[name] = 0
+
+
 def require_cuda_tensor(t: torch.Tensor, what: str, dtype: torch.dtype,
                         align: int = 4) -> None:
     """Check what a kernel takes: a contiguous CUDA tensor of ``dtype`` whose data
@@ -299,6 +332,7 @@ class Download:
             self._host = tensors
 
     def wait(self) -> list:
-        if self._event is not None:
-            self._event.synchronize()
+        with span("dlt.backend.wait"):
+            if self._event is not None:
+                self._event.synchronize()
         return [h.numpy() for h in self._host]

@@ -18,6 +18,7 @@ from typing import Optional, Protocol, Union, runtime_checkable
 import torch
 
 from .. import endian
+from ..utils.profiling import span
 from ..ops import bc1 as ops_bc1, bc2 as ops_bc2, bc3 as ops_bc3, bc45 as ops_bc45
 from ..ops import bc6h as ops_bc6h, bc7 as ops_bc7, rgb as ops_rgb
 from .bundle import TransformBundle
@@ -138,41 +139,52 @@ class FileFormatUntransformDetection(Protocol):
 
 class DdsHandler:
     """DDS container handler. ``device`` is where both directions run: the
-    bundle's builders transform there and :meth:`untransform` inverts there."""
+    bundle's builders transform there and :meth:`untransform` inverts there. Each
+    direction's steps are the spans ``dlt.formats.parse``, ``dlt.formats.transform``
+    (or ``dlt.formats.untransform``) and ``dlt.formats.join``."""
 
     def __init__(self, device: Union[str, torch.device] = "cuda"):
         self.device = device
 
     def transform_bundle(self, data: bytes, bundle: TransformBundle) -> bytes:
-        info = parse_dds(data)
-        if info is None:
-            raise InvalidInputFileHeader("not a parseable DDS file")
-        fmt = _DDS_TO_TRANSFORM.get(info.format)
-        if fmt is None:
-            raise InvalidInputFileHeader(f"unsupported DDS format {info.format}")
-        start, end = info.data_offset, info.data_offset + info.data_length
-        if len(data) < end:
-            raise InputTooShortForStatedTextureSize(end, len(data))
-        payload, header = dispatch_transform(fmt, data[start:end], bundle, self.device)
-        out = header.to_bytes() + data[TRANSFORM_HEADER_SIZE:start] + payload + data[end:]
-        expected = len(data) + transformed_payload_len(header, end - start) - (end - start)
-        if len(out) != expected:
-            raise OutputSizeMismatch(expected, len(out))
+        with span("dlt.formats.parse"):
+            info = parse_dds(data)
+            if info is None:
+                raise InvalidInputFileHeader("not a parseable DDS file")
+            fmt = _DDS_TO_TRANSFORM.get(info.format)
+            if fmt is None:
+                raise InvalidInputFileHeader(f"unsupported DDS format {info.format}")
+            start, end = info.data_offset, info.data_offset + info.data_length
+            if len(data) < end:
+                raise InputTooShortForStatedTextureSize(end, len(data))
+        with span("dlt.formats.transform"):
+            payload, header = dispatch_transform(fmt, data[start:end], bundle,
+                                                 self.device)
+        with span("dlt.formats.join"):
+            out = (header.to_bytes() + data[TRANSFORM_HEADER_SIZE:start] + payload
+                   + data[end:])
+            expected = (len(data) + transformed_payload_len(header, end - start)
+                        - (end - start))
+            if len(out) != expected:
+                raise OutputSizeMismatch(expected, len(out))
         return out
 
     def untransform(self, data: bytes) -> bytes:
-        if len(data) < TRANSFORM_HEADER_SIZE:
-            raise InputTooShort(TRANSFORM_HEADER_SIZE, len(data))
-        header = TransformHeader.from_bytes(data)
-        info = parse_dds_ignore_magic(data)
-        if info is None:
-            raise InvalidRestoredFileHeader("not a parseable (transformed) DDS file")
-        start = info.data_offset
-        end = start + transformed_payload_len(header, info.data_length)
-        if len(data) < end:
-            raise InputTooShortForStatedTextureSize(end, len(data))
-        payload = dispatch_untransform(header, data[start:end], self.device)
-        return endian.pack_u32(DDS_MAGIC) + data[4:start] + payload + data[end:]
+        with span("dlt.formats.parse"):
+            if len(data) < TRANSFORM_HEADER_SIZE:
+                raise InputTooShort(TRANSFORM_HEADER_SIZE, len(data))
+            header = TransformHeader.from_bytes(data)
+            info = parse_dds_ignore_magic(data)
+            if info is None:
+                raise InvalidRestoredFileHeader("not a parseable (transformed) DDS file")
+            start = info.data_offset
+            end = start + transformed_payload_len(header, info.data_length)
+            if len(data) < end:
+                raise InputTooShortForStatedTextureSize(end, len(data))
+        with span("dlt.formats.untransform"):
+            payload = dispatch_untransform(header, data[start:end], self.device)
+        with span("dlt.formats.join"):
+            return endian.pack_u32(DDS_MAGIC) + data[4:start] + payload + data[end:]
 
     # detection (JAX handlers.py:164-177)
 

@@ -52,6 +52,7 @@ from ..ops import bc45 as ops_bc45, bc6h as ops_bc6h, bc7 as ops_bc7
 from ..ops import hostwrap, lanes, rgb as ops_rgb
 from ..ops.auto import distinct
 from ..ops.cuda import channels, shuffle
+from ..utils.profiling import span
 from ..settings import (
     BC1_FAST_CANDIDATES, BC2_FAST_CANDIDATES, BC3_FAST_CANDIDATES,
     BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, RGB_FAST_CANDIDATES,
@@ -162,26 +163,37 @@ _FORMATS = {
 
 
 class StageTimes:
-    """Seconds spent in each stage of a processor's batches, kept only when
-    ``enabled``: then the device is synchronised around each stage, which stops the
-    batches from overlapping, so that each stage's time is its own."""
+    """The stages of a processor's batches: each is the span ``dlt.<prefix>.<stage>``
+    (:func:`..utils.profiling.span`) inside the call's span ``dlt.<prefix>.process``
+    (:meth:`call`), and its seconds are kept only when ``enabled``: then the device
+    is synchronised around each stage, which stops the batches from overlapping, so
+    that each stage's time is its own."""
 
-    def __init__(self, device: torch.device, enabled: bool):
-        self.device, self.enabled = device, enabled
+    def __init__(self, device: torch.device, enabled: bool, prefix: str):
+        self.device, self.enabled, self.prefix = device, enabled, prefix
         self.seconds: dict = {}
+        #: calls begun, the sequence number in each call's span
+        self.calls = 0
+
+    def call(self, files: int):
+        """The span of one call of ``files`` payloads."""
+        self.calls += 1
+        return span(f"dlt.{self.prefix}.process", f"call={self.calls} files={files}")
 
     @contextmanager
     def __call__(self, stage: str):
-        if not self.enabled:
+        with span(f"dlt.{self.prefix}.{stage}"):
+            if not self.enabled:
+                yield
+                return
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            start = time.perf_counter()
             yield
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        start = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.seconds[stage] = self.seconds.get(stage, 0.0) + time.perf_counter() - start
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.seconds[stage] = (self.seconds.get(stage, 0.0)
+                                   + time.perf_counter() - start)
 
 
 def _as_unsigned(a: np.ndarray) -> np.ndarray:
@@ -218,14 +230,14 @@ class BatchProcessor:
             self._step = sharded.auto_step(fmt, mesh, self._cand_key, DEFAULT_OFFSETS)
         else:
             self._step = sharded.auto_step_batched(fmt, self._cand_key, DEFAULT_OFFSETS)
-        self.times = StageTimes(self.device, timing)
+        self.times = StageTimes(self.device, timing, "batch")
         #: device batches run by the last :meth:`process`
         self.batches = 0
 
     def _prepare_batches(self, payloads: Sequence[bytes], order):
         """Bucket payloads into (chunk, host flats, valid lengths) batches; under a
         mesh a batch is padded to a multiple of the files axis with copies of its
-        last file."""
+        last file. Counts each batch's real and launched blocks."""
         bs, wpb = self.cfg["block_size"], self.cfg["words"]
         files = 1 if self.mesh is None else self.mesh.shape["files"]
         by_bucket: dict = {}
@@ -256,6 +268,9 @@ class BatchProcessor:
                         valid.append(4 * (size // bs))
                     host[len(chunk):] = host[len(chunk) - 1]
                     valid += valid[-1:] * (padded - len(chunk))
+                backend.count("batch.blocks_real",
+                              sum(len(payloads[i]) for i in chunk) // bs)
+                backend.count("batch.blocks_launched", padded * bucket)
                 yield chunk, flats, valid
 
     def _launch(self, flats: torch.Tensor, valid: list) -> backend.Download:
@@ -278,12 +293,13 @@ class BatchProcessor:
         self.batches = 0
         finish = self._serialize if self.estimator is None else self._score_and_serialize
         pending = deque()
-        for chunk, flats, valid in self._prepare_batches(payloads, order):
-            pending.append((chunk, self._launch(flats, valid)))
-            if len(pending) >= 2:
+        with self.times.call(len(payloads)):
+            for chunk, flats, valid in self._prepare_batches(payloads, order):
+                pending.append((chunk, self._launch(flats, valid)))
+                if len(pending) >= 2:
+                    finish(payloads, order, *pending.popleft())
+            while pending:
                 finish(payloads, order, *pending.popleft())
-        while pending:
-            finish(payloads, order, *pending.popleft())
         return [r for r in order if r is not None]
 
     def _serialize(self, payloads, order, chunk, download) -> None:
@@ -438,13 +454,17 @@ class UntransformBatchProcessor:
         self.cfg = _UNTRANSFORM[fmt]
         self.max_batch = max_batch
         self.device = backend.resolve_device(device)
-        self.times = StageTimes(self.device, timing)
+        self.times = StageTimes(self.device, timing, "untransform")
         #: untransform batches (BC1-BC5) run by the last :meth:`process`
         self.batches = 0
 
     def process(self, entries: Sequence[tuple]) -> List[bytes]:
         """``entries`` = [(transformed payload bytes, settings), ...]; returns the
         restored payloads in submission order."""
+        with self.times.call(len(entries)):
+            return self._process(entries)
+
+    def _process(self, entries: Sequence[tuple]) -> List[bytes]:
         out: List[Optional[bytes]] = [None] * len(entries)
         self.batches = 0
         by_group: dict = {}
@@ -535,7 +555,7 @@ class ModeSortBatchProcessor:
                                for s in self.settings)
         self.max_batch = max_batch
         self.device = backend.resolve_device(device)
-        self.times = StageTimes(self.device, timing)
+        self.times = StageTimes(self.device, timing, "modesort")
         #: device batches run by the last :meth:`process`
         self.batches = 0
         #: each file's pick before the identity guard (an index into the
@@ -543,6 +563,10 @@ class ModeSortBatchProcessor:
         self.picks: List[int] = []
 
     def process(self, payloads: Sequence[bytes]) -> List[BatchResult]:
+        with self.times.call(len(payloads)):
+            return self._process(payloads)
+
+    def _process(self, payloads: Sequence[bytes]) -> List[BatchResult]:
         order: List[Optional[BatchResult]] = [None] * len(payloads)
         self.batches = 0
         self.picks = [len(self.settings) - 1] * len(payloads)
@@ -607,11 +631,15 @@ class RgbBatchProcessor:
                               else RGB_FAST_CANDIDATES)
         self.max_batch = max_batch
         self.device = backend.resolve_device(device)
-        self.times = StageTimes(self.device, timing)
+        self.times = StageTimes(self.device, timing, "rgb")
         #: device batches run by the last :meth:`process`
         self.batches = 0
 
     def process(self, payloads: Sequence[bytes]) -> List[BatchResult]:
+        with self.times.call(len(payloads)):
+            return self._process(payloads)
+
+    def _process(self, payloads: Sequence[bytes]) -> List[BatchResult]:
         order: List[Optional[BatchResult]] = [None] * len(payloads)
         self.batches = 0
         live = [i for i, p in enumerate(payloads) if len(p)]

@@ -3,7 +3,11 @@
 :func:`trace` records a ``torch.profiler`` trace of a region, the card's kernels
 included when the device is a CUDA one, and writes it as a Chrome trace (viewable in
 Perfetto or ``chrome://tracing``); the CLI's ``--profile DIR`` wraps a whole command
-in it. :func:`annotate` names a sub-region inside a trace.
+in it. :func:`span` names a region of the program inside such a trace (the batch
+processors' stages, the wait on the card, the DDS handler's steps, all ``dlt.*``), as
+a ``torch.profiler.record_function``, so that its host events share the profiler's
+clock with the card's kernels and copies. While no profiler records, a span is one
+check of a flag and a shared null context.
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ import time
 from typing import Iterator, Optional, Union
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -35,6 +42,13 @@ def trace(out_dir: Optional[str],
         out_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    """Named sub-region inside a trace (shows up in the timeline)."""
-    return torch.profiler.record_function(name)
+def span(name: str, args: Optional[str] = None):
+    """A named region of the program in the timeline of a recording profiler, with
+    ``args`` beside it; while none records, a context that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name, args)
+
+
+#: The JAX package's name for :func:`span`.
+annotate = span
