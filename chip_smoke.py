@@ -333,6 +333,14 @@ KERNELS = {
     "dlt_rgb_untransform": ("rgb_kernels.cu",
                             "dxt_lossless_transform_tpu/ops/pallas/channels.py:92"),
 }
+# the rows form of each BC1-BC5 transform, the end of the device-scored batch step ->
+# (source, what it replaces: no TPU kernel, the JAX pipeline's host serializer of its
+# step's lanes)
+ROWS_KERNELS = {
+    f"dlt_{fmt}_transform_rows": (f"{'bc45' if fmt in ('bc4', 'bc5') else fmt}_kernels.cu",
+                                  f"dxt_lossless_transform_tpu/parallel/pipeline.py:{line} "
+                                  f"_serialize_{fmt}")
+    for fmt, line in (("bc1", 68), ("bc2", 75), ("bc3", 85), ("bc4", 113), ("bc5", 118))}
 # the kernels of each format's path: its shuffles, its region kernel if it has one,
 # and the count kernel that scores every auto-search; BC6H shares BC7's kernels
 PATH_KERNELS = {fmt: [name for name in KERNELS if name.startswith(f"dlt_{fmt.lower()}_")]
@@ -954,7 +962,7 @@ def bc1_batch_rows(corpus_bc1: list, dev) -> tuple:
     for row, d in enumerate(big):
         flats[row, :len(d) // 4] = torch.frombuffer(bytearray(d), dtype=torch.int32)
     n_big = len(big[0]) // 8
-    _, rows, _ = sharded._colour_rows_batched(
+    rows, _ = sharded._colour_rows_batched(
         flats.to(dev), [n_big] * len(big), sharded._BC1_CANDIDATES, 2, regions.bc1_regions)
     return rows.view(-1, rows.shape[2]), n_big
 
@@ -1182,9 +1190,10 @@ def cli_phase(dev, corpus: dict, big: dict, batch_out: dict, tmpdir: Path,
             for fmt, proc in recorded:
                 batches[fmt] = batches.get(fmt, 0) + proc.batches
             want_counts = {"dlt_deinterleave_words": sum(batches.get(f, 0)
-                                                         for f in BATCH_FORMATS),
+                                                         for f in ("bc4", "bc5")),
                            "dlt_ltu_counts_rows": sum(batches.values()),
-                           **{f"dlt_{f}_regions": batches[f] for f in ("bc1", "bc2", "bc3")}}
+                           **{f"dlt_{f}_regions": batches[f] for f in ("bc1", "bc2", "bc3")},
+                           **{f"dlt_{f}_transform_rows": batches[f] for f in BATCH_FORMATS}}
             got = {name: counts.get(name, 0) for name in want_counts}
             carried = {fmt: sum(1 for rel in want if fmt_of[rel] == fmt) for fmt in batches}
             if got != want_counts or any(batches[f] >= carried[f] for f in BATCH_FORMATS):
@@ -1350,7 +1359,7 @@ def main() -> int:
         if hashlib.sha256(data).hexdigest() != FILE_SHA256[fmt]:
             fail(f"make_dds gave another {fmt} file than the reference run")
     payload = {fmt: data[0x80:] for fmt, data in dds.items()}
-    max_err = {name: 0 for name in KERNELS}
+    max_err = {name: 0 for name in (*KERNELS, *ROWS_KERNELS)}
 
     def compare(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         sync()
@@ -1762,8 +1771,14 @@ def main() -> int:
                     keys = auto.distinct(proc._cand_key)[0]
                     compare(f"dlt_{fmt}_regions", getattr(regions, f"{fmt}_regions")(xb, keys),
                             getattr(regions, f"{fmt}_regions_plain")(xb, keys), what)
-                proc._step(x, valid)
+                rows, best = proc._step(x, valid)
                 compare_scored(what)
+                ns, bs = [v // 4 for v in valid], proc.cfg["block_size"]
+                plain_rows = shuffle.transform_rows_plain(fmt, x.cpu(), ns, best.cpu(),
+                                                          proc._cand_key)
+                for r, n_r in enumerate(ns):
+                    compare(f"dlt_{fmt}_transform_rows", rows[r, :bs * n_r],
+                            plain_rows[r, :bs * n_r].to(dev), f"{what}, row {r}")
                 for st in batch_settings[fmt].all_combinations():
                     t = transform(xb, *shuffle_args(st))
                     u = untransform(t, *shuffle_args(st))
@@ -1790,7 +1805,7 @@ def main() -> int:
     bc1_proc = parallel.BatchProcessor("bc1", max_batch=BATCH_MAX)
     bc1_data = corpus["bc1"]
     for chunk, flats, valid in bc1_proc._prepare_batches(bc1_data, [None] * len(bc1_data)):
-        _, rows, _ = sharded._colour_rows_batched(
+        rows, _ = sharded._colour_rows_batched(
             backend.to_device(flats, dev), [v // 4 for v in valid], sharded._BC1_CANDIDATES,
             2, regions.bc1_regions)
         keys = rows.shape[1]
@@ -1931,8 +1946,8 @@ def main() -> int:
         for fmt in BATCH_FORMATS:
             checked_path(f"{name}/{fmt}", lambda: restore(mesh, fmt, parallel.BatchProcessor(
                 fmt, mesh=mesh, max_batch=BATCH_MAX).process(corpus[fmt])),
-                ["dlt_ltu_counts_windowed", "dlt_deinterleave_words",
-                 f"dlt_{fmt}_untransform", *region_kernels(fmt)])
+                ["dlt_ltu_counts_windowed", f"dlt_{fmt}_untransform",
+                 *(region_kernels(fmt) or ["dlt_deinterleave_words"])])
         for fmt in BATCH_HOST_SCORED:
             checked_path(f"{name}/{fmt}_zstd1", lambda: restore(
                 mesh, fmt, parallel.BatchProcessor(
@@ -1946,8 +1961,7 @@ def main() -> int:
         checked_path(f"1x8/{fmt}_4096", lambda: restore(
             meshes["1x8"], fmt, parallel.BatchProcessor(fmt, mesh=meshes["1x8"], max_batch=1)
             .process([payload[fmt.upper()]])),
-            ["dlt_ltu_counts_windowed", "dlt_deinterleave_words", f"dlt_{fmt}_untransform",
-             f"dlt_{fmt}_regions"])
+            ["dlt_ltu_counts_windowed", f"dlt_{fmt}_untransform", f"dlt_{fmt}_regions"])
     emit("check", t0, block_counts=checked, max_abs_err=max_err,
          window_cuts=window_cuts, mesh_calls=mesh_calls, window_blocks=window_blocks,
          batch_blocks=batch_blocks_checked, batch_count_rows=batch_rows_checked,
@@ -2201,11 +2215,13 @@ def main() -> int:
     for fmt in BATCH_FORMATS:
         proc = parallel.BatchProcessor(fmt, max_batch=BATCH_MAX)
         results, counts, unproc = batch_path(fmt, fmt, proc)
-        want = {"dlt_deinterleave_words": proc.batches,
-                "dlt_ltu_counts_rows": proc.batches,
+        want = {"dlt_ltu_counts_rows": proc.batches,
+                f"dlt_{fmt}_transform_rows": proc.batches,
                 f"dlt_{fmt}_untransform": unproc.batches}
         if fmt in ("bc1", "bc2", "bc3"):
             want[f"dlt_{fmt}_regions"] = proc.batches
+        else:
+            want["dlt_deinterleave_words"] = proc.batches
         if counts != want:
             fail(f"batch {fmt}: launches {counts}, expected one of each kernel per "
                  f"batch: {want}")
@@ -2390,7 +2406,7 @@ def main() -> int:
     # each kernel's launches on the main paths: the earlier slices', the batch, the
     # mesh, the CLI, the normalize and the endian ones
     launches = {name: sum(counts.get(name, 0) for counts in path_launches.values())
-                for name in KERNELS}
+                for name in (*KERNELS, *ROWS_KERNELS)}
 
     # ---- 10. times ---------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2803,6 +2819,41 @@ def main() -> int:
                 "batch_s": host_s(lambda: parallel.BatchProcessor(
                     fmt, mesh=mesh, max_batch=BATCH_MAX).process(data), 3),
                 "single_device_batch_s": throughput[fmt]["batch_s"]}
+    # each rows kernel on its format's batch corpus as the batch step hands it over:
+    # every batch's rows and the step's own picks, the block counts already on the
+    # card (the step uploads them before the launch), timed as the sum of each
+    # launch's median. Bytes: each file's blocks read and written once (the padding
+    # neither); operations: BC1-BC3's colour pair, as the per-file kernels'
+    for fmt in BATCH_FORMATS:
+        proc = parallel.BatchProcessor(fmt, max_batch=BATCH_MAX)
+        bs, batches = proc.cfg["block_size"], []
+        code = shuffle.rows_code(fmt, proc._cand_key)
+        for _, flats, valid in proc._prepare_batches(corpus[fmt], [None] * len(corpus[fmt])):
+            x = backend.to_device(flats, dev)
+            ns = [v // 4 for v in valid]
+            best = proc._step(x, valid)[1]
+            out = torch.empty((x.shape[0], 4 * x.shape[1]), dtype=torch.uint8, device=dev)
+            batches.append((x, ns, torch.tensor(ns, device=dev), best, out, flats,
+                            best.cpu()))
+        blocks = sum(sum(b[1]) for b in batches)
+
+        def rows_launch(i: int, plain: bool = False):
+            x, ns, counts, best, out, x_host, best_host = batches[i]
+            if plain:
+                return lambda: shuffle.transform_rows_plain(fmt, x_host, ns, best_host,
+                                                            proc._cand_key)
+            return lambda: backend.launch(
+                f"dlt_{fmt}_transform_rows", dev, x.data_ptr(), out.data_ptr(),
+                counts.data_ptr(), best.data_ptr(), x.shape[0], out.shape[1] // bs, code,
+                len(proc._cand_key))
+
+        timed[f"dlt_{fmt}_transform_rows/batch"] = dict(
+            ms=sum(event_ms(rows_launch(i), 20) for i in range(len(batches))),
+            plain_ms=sum(event_ms(rows_launch(i, True), 3) for i in range(len(batches))),
+            launches=len(batches), files=sum(1 for d in corpus[fmt] if d),
+            bytes=2 * bs * blocks, ops=OPS_PAIR * blocks if fmt in ("bc1", "bc2", "bc3")
+            else 0)
+        del batches
     for entry in timed.values():
         bytes_ms = entry["bytes"] / rate * 1e3
         ops_ms = entry["ops"] / int_rate * 1e3
@@ -2833,6 +2884,15 @@ def main() -> int:
             "ms": entry["ms"], "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
             "library_ms": entry.get("library_ms")})
+    # the rows kernels on their formats' batch corpora
+    for name, (source, replaces) in ROWS_KERNELS.items():
+        entry = timed[f"{name}/batch"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+            "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+            "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

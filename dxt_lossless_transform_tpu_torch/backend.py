@@ -22,7 +22,9 @@ lock, since the CLI launches from several threads.
 
 Beside it, :func:`count` adds to the program's other counters, always on and under
 the same lock: ``batch.blocks_real`` and ``batch.blocks_launched`` (the payloads'
-blocks and the bucket-padded rows that ``BatchProcessor`` launched).
+blocks and the bucket-padded rows that ``BatchProcessor`` launched), and
+``batch.files_device_bytes`` (the files whose shipped bytes the card wrote: the
+device-scored ``BatchProcessor``'s non-empty files).
 :func:`counters` snapshots them as plain ints, with ``pinned_pool_growths``, the
 times PyTorch's pinned-memory pool grew (``num_host_alloc`` of its host allocator's
 statistics, read at the snapshot).
@@ -94,6 +96,10 @@ _SIGNATURES = {
     # (in, out, n_pixels, stride, ri, gi, bi, dec, split, stream)
     "dlt_rgb_transform": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dlt_rgb_untransform": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (in, out, block counts, best, n_rows, bucket, candidate code, n_candidates,
+    #  stream)
+    **{f"dlt_{fmt}_transform_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _P)
+       for fmt in ("bc1", "bc2", "bc3", "bc4", "bc5")},
 }
 
 # Queries of a kernel's launch shape: they launch nothing and write int64 results
@@ -111,7 +117,8 @@ _QUERIES = {
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 #: The program's counters since the last :func:`reset_counters`; read :func:`counters`.
-COUNTS = dict.fromkeys(("batch.blocks_real", "batch.blocks_launched"), 0)
+COUNTS = dict.fromkeys(("batch.blocks_real", "batch.blocks_launched",
+                        "batch.files_device_bytes"), 0)
 
 _lib: Optional[ctypes.CDLL] = None
 # held across the check, the build and the load of the library

@@ -26,11 +26,11 @@ namespace {
 // stores that neighbouring threads make to neighbouring addresses, so each warp
 // writes whole 64- and 128-byte segments. The TPU kernel's transposes and
 // even/odd packing existed for the TPU's (8, 128) tiles and have no counterpart.
+// Block b of n: the per-block body, which the rows kernel shares.
 template <int V, bool SPLIT>
-__global__ void __launch_bounds__(kThreads)
-bc1_transform_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out, int64_t n) {
-  const int64_t b = global_thread();
-  if (b >= n) return;
+__device__ __forceinline__ void bc1_transform_block(const uint2* __restrict__ in,
+                                                    uint8_t* __restrict__ out, int64_t n,
+                                                    int64_t b) {
   const uint2 blk = in[b];
   const uint32_t d = decorrelate_pair<V>(blk.x);
   if constexpr (SPLIT) {
@@ -40,6 +40,33 @@ bc1_transform_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out, in
     reinterpret_cast<uint32_t*>(out)[b] = d;
   }
   reinterpret_cast<uint32_t*>(out + 4 * n)[b] = blk.y;
+}
+
+template <int V, bool SPLIT>
+__global__ void __launch_bounds__(kThreads)
+bc1_transform_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out, int64_t n) {
+  const int64_t b = global_thread();
+  if (b >= n) return;
+  bc1_transform_block<V, SPLIT>(in, out, n, b);
+}
+
+// ---- dlt_bc1_transform_rows --------------------------------------------------------
+// The end of the batch pipeline's BC1 step: every file of a (B, 8·bucket) batch
+// transformed under its own winner, in the per-file layout at its row's base (the
+// rows form, common.cuh). Bound by bytes: 8·n_r read and written per row. Settings
+// index variant * 2 + split (with_variant_split, as the per-file entry point).
+__global__ void __launch_bounds__(kThreads)
+bc1_transform_rows_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out,
+                          const int64_t* __restrict__ ns, const int64_t* __restrict__ best,
+                          int64_t bucket, uint64_t code, int64_t row0) {
+  RowBlock rb;
+  if (!row_block(ns, best, code, row0, rb)) return;
+  const uint2* src = in + rb.row * bucket;
+  uint8_t* dst = out + rb.row * 8 * bucket;
+  with_variant_split(rb.settings, [&](auto s) {
+    using S = decltype(s);
+    bc1_transform_block<S::V, S::SPLIT>(src, dst, rb.n, rb.b);
+  });
 }
 
 // ---- dlt_bc1_untransform -----------------------------------------------------------
@@ -540,16 +567,18 @@ int dlt_bc1_transform(const void* in, void* out, int64_t n, int64_t variant,
                       int64_t split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0 || variant < 0 || variant > 3) return cudaErrorInvalidValue;
-  switch (variant * 2 + (split ? 1 : 0)) {
-    case 0: return launch_transform<0, false>(in, out, n, st);
-    case 1: return launch_transform<0, true>(in, out, n, st);
-    case 2: return launch_transform<1, false>(in, out, n, st);
-    case 3: return launch_transform<1, true>(in, out, n, st);
-    case 4: return launch_transform<2, false>(in, out, n, st);
-    case 5: return launch_transform<2, true>(in, out, n, st);
-    case 6: return launch_transform<3, false>(in, out, n, st);
-    default: return launch_transform<3, true>(in, out, n, st);
-  }
+  return with_variant_split(variant_split_index(variant, split), [&](auto s) {
+    using S = decltype(s);
+    return launch_transform<S::V, S::SPLIT>(in, out, n, st);
+  });
+}
+
+int dlt_bc1_transform_rows(const void* in, void* out, const void* ns, const void* best,
+                           int64_t rows, int64_t bucket, int64_t code, int64_t n_cand,
+                           void* stream) {
+  if (!rows_args_valid(rows, bucket, n_cand)) return cudaErrorInvalidValue;
+  return launch_rows<uint2>(bc1_transform_rows_kernel, in, out, ns, best, rows, bucket,
+                            code, static_cast<cudaStream_t>(stream));
 }
 
 int dlt_bc1_untransform(const void* in, void* out, int64_t n, int64_t variant,

@@ -33,11 +33,11 @@ namespace {
 // and index words, neighbouring threads on neighbouring addresses. The TPU
 // kernel's even/odd phases and transposed tiles existed for the TPU's (8, 128)
 // layout and have no counterpart here.
+// Block b of n: the per-block body, which the rows kernel shares.
 template <int V, bool SPLIT>
-__global__ void __launch_bounds__(kThreads)
-bc2_transform_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out, int64_t n) {
-  const int64_t b = global_thread();
-  if (b >= n) return;
+__device__ __forceinline__ void bc2_transform_block(const uint4* __restrict__ in,
+                                                    uint8_t* __restrict__ out, int64_t n,
+                                                    int64_t b) {
   const uint4 blk = in[b];
   reinterpret_cast<uint2*>(out)[b] = make_uint2(blk.x, blk.y);
   const uint32_t d = decorrelate_pair<V>(blk.z);
@@ -48,6 +48,33 @@ bc2_transform_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out, in
     reinterpret_cast<uint32_t*>(out + 8 * n)[b] = d;
   }
   reinterpret_cast<uint32_t*>(out + 12 * n)[b] = blk.w;
+}
+
+template <int V, bool SPLIT>
+__global__ void __launch_bounds__(kThreads)
+bc2_transform_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out, int64_t n) {
+  const int64_t b = global_thread();
+  if (b >= n) return;
+  bc2_transform_block<V, SPLIT>(in, out, n, b);
+}
+
+// ---- dlt_bc2_transform_rows --------------------------------------------------------
+// The end of the batch pipeline's BC2 step: every file of a (B, 16·bucket) batch
+// transformed under its own winner, in the per-file layout at its row's base (the
+// rows form, common.cuh). Bound by bytes: 16·n_r read and written per row. Settings
+// index variant * 2 + split (with_variant_split, as the per-file entry point).
+__global__ void __launch_bounds__(kThreads)
+bc2_transform_rows_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out,
+                          const int64_t* __restrict__ ns, const int64_t* __restrict__ best,
+                          int64_t bucket, uint64_t code, int64_t row0) {
+  RowBlock rb;
+  if (!row_block(ns, best, code, row0, rb)) return;
+  const uint4* src = in + rb.row * bucket;
+  uint8_t* dst = out + rb.row * 16 * bucket;
+  with_variant_split(rb.settings, [&](auto s) {
+    using S = decltype(s);
+    bc2_transform_block<S::V, S::SPLIT>(src, dst, rb.n, rb.b);
+  });
 }
 
 // ---- dlt_bc2_untransform -----------------------------------------------------------
@@ -105,13 +132,6 @@ cudaError_t launch_untransform(const void* in, void* out, int64_t n, cudaStream_
 using Launch = cudaError_t (*)(const void*, void*, int64_t, cudaStream_t);
 
 // the 8 instantiations, indexed by variant * 2 + split
-constexpr Launch kTransform[8] = {
-    launch_transform<0, false>, launch_transform<0, true>,
-    launch_transform<1, false>, launch_transform<1, true>,
-    launch_transform<2, false>, launch_transform<2, true>,
-    launch_transform<3, false>, launch_transform<3, true>,
-};
-
 constexpr Launch kUntransform[8] = {
     launch_untransform<0, false>, launch_untransform<0, true>,
     launch_untransform<1, false>, launch_untransform<1, true>,
@@ -127,8 +147,19 @@ extern "C" {
 int dlt_bc2_transform(const void* in, void* out, int64_t n, int64_t variant,
                       int64_t split, void* stream) {
   if (n <= 0 || variant < 0 || variant > 3) return cudaErrorInvalidValue;
-  return kTransform[variant * 2 + (split ? 1 : 0)](in, out, n,
-                                                   static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_variant_split(variant_split_index(variant, split), [&](auto s) {
+    using S = decltype(s);
+    return launch_transform<S::V, S::SPLIT>(in, out, n, st);
+  });
+}
+
+int dlt_bc2_transform_rows(const void* in, void* out, const void* ns, const void* best,
+                           int64_t rows, int64_t bucket, int64_t code, int64_t n_cand,
+                           void* stream) {
+  if (!rows_args_valid(rows, bucket, n_cand)) return cudaErrorInvalidValue;
+  return launch_rows<uint4>(bc2_transform_rows_kernel, in, out, ns, best, rows, bucket,
+                            code, static_cast<cudaStream_t>(stream));
 }
 
 int dlt_bc2_untransform(const void* in, void* out, int64_t n, int64_t variant,

@@ -26,6 +26,46 @@
 
 namespace {
 
+// ---- a candidate's instantiation index ---------------------------------------------
+// variant * 4 + split_alpha * 2 + split_colour, the index of the per-file entry
+// points' instantiations and of the rows kernel's candidates (ops/cuda/shuffle.py's
+// _ROWS mirrors it). with_bc3_settings(i, f) calls f with the tag of instantiation i,
+// on the host to pick the per-file kernel and on the card to pick the rows kernel's
+// per-block body: the one map from the index to the template.
+template <int V_, bool SA_, bool SC_>
+struct Bc3Settings {
+  static constexpr int V = V_;
+  static constexpr bool SA = SA_, SC = SC_;
+};
+
+inline unsigned bc3_settings_index(int64_t variant, int64_t split_alpha,
+                                   int64_t split_colour) {
+  return static_cast<unsigned>(variant * 4 + (split_alpha ? 2 : 0) + (split_colour ? 1 : 0));
+}
+
+#pragma nv_exec_check_disable
+template <typename F>
+__host__ __device__ __forceinline__ auto with_bc3_settings(unsigned i, F&& f) {
+  switch (i) {
+    case 0: return f(Bc3Settings<0, false, false>{});
+    case 1: return f(Bc3Settings<0, false, true>{});
+    case 2: return f(Bc3Settings<0, true, false>{});
+    case 3: return f(Bc3Settings<0, true, true>{});
+    case 4: return f(Bc3Settings<1, false, false>{});
+    case 5: return f(Bc3Settings<1, false, true>{});
+    case 6: return f(Bc3Settings<1, true, false>{});
+    case 7: return f(Bc3Settings<1, true, true>{});
+    case 8: return f(Bc3Settings<2, false, false>{});
+    case 9: return f(Bc3Settings<2, false, true>{});
+    case 10: return f(Bc3Settings<2, true, false>{});
+    case 11: return f(Bc3Settings<2, true, true>{});
+    case 12: return f(Bc3Settings<3, false, false>{});
+    case 13: return f(Bc3Settings<3, false, true>{});
+    case 14: return f(Bc3Settings<3, true, false>{});
+    default: return f(Bc3Settings<3, true, true>{});
+  }
+}
+
 // ---- dlt_bc3_transform -----------------------------------------------------------
 // Replaces dxt_lossless_transform_tpu/ops/pallas/shuffle.py:301 bc3_transform_tpu
 // (kernel _bc3_t_kernel). Bound by bytes: 16n read, 16n written, ~27 integer
@@ -34,11 +74,11 @@ namespace {
 // neighbouring addresses. The TPU kernel's even/odd phases, stride-3 weave and
 // power-of-two tiles existed for the TPU's (8, 128) layout and have no
 // counterpart here.
+// Block b of n: the per-block body, which the rows kernel shares.
 template <int V, bool SA, bool SC>
-__global__ void __launch_bounds__(kThreads)
-bc3_transform_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out, int64_t n) {
-  const int64_t b = global_thread();
-  if (b >= n) return;
+__device__ __forceinline__ void bc3_transform_block(const uint4* __restrict__ in,
+                                                    uint8_t* __restrict__ out, int64_t n,
+                                                    int64_t b) {
   const uint4 blk = in[b];
   store_alpha_endpoints<SA>(out, n, b, blk.x);
   store_alpha_index(out + 2 * n, b, blk.x, blk.y);
@@ -50,6 +90,35 @@ bc3_transform_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out, in
     reinterpret_cast<uint32_t*>(out + 8 * n)[b] = d;
   }
   reinterpret_cast<uint32_t*>(out + 12 * n)[b] = blk.w;
+}
+
+template <int V, bool SA, bool SC>
+__global__ void __launch_bounds__(kThreads)
+bc3_transform_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out, int64_t n) {
+  const int64_t b = global_thread();
+  if (b >= n) return;
+  bc3_transform_block<V, SA, SC>(in, out, n, b);
+}
+
+// ---- dlt_bc3_transform_rows --------------------------------------------------------
+// The end of the batch pipeline's BC3 step: every file of a (B, 16·bucket) batch
+// transformed under its own winner, written at its row's base in the per-file
+// layout above (the rows form, common.cuh). Bound by bytes as the per-file kernel:
+// 16·n_r read and written per row, the padding neither read nor written. Settings
+// index variant * 4 + split_alpha * 2 + split_colour (with_bc3_settings, as the
+// per-file entry point).
+__global__ void __launch_bounds__(kThreads)
+bc3_transform_rows_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out,
+                          const int64_t* __restrict__ ns, const int64_t* __restrict__ best,
+                          int64_t bucket, uint64_t code, int64_t row0) {
+  RowBlock rb;
+  if (!row_block(ns, best, code, row0, rb)) return;
+  const uint4* src = in + rb.row * bucket;
+  uint8_t* dst = out + rb.row * 16 * bucket;
+  with_bc3_settings(rb.settings, [&](auto s) {
+    using S = decltype(s);
+    bc3_transform_block<S::V, S::SA, S::SC>(src, dst, rb.n, rb.b);
+  });
 }
 
 // ---- dlt_bc3_untransform -----------------------------------------------------------
@@ -120,18 +189,6 @@ cudaError_t launch_untransform(const void* in, void* out, int64_t n, cudaStream_
 
 using Launch = cudaError_t (*)(const void*, void*, int64_t, cudaStream_t);
 
-// the 16 instantiations, indexed by variant * 4 + split_alpha * 2 + split_colour
-constexpr Launch kTransform[16] = {
-    launch_transform<0, false, false>, launch_transform<0, false, true>,
-    launch_transform<0, true, false>,  launch_transform<0, true, true>,
-    launch_transform<1, false, false>, launch_transform<1, false, true>,
-    launch_transform<1, true, false>,  launch_transform<1, true, true>,
-    launch_transform<2, false, false>, launch_transform<2, false, true>,
-    launch_transform<2, true, false>,  launch_transform<2, true, true>,
-    launch_transform<3, false, false>, launch_transform<3, false, true>,
-    launch_transform<3, true, false>,  launch_transform<3, true, true>,
-};
-
 constexpr Launch kUntransform[16] = {
     launch_untransform<0, false, false>, launch_untransform<0, false, true>,
     launch_untransform<0, true, false>,  launch_untransform<0, true, true>,
@@ -143,10 +200,6 @@ constexpr Launch kUntransform[16] = {
     launch_untransform<3, true, false>,  launch_untransform<3, true, true>,
 };
 
-int settings_index(int64_t variant, int64_t split_alpha, int64_t split_colour) {
-  return static_cast<int>(variant * 4 + (split_alpha ? 2 : 0) + (split_colour ? 1 : 0));
-}
-
 }  // namespace
 
 // ---- C entry points --------------------------------------------------------------------
@@ -155,14 +208,26 @@ extern "C" {
 int dlt_bc3_transform(const void* in, void* out, int64_t n, int64_t variant,
                       int64_t split_alpha, int64_t split_colour, void* stream) {
   if (n <= 0 || variant < 0 || variant > 3) return cudaErrorInvalidValue;
-  return kTransform[settings_index(variant, split_alpha, split_colour)](
-      in, out, n, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_bc3_settings(bc3_settings_index(variant, split_alpha, split_colour),
+                           [&](auto s) {
+                             using S = decltype(s);
+                             return launch_transform<S::V, S::SA, S::SC>(in, out, n, st);
+                           });
+}
+
+int dlt_bc3_transform_rows(const void* in, void* out, const void* ns, const void* best,
+                           int64_t rows, int64_t bucket, int64_t code, int64_t n_cand,
+                           void* stream) {
+  if (!rows_args_valid(rows, bucket, n_cand)) return cudaErrorInvalidValue;
+  return launch_rows<uint4>(bc3_transform_rows_kernel, in, out, ns, best, rows, bucket,
+                            code, static_cast<cudaStream_t>(stream));
 }
 
 int dlt_bc3_untransform(const void* in, void* out, int64_t n, int64_t variant,
                         int64_t split_alpha, int64_t split_colour, void* stream) {
   if (n <= 0 || variant < 0 || variant > 3) return cudaErrorInvalidValue;
-  return kUntransform[settings_index(variant, split_alpha, split_colour)](
+  return kUntransform[bc3_settings_index(variant, split_alpha, split_colour)](
       in, out, n, static_cast<cudaStream_t>(stream));
 }
 

@@ -30,14 +30,22 @@ namespace {
 // threads make to neighbouring addresses. The TPU kernel's even/odd phases and
 // the aw0/aw1/aw2 weave of the index words existed for the TPU's (8, 128) layout
 // and have no counterpart here.
+// Block b of n: the per-block body, which the rows kernel shares.
+template <bool SPLIT>
+__device__ __forceinline__ void bc4_transform_block(const uint2* __restrict__ in,
+                                                    uint8_t* __restrict__ out, int64_t n,
+                                                    int64_t b) {
+  const uint2 blk = in[b];
+  store_alpha_endpoints<SPLIT>(out, n, b, blk.x);
+  store_alpha_index(out + 2 * n, b, blk.x, blk.y);
+}
+
 template <bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 bc4_transform_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out, int64_t n) {
   const int64_t b = global_thread();
   if (b >= n) return;
-  const uint2 blk = in[b];
-  store_alpha_endpoints<SPLIT>(out, n, b, blk.x);
-  store_alpha_index(out + 2 * n, b, blk.x, blk.y);
+  bc4_transform_block<SPLIT>(in, out, n, b);
 }
 
 // ---- dlt_bc4_untransform -----------------------------------------------------------
@@ -56,16 +64,55 @@ bc4_untransform_kernel(const uint8_t* __restrict__ in, uint2* __restrict__ out, 
 // Replaces dxt_lossless_transform_tpu/ops/pallas/shuffle.py:471 bc5_transform_tpu
 // (kernel _bc5_t_kernel). Bound by bytes: 16n read, 16n written. One thread per
 // block: one 16-byte load, then the red and the green section's stores, as BC4's.
+// Block b of n: the per-block body, which the rows kernel shares.
 template <bool SPLIT>
-__global__ void __launch_bounds__(kThreads)
-bc5_transform_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out, int64_t n) {
-  const int64_t b = global_thread();
-  if (b >= n) return;
+__device__ __forceinline__ void bc5_transform_block(const uint4* __restrict__ in,
+                                                    uint8_t* __restrict__ out, int64_t n,
+                                                    int64_t b) {
   const uint4 blk = in[b];
   store_alpha_endpoints<SPLIT>(out, n, b, blk.x);
   store_alpha_endpoints<SPLIT>(out + 2 * n, n, b, blk.z);
   store_alpha_index(out + 4 * n, b, blk.x, blk.y);
   store_alpha_index(out + 10 * n, b, blk.z, blk.w);
+}
+
+template <bool SPLIT>
+__global__ void __launch_bounds__(kThreads)
+bc5_transform_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out, int64_t n) {
+  const int64_t b = global_thread();
+  if (b >= n) return;
+  bc5_transform_block<SPLIT>(in, out, n, b);
+}
+
+// ---- dlt_bc4_transform_rows, dlt_bc5_transform_rows ------------------------------
+// The end of the batch pipeline's BC4 and BC5 steps: every file of a (B, 8·bucket)
+// or (B, 16·bucket) batch transformed under its own winner, in the per-file layout at
+// its row's base (the rows form, common.cuh). Bound by bytes: the row's blocks read
+// and written once. Settings index: split (with_split, as the per-file entry points).
+__global__ void __launch_bounds__(kThreads)
+bc4_transform_rows_kernel(const uint2* __restrict__ in, uint8_t* __restrict__ out,
+                          const int64_t* __restrict__ ns, const int64_t* __restrict__ best,
+                          int64_t bucket, uint64_t code, int64_t row0) {
+  RowBlock rb;
+  if (!row_block(ns, best, code, row0, rb)) return;
+  const uint2* src = in + rb.row * bucket;
+  uint8_t* dst = out + rb.row * 8 * bucket;
+  with_split(rb.settings, [&](auto s) {
+    bc4_transform_block<decltype(s)::SPLIT>(src, dst, rb.n, rb.b);
+  });
+}
+
+__global__ void __launch_bounds__(kThreads)
+bc5_transform_rows_kernel(const uint4* __restrict__ in, uint8_t* __restrict__ out,
+                          const int64_t* __restrict__ ns, const int64_t* __restrict__ best,
+                          int64_t bucket, uint64_t code, int64_t row0) {
+  RowBlock rb;
+  if (!row_block(ns, best, code, row0, rb)) return;
+  const uint4* src = in + rb.row * bucket;
+  uint8_t* dst = out + rb.row * 16 * bucket;
+  with_split(rb.settings, [&](auto s) {
+    bc5_transform_block<decltype(s)::SPLIT>(src, dst, rb.n, rb.b);
+  });
 }
 
 // ---- dlt_bc5_untransform -----------------------------------------------------------
@@ -93,12 +140,26 @@ int dlt_bc4_transform(const void* in, void* out, int64_t n, int64_t split, void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint2* src = static_cast<const uint2*>(in);
   uint8_t* dst = static_cast<uint8_t*>(out);
-  if (split) {
-    bc4_transform_kernel<true><<<blocks_for(n), kThreads, 0, st>>>(src, dst, n);
-  } else {
-    bc4_transform_kernel<false><<<blocks_for(n), kThreads, 0, st>>>(src, dst, n);
-  }
+  with_split(split ? 1u : 0u, [&](auto s) {
+    bc4_transform_kernel<decltype(s)::SPLIT><<<blocks_for(n), kThreads, 0, st>>>(src, dst, n);
+  });
   return cudaGetLastError();
+}
+
+int dlt_bc4_transform_rows(const void* in, void* out, const void* ns, const void* best,
+                           int64_t rows, int64_t bucket, int64_t code, int64_t n_cand,
+                           void* stream) {
+  if (!rows_args_valid(rows, bucket, n_cand)) return cudaErrorInvalidValue;
+  return launch_rows<uint2>(bc4_transform_rows_kernel, in, out, ns, best, rows, bucket,
+                            code, static_cast<cudaStream_t>(stream));
+}
+
+int dlt_bc5_transform_rows(const void* in, void* out, const void* ns, const void* best,
+                           int64_t rows, int64_t bucket, int64_t code, int64_t n_cand,
+                           void* stream) {
+  if (!rows_args_valid(rows, bucket, n_cand)) return cudaErrorInvalidValue;
+  return launch_rows<uint4>(bc5_transform_rows_kernel, in, out, ns, best, rows, bucket,
+                            code, static_cast<cudaStream_t>(stream));
 }
 
 int dlt_bc4_untransform(const void* in, void* out, int64_t n, int64_t split,
@@ -120,11 +181,9 @@ int dlt_bc5_transform(const void* in, void* out, int64_t n, int64_t split, void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint4* src = static_cast<const uint4*>(in);
   uint8_t* dst = static_cast<uint8_t*>(out);
-  if (split) {
-    bc5_transform_kernel<true><<<blocks_for(n), kThreads, 0, st>>>(src, dst, n);
-  } else {
-    bc5_transform_kernel<false><<<blocks_for(n), kThreads, 0, st>>>(src, dst, n);
-  }
+  with_split(split ? 1u : 0u, [&](auto s) {
+    bc5_transform_kernel<decltype(s)::SPLIT><<<blocks_for(n), kThreads, 0, st>>>(src, dst, n);
+  });
   return cudaGetLastError();
 }
 

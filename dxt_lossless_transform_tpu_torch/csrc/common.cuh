@@ -1,6 +1,7 @@
 // Device code shared by the kernel sources (bc1_kernels.cu, bc2_kernels.cu,
 // bc3_kernels.cu, bc45_kernels.cu, bc7_kernels.cu, rgb_kernels.cu): the YCoCg-R
-// colour-pair arithmetic, the launch shape, the writer of the candidate colour
+// colour-pair arithmetic, the launch shape, the row lookup and launch of the BC1-BC5
+// rows kernels and the map from a candidate's index to its template, the writer of the candidate colour
 // regions that the BC1, BC2 and BC3 region kernels build, the loads and stores of
 // the 8-byte alpha section that BC3, BC4 and BC5 blocks share, and the block-wide
 // copies of byte ranges at any alignment that the RGB kernels use.
@@ -70,6 +71,103 @@ __device__ __forceinline__ int64_t global_thread() {
 
 inline unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+// ---- the rows form of a transform: a batch of files, each with its own settings ----
+// The batch pipeline's step holds B files in one (B, block_size·bucket) batch, file r's
+// n_r blocks at the start of row r and padding after them, and picks each file's
+// settings on the card (best[r], an index into the candidates). A rows kernel writes
+// row r of a (B, block_size·bucket) output in the exact layout of the per-file
+// transform of the row's first n_r blocks under candidate best[r], at the row's base;
+// the padding past block_size·n_r is left as it was. The candidates come as a
+// kernel argument, `code`: 4 bits each, candidate c in bits 4c..4c+3, the index of
+// its instantiation in the per-file entry point's table. The grid is (block chunks
+// of the bucket, rows), one launch per kRowsPerLaunch rows. Each thread block reads
+// its row's n_r and settings once; a block whose chunk starts at or past n_r returns
+// at once, so no padding is transformed; the others switch on the settings, the same
+// branch for every thread of the block, to the per-file kernel's per-block body.
+constexpr int64_t kMaxRowCandidates = 16;
+constexpr int64_t kRowsPerLaunch = 65535;  // the grid's y limit
+
+struct RowBlock {
+  int64_t row, n, b;  // the row, its block count, this thread's block
+  unsigned settings;  // the row's instantiation index
+};
+
+// This thread's block of its row; false for a thread past the row's n_r.
+__device__ __forceinline__ bool row_block(const int64_t* __restrict__ ns,
+                                          const int64_t* __restrict__ best, uint64_t code,
+                                          int64_t row0, RowBlock& rb) {
+  rb.row = row0 + blockIdx.y;
+  rb.n = ns[rb.row];
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  if (b0 >= rb.n) return false;
+  rb.settings = static_cast<unsigned>((code >> (4 * best[rb.row])) & 0xFu);
+  rb.b = b0 + threadIdx.x;
+  return rb.b < rb.n;
+}
+
+// Launches kernel(in, out, ns, best, bucket, code, row0) over `rows` rows of
+// `bucket` blocks.
+template <typename In, typename Kernel>
+cudaError_t launch_rows(Kernel kernel, const void* in, void* out, const void* ns,
+                        const void* best, int64_t rows, int64_t bucket, int64_t code,
+                        cudaStream_t st) {
+  for (int64_t row0 = 0; row0 < rows; row0 += kRowsPerLaunch) {
+    const int64_t r = rows - row0 < kRowsPerLaunch ? rows - row0 : kRowsPerLaunch;
+    kernel<<<dim3(blocks_for(bucket), static_cast<unsigned>(r)), kThreads, 0, st>>>(
+        static_cast<const In*>(in), static_cast<uint8_t*>(out),
+        static_cast<const int64_t*>(ns), static_cast<const int64_t*>(best), bucket,
+        static_cast<uint64_t>(code), row0);
+  }
+  return cudaGetLastError();
+}
+
+inline bool rows_args_valid(int64_t rows, int64_t bucket, int64_t n_cand) {
+  return rows > 0 && bucket > 0 && n_cand > 0 && n_cand <= kMaxRowCandidates;
+}
+
+// ---- a candidate's instantiation index, BC1, BC2, BC4 and BC5 ----------------------
+// The index of the per-file entry points' instantiations and of the rows kernels'
+// candidates (ops/cuda/shuffle.py's _ROWS mirrors it): variant * 2 + split for BC1 and
+// BC2, split for BC4 and BC5 (BC3's is in bc3_kernels.cu). with_*(i, f) calls f with
+// the tag of instantiation i, on the host to pick the per-file kernel and on the card
+// to pick the rows kernel's per-block body: the one map from the index to the template.
+template <int V_, bool SPLIT_>
+struct VariantSplit {
+  static constexpr int V = V_;
+  static constexpr bool SPLIT = SPLIT_;
+};
+
+inline unsigned variant_split_index(int64_t variant, int64_t split) {
+  return static_cast<unsigned>(variant * 2 + (split ? 1 : 0));
+}
+
+#pragma nv_exec_check_disable
+template <typename F>
+__host__ __device__ __forceinline__ auto with_variant_split(unsigned i, F&& f) {
+  switch (i) {
+    case 0: return f(VariantSplit<0, false>{});
+    case 1: return f(VariantSplit<0, true>{});
+    case 2: return f(VariantSplit<1, false>{});
+    case 3: return f(VariantSplit<1, true>{});
+    case 4: return f(VariantSplit<2, false>{});
+    case 5: return f(VariantSplit<2, true>{});
+    case 6: return f(VariantSplit<3, false>{});
+    default: return f(VariantSplit<3, true>{});
+  }
+}
+
+template <bool SPLIT_>
+struct Split {
+  static constexpr bool SPLIT = SPLIT_;
+};
+
+#pragma nv_exec_check_disable
+template <typename F>
+__host__ __device__ __forceinline__ auto with_split(unsigned i, F&& f) {
+  if (i) return f(Split<true>{});
+  return f(Split<false>{});
 }
 
 // ---- candidate colour regions ------------------------------------------------------

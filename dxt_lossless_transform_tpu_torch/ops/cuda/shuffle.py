@@ -41,6 +41,16 @@ red then green:
   (each as BC4's), red index bytes at ``[4n, 10n)``, green at ``[10n, 16n)``.
 
 Any n works, odd or 1; nothing is padded.
+
+The rows form (``dlt_bc{1,2,3,4,5}_transform_rows``, in the same sources) ends the
+batch pipeline's device-scored step: a batch of B files, file r's n_r blocks at the
+start of row r of a (B, block_size·bucket) tensor, each transformed under its own
+candidate ``best[r]`` (a device tensor, the step's argmin) into row r of a tensor of
+the same shape, in the per-file layout above for n_r blocks; the bytes past
+block_size·n_r of a row are not written. One launch a batch (per 65,535 rows), with
+no host sync: the candidates are kernel arguments, the block counts go up through a
+pinned buffer. :func:`transform_rows` launches the format's;
+:func:`transform_rows_plain` runs the per-file plain transform row by row.
 """
 
 from __future__ import annotations
@@ -322,3 +332,99 @@ def bc5_transform(x: torch.Tensor, split: bool) -> torch.Tensor:
 def bc5_untransform(x: torch.Tensor, split: bool) -> torch.Tensor:
     """Transformed bytes (uint8[16n]) -> BC5 blocks (uint8[16n])."""
     return _launch_bc45("bc5_untransform", x, 16, 2, split, bc5_untransform_plain)
+
+
+# ---- the rows form: a batch of files, each under its own winner -------------------------
+
+#: the most candidates a rows kernel takes (4 bits each in one 64-bit argument)
+MAX_ROW_CANDIDATES = 16
+
+
+# per format: block size, the per-file plain transform, and a candidate key's index
+# among the kernel's instantiations, as csrc/common.cuh's variant_split_index (BC1,
+# BC2), bc3_kernels.cu's bc3_settings_index and with_split (BC4, BC5) define it
+_ROWS = {
+    "bc1": (8, bc1_transform_plain, lambda v, split: 2 * _check_variant(v) + bool(split)),
+    "bc2": (16, bc2_transform_plain, lambda v, split: 2 * _check_variant(v) + bool(split)),
+    "bc3": (16, bc3_transform_plain,
+            lambda v, split_alpha, split_colour: 4 * _check_variant(v)
+            + 2 * bool(split_alpha) + bool(split_colour)),
+    "bc4": (8, bc4_transform_plain, lambda split: int(bool(split))),
+    "bc5": (16, bc5_transform_plain, lambda split: int(bool(split))),
+}
+
+
+def rows_code(fmt: str, candidates) -> int:
+    """The rows kernel's ``code`` argument for ``candidates``: candidate c's index
+    among the kernel's instantiations in bits 4c..4c+3, as a signed 64-bit value."""
+    code = 0
+    for c, key in enumerate(candidates):
+        code |= _ROWS[fmt][2](*key) << (4 * c)
+    return code - (1 << 64) if code >> 63 else code
+
+
+def _check_rows(fmt: str, x: torch.Tensor, ns, best: torch.Tensor, candidates) -> tuple:
+    """(the (B, block_size·bucket) bytes of ``x``, the block counts as ints)."""
+    name = f"{fmt}_transform_rows"
+    block_size = _ROWS[fmt][0]
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous (B, W) batch, got shape "
+                         f"{tuple(x.shape)}")
+    rows = x.view(torch.uint8).reshape(x.shape[0], -1)
+    if rows.shape[1] % block_size:
+        raise ValueError(f"{name}: rows of {rows.shape[1]} bytes are no whole number of "
+                         f"{block_size}-byte blocks")
+    B, bucket = rows.shape[0], rows.shape[1] // block_size
+    ns = [int(n) for n in ns]
+    if len(ns) != B or any(n < 0 or n > bucket for n in ns):
+        raise ValueError(f"{name}: {len(ns)} block counts for {B} rows of {bucket} "
+                         f"blocks, each must lie in [0, {bucket}]")
+    if not 0 < len(candidates) <= MAX_ROW_CANDIDATES:
+        raise ValueError(f"{name}: takes 1 to {MAX_ROW_CANDIDATES} candidates, got "
+                         f"{len(candidates)}")
+    if best.shape != (B,) or best.dtype != torch.int64 or best.device != x.device:
+        raise ValueError(f"{name}: expected best as ({B},) int64 on {x.device}, got "
+                         f"{best.dtype}{tuple(best.shape)} on {best.device}")
+    return rows, ns
+
+
+def transform_rows_plain(fmt: str, x: torch.Tensor, ns, best: torch.Tensor,
+                         candidates) -> torch.Tensor:
+    """The plain version of :func:`transform_rows`: each row's per-file plain
+    transform."""
+    rows, ns = _check_rows(fmt, x, ns, best, candidates)
+    block_size, plain, _ = _ROWS[fmt]
+    out = torch.empty_like(rows)
+    for r, (n, k) in enumerate(zip(ns, best.tolist())):
+        if n:
+            out[r, :block_size * n] = plain(rows[r, :block_size * n], *candidates[k])
+    return out
+
+
+def transform_rows(fmt: str, x: torch.Tensor, ns, best: torch.Tensor,
+                   candidates) -> torch.Tensor:
+    """A batch's files transformed, each under its own winner: ``x`` (B, W), row r
+    holding file r's ``ns[r]`` blocks of format ``fmt`` (``bc1``-``bc5``) at its start
+    (the step's int32 words, or bytes); ``best`` (B,) int64 on ``x``'s device, an
+    index into ``candidates``, the step's candidate keys ((variant, split) for
+    BC1/BC2, (variant, split_alpha, split_colour) for BC3, (split,) for BC4/BC5).
+    Returns the (B, block_size·bucket) uint8 rows: row r's first block_size·ns[r]
+    bytes are the file's transformed bytes, the rest is not written."""
+    candidates = tuple(candidates)
+    if not backend.dispatch(x):
+        return transform_rows_plain(fmt, x, ns, best, candidates)
+    rows, ns = _check_rows(fmt, x, ns, best, candidates)
+    block_size = _ROWS[fmt][0]
+    name = f"{fmt}_transform_rows"
+    backend.require_cuda_tensor(rows, name, torch.uint8, align=block_size)
+    out = torch.empty_like(rows)
+    B, bucket = rows.shape[0], rows.shape[1] // block_size
+    if B and bucket:
+        counts = backend.host_buffer(B, torch.int64, x.device)
+        counts.numpy()[:] = ns
+        counts = backend.to_device(counts, x.device)
+        best = best.contiguous()
+        backend.launch(f"dlt_{name}", x.device, rows.data_ptr(), out.data_ptr(),
+                       counts.data_ptr(), best.data_ptr(), B, bucket,
+                       rows_code(fmt, candidates), len(candidates))
+    return out

@@ -124,16 +124,3 @@ def recorrelate_pair(p: torch.Tensor, variant: int) -> torch.Tensor:
         return p
     c0, c1 = split_pair(p)
     return join_pair(recorrelate(c0, variant), recorrelate(c1, variant))
-
-
-
-def decorrelate_rows(c: torch.Tensor, variants: torch.Tensor, choices=(1, 2, 3)) -> torch.Tensor:
-    """(B, N) 16-bit colours (int32) -> each row decorrelated with its own variant
-    (``variants``: (B,) on ``c``'s device), one ``torch.where`` over the rows for each
-    variant in ``choices`` other than 0: the counterpart of the winner's
-    decorrelation in ``dxt_lossless_transform_tpu/parallel/sharded.py:253``
-    ``_pick_and_decorrelate``, for a batch of files at once."""
-    out = c
-    for v in sorted(set(int(v) for v in choices) - {0}):
-        out = torch.where((variants == v)[:, None], decorrelate(c, v), out)
-    return out

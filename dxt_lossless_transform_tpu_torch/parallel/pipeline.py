@@ -8,9 +8,11 @@ of each kernel per batch (:mod:`.sharded`), and returned in submission order as
 payload and estimator, in settings and bytes, and the JAX package's batch pipeline.
 
 - :class:`BatchProcessor` (BC1-BC5): device-scored under LTU (the CLI's ``medium``
-  preset; the JAX scorer's exact integer twin), or host-scored with an
-  ``estimator`` (``ZstdEstimation(1)``, the ``optimal``/``max`` presets: the device
-  builds every candidate's region row and the host ranks them).
+  preset; the JAX scorer's exact integer twin: the card also writes each file's
+  final transformed bytes, and the host copies each file's slice out), or
+  host-scored with an ``estimator`` (``ZstdEstimation(1)``, the ``optimal``/``max``
+  presets: the device builds every candidate's region row and the host ranks them
+  and serializes the winner).
 - :class:`ModeSortBatchProcessor` (BC7/BC6H) and :class:`RgbBatchProcessor`: every
   file's candidate streams scored in one count call per batch.
 - :class:`UntransformBatchProcessor`, the batched load path: BC1-BC5 files grouped
@@ -70,28 +72,8 @@ class BatchResult:
     settings: object
 
 
-def _u16s(arr, n) -> bytes:
-    return endian.to_bytes(arr[:n], "u2")
-
-
 def _u32s(arr, n) -> bytes:
     return endian.to_bytes(arr[:n], "u4")
-
-
-def _pair_u16(a, b, n) -> bytes:
-    out = endian.empty((n, 2), "u2")
-    out[:, 0] = a[:n]
-    out[:, 1] = b[:n]
-    return endian.to_bytes(out, "u2")
-
-
-def _colours(d0, d1, n, split: bool) -> bytes:
-    return (_u16s(d0, n) + _u16s(d1, n)) if split else _pair_u16(d0, d1, n)
-
-
-def _serialize_bc1(streams, n, s) -> bytes:
-    d0, d1, idx = streams
-    return _colours(d0, d1, n, s.split_colour_endpoints) + _u32s(idx, n)
 
 
 def _alpha_words(a_lo, a_hi, n) -> bytes:
@@ -101,12 +83,6 @@ def _alpha_words(a_lo, a_hi, n) -> bytes:
     return endian.to_bytes(alpha, "u4")
 
 
-def _serialize_bc2(streams, n, s) -> bytes:
-    a_lo, a_hi, d0, d1, idx = streams
-    return (_alpha_words(a_lo, a_hi, n) + _colours(d0, d1, n, s.split_colour_endpoints)
-            + _u32s(idx, n))
-
-
 def _idx_u16s(h1, h2, h3, n) -> bytes:
     """Three u16 index lanes -> the interleaved per-block 6-byte index stream."""
     idx = endian.empty((n, 3), "u2")
@@ -114,50 +90,20 @@ def _idx_u16s(h1, h2, h3, n) -> bytes:
     return endian.to_bytes(idx, "u2")
 
 
-def _ep_bytes(ep, n, split: bool) -> bytes:
-    if split:
-        return ((ep[:n] & 0xFF).astype(np.uint8).tobytes()
-                + ((ep[:n] >> 8) & 0xFF).astype(np.uint8).tobytes())
-    return _u16s(ep, n)
-
-
-def _serialize_bc3(streams, n, s) -> bytes:
-    ep, h1, h2, h3, d0, d1, cidx = streams
-    return (_ep_bytes(ep, n, s.split_alpha_endpoints) + _idx_u16s(h1, h2, h3, n)
-            + _colours(d0, d1, n, s.split_colour_endpoints) + _u32s(cidx, n))
-
-
-def _serialize_bc4(streams, n, s) -> bytes:
-    ep, h1, h2, h3 = streams
-    return _ep_bytes(ep, n, s.split_endpoints) + _idx_u16s(h1, h2, h3, n)
-
-
-def _serialize_bc5(streams, n, s) -> bytes:
-    r_ep, g_ep, rh1, rh2, rh3, gh1, gh2, gh3 = streams
-    return (_ep_bytes(r_ep, n, s.split_endpoints) + _ep_bytes(g_ep, n, s.split_endpoints)
-            + _idx_u16s(rh1, rh2, rh3, n) + _idx_u16s(gh1, gh2, gh3, n))
-
-
-# block_size, words per block, the default candidates, the serializer, the step's
-# candidate key and which of the step's lanes are 16-bit values (downloaded as int16)
+# block_size, words per block, the default candidates and the step's candidate key
 _FORMATS = {
     "bc1": dict(block_size=8, words=2, candidates=BC1_FAST_CANDIDATES,
-                serialize=_serialize_bc1, u16=(0, 1),
                 key=lambda c: (int(c.decorrelation_mode), c.split_colour_endpoints)),
     "bc2": dict(block_size=16, words=4, candidates=BC2_FAST_CANDIDATES,
-                serialize=_serialize_bc2, u16=(2, 3),
                 key=lambda c: (int(c.decorrelation_mode), c.split_colour_endpoints)),
     "bc3": dict(block_size=16, words=4, candidates=BC3_FAST_CANDIDATES,
-                serialize=_serialize_bc3, u16=(0, 1, 2, 3, 4, 5),
                 key=lambda c: (int(c.decorrelation_mode), c.split_alpha_endpoints,
                                c.split_colour_endpoints)),
     "bc4": dict(block_size=8, words=2,
                 candidates=tuple(Bc4TransformSettings.all_combinations()),
-                serialize=_serialize_bc4, u16=(0, 1, 2, 3),
                 key=lambda c: (c.split_endpoints,)),
     "bc5": dict(block_size=16, words=4,
                 candidates=tuple(Bc5TransformSettings.all_combinations()),
-                serialize=_serialize_bc5, u16=tuple(range(8)),
                 key=lambda c: (c.split_endpoints,)),
 }
 
@@ -280,10 +226,7 @@ class BatchProcessor:
         with self.times("h2d"):
             x = backend.to_device(flats, self.device)
         with self.times("device"):
-            outs = list(self._step(x, valid))
-            if self.estimator is None:
-                for i in self.cfg["u16"]:
-                    outs[i] = outs[i].to(torch.int16)
+            outs = self._step(x, valid)
         with self.times("d2h"):
             return backend.Download(outs)
 
@@ -303,17 +246,16 @@ class BatchProcessor:
         return [r for r in order if r is not None]
 
     def _serialize(self, payloads, order, chunk, download) -> None:
-        bs = self.cfg["block_size"]
+        """The card wrote each file's transformed bytes at the start of its row: one
+        slice copy a file."""
         with self.times("d2h"):
-            out = [_as_unsigned(a) for a in download.wait()]
+            rows, best = download.wait()
         with self.times("serialize"):
-            streams, best = out[:-1], out[-1]
-            for row, file_idx in enumerate(chunk):
-                n = len(payloads[file_idx]) // bs
-                settings = self.candidates[int(best[row])]
+            for row, (file_idx, pick) in enumerate(zip(chunk, best.tolist())):
                 order[file_idx] = BatchResult(
-                    file_idx, self.cfg["serialize"]([s[row] for s in streams], n,
-                                                    settings), settings)
+                    file_idx, rows[row, :len(payloads[file_idx])].tobytes(),
+                    self.candidates[pick])
+        backend.count("batch.files_device_bytes", len(chunk))
 
     # --- host-scored (zstd-preset) mode -------------------------------------------
 

@@ -10,20 +10,25 @@ Counterpart of ``dxt_lossless_transform_tpu/parallel/sharded.py``: ``auto_step_b
 ``untransform_step`` (:949). A batch is a (B, W) int32 tensor of B files' block
 words, each file padded with zeros to the batch's bucket of ``W / words per block``
 blocks, and a (B,) list of valid lengths, ``4 n_b`` for a file of ``n_b`` blocks (its
-colour region's bytes), as in the JAX package. Each step returns what the JAX step
-returns, as tensors on the batch's device (under a mesh, on ``mesh.home``): the
-winner's lanes, maximally split, and the winning candidate of each file (``best``);
-the host-scored steps return every candidate's estimation-region row instead.
+colour region's bytes), as in the JAX package. The device-scored steps pick what the
+JAX step picks, and return, as tensors on the batch's device (under a mesh, on
+``mesh.home``), ``(rows, best)``: the winning candidate of each file (``best``) and
+the (B, block_size·bucket) uint8 rows whose row b begins with file b's transformed
+bytes under that candidate, the bytes JAX's pipeline serializes from its step's
+lanes; the host-scored steps return lanes and every candidate's estimation-region
+row, as JAX's do.
 
-On one device each batch step runs:
+On one device each device-scored batch step runs:
 
-1. ``deinterleave_words`` (``dlt_deinterleave_words``) on the whole flat batch;
-2. the format's region kernel (``dlt_bc{1,2,3}_regions``) on the whole flat batch;
-3. each file's rows cut out at its own valid length, in plain torch;
-4. one count call (``dlt_ltu_counts_rows``) over every row of the batch, each at its
+1. the format's region kernel (``dlt_bc{1,2,3}_regions``) on the whole flat batch
+   (BC4/BC5: ``deinterleave_words``, ``dlt_deinterleave_words``, and the endpoint
+   rows in plain torch);
+2. each file's rows cut out at its own valid length, in plain torch;
+3. one count call (``dlt_ltu_counts_rows``) over every row of the batch, each at its
    own valid length;
-5. the argmin per file, ties to the first candidate, and (BC1-BC3) the winner's
-   decorrelation of each file's colours (:func:`..ops.ycocg.decorrelate_rows`).
+4. the argmin per file, ties to the first candidate;
+5. the format's rows kernel (``dlt_bc{1..5}_transform_rows``,
+   :func:`..ops.cuda.shuffle.transform_rows`): each file's bytes under its winner.
 
 The region kernel writes a split row of the flat batch as ``[c0 of all B·bucket
 blocks | c1 of all]``: file b's c0 is at ``2·b·bucket … 2·(b·bucket + n_b)`` and its
@@ -55,10 +60,11 @@ from ..estimate.ltu import (
     DEFAULT_OFFSETS, WEIGHT_SCALE, coverage_scores, entropy_from_histograms,
     offset_weight, prefix_histograms, prefix_lengths,
 )
-from ..ops import lanes, ycocg
+from ..ops import lanes
 from ..ops.auto import distinct
 from ..ops.cuda import regions as cuda_regions
 from ..ops.cuda.planes import deinterleave_words
+from ..ops.cuda.shuffle import transform_rows
 from ..settings import (
     BC1_FAST_CANDIDATES, BC2_FAST_CANDIDATES, BC3_FAST_CANDIDATES,
     Bc4TransformSettings, Bc5TransformSettings,
@@ -108,12 +114,11 @@ def _scores(rows: torch.Tensor, valid: Sequence[Sequence[int]], offsets) -> torc
 
 
 def _colour_rows_batched(flats, ns, candidates, wpb: int, region_fn):
-    """Shared BC1/BC2 batch rows: (the deinterleaved lanes, (B, K, 4·bucket) colour
-    rows of the K distinct candidate keys, each candidate's key index). Used by the
-    device-scored and the host-scored steps, so that the two cannot diverge."""
+    """Shared BC1/BC2 batch rows: ((B, K, 4·bucket) colour rows of the K distinct
+    candidate keys, each candidate's key index). Used by the device-scored and the
+    host-scored steps, so that the two cannot diverge."""
     B, W = flats.shape
     bucket = W // wpb
-    aux = _words(flats, wpb)
     keys, index = distinct(candidates)
     region = region_fn(flats.view(torch.uint8).reshape(-1), keys)
     rows = torch.empty((B, len(keys), 4 * bucket), dtype=torch.uint8,
@@ -123,44 +128,30 @@ def _colour_rows_batched(flats, ns, candidates, wpb: int, region_fn):
             _put_split(rows[:, c], region[c].view(2, B, 2 * bucket), [2 * n for n in ns])
         else:
             rows[:, c] = region[c].view(B, 4 * bucket)
-    return aux, rows, index
+    return rows, index
 
 
-def _decorrelate(colors, candidates, best):
-    """(d0, d1): each file's colour halves decorrelated with the variant of its
-    candidate ``best`` (on ``colors``' device)."""
-    choices = [c[0] for c in candidates]
-    variants = torch.tensor(choices).to(colors.device, non_blocking=True)[best]
-    c0, c1 = lanes.split_u32(colors)
-    return (ycocg.decorrelate_rows(c0, variants, choices),
-            ycocg.decorrelate_rows(c1, variants, choices))
-
-
-def _pick_and_decorrelate(colors, candidates, scores):
-    """(B, C) scores -> (d0, d1, best): each file's first best candidate and its
-    colour halves decorrelated with that candidate's variant."""
+def _finish(fmt: str, flats, ns, candidates, scores) -> tuple:
+    """(B, C) scores -> (rows, best): each file's first best candidate, and the
+    batch's files transformed under theirs by the format's rows kernel."""
     best = torch.argmin(scores, dim=1)
-    return (*_decorrelate(colors, candidates, best), best)
+    return transform_rows(fmt, flats, ns, best, candidates), best
 
 
 def _bc1_batched_impl(flats, valid_lens, candidates=_BC1_CANDIDATES,
                       offsets=DEFAULT_OFFSETS):
     ns = _blocks(valid_lens)
-    (colors, indices), rows, index = _colour_rows_batched(
-        flats, ns, candidates, 2, cuda_regions.bc1_regions)
+    rows, index = _colour_rows_batched(flats, ns, candidates, 2, cuda_regions.bc1_regions)
     scores = _scores(rows, [[4 * n] * rows.shape[1] for n in ns], offsets)[:, index]
-    d0, d1, best = _pick_and_decorrelate(colors, candidates, scores)
-    return d0, d1, indices, best
+    return _finish("bc1", flats, ns, candidates, scores)
 
 
 def _bc2_batched_impl(flats, valid_lens, candidates=_BC2_CANDIDATES,
                       offsets=DEFAULT_OFFSETS):
     ns = _blocks(valid_lens)
-    (a_lo, a_hi, colors, idx), rows, index = _colour_rows_batched(
-        flats, ns, candidates, 4, cuda_regions.bc2_regions)
+    rows, index = _colour_rows_batched(flats, ns, candidates, 4, cuda_regions.bc2_regions)
     scores = _scores(rows, [[4 * n] * rows.shape[1] for n in ns], offsets)[:, index]
-    d0, d1, best = _pick_and_decorrelate(colors, candidates, scores)
-    return a_lo, a_hi, d0, d1, idx, best
+    return _finish("bc2", flats, ns, candidates, scores)
 
 
 def _bc3_keys(candidates) -> tuple:
@@ -170,11 +161,10 @@ def _bc3_keys(candidates) -> tuple:
 
 
 def _bc3_rows(flats, ns, alpha_keys, colour_keys):
-    """(lanes, (B, A+K, 4·bucket) rows): the A distinct alpha-endpoint rows (2·n_b
-    bytes valid) then the K distinct colour rows (4·n_b)."""
+    """(B, A+K, 4·bucket) rows: the A distinct alpha-endpoint rows (2·n_b bytes
+    valid) then the K distinct colour rows (4·n_b)."""
     B, W4 = flats.shape
     bucket = W4 // 4
-    w0, w1, colors, cidx = _words(flats, 4)
     alpha, colour = cuda_regions.bc3_regions(flats.view(torch.uint8).reshape(-1),
                                              alpha_keys, colour_keys)
     A = len(alpha_keys)
@@ -191,22 +181,19 @@ def _bc3_rows(flats, ns, alpha_keys, colour_keys):
                        [2 * n for n in ns])
         else:
             rows[:, A + c] = colour[c].view(B, 4 * bucket)
-    return (w0, w1, colors, cidx), rows
+    return rows
 
 
 def _bc3_batched_impl(flats, valid_lens, candidates=_BC3_CANDIDATES,
                       offsets=DEFAULT_OFFSETS):
     ns = _blocks(valid_lens)
     alpha_keys, colour_keys, ai, ci = _bc3_keys(candidates)
-    (w0, w1, colors, cidx), rows = _bc3_rows(flats, ns, alpha_keys, colour_keys)
+    rows = _bc3_rows(flats, ns, alpha_keys, colour_keys)
     A = len(alpha_keys)
     scores = _scores(rows, [[2 * n] * A + [4 * n] * len(colour_keys) for n in ns],
                      offsets)
-    scores = scores[:, ai] + scores[:, [A + c for c in ci]]
-    ep, h1 = lanes.split_u32(w0)
-    h2, h3 = lanes.split_u32(w1)
-    d0, d1, best = _pick_and_decorrelate(colors, candidates, scores)
-    return ep, h1, h2, h3, d0, d1, cidx, best
+    return _finish("bc3", flats, ns, candidates,
+                   scores[:, ai] + scores[:, [A + c for c in ci]])
 
 
 def _ep_rows(ep: torch.Tensor, ns, keys) -> torch.Tensor:
@@ -245,10 +232,10 @@ def _bc4_batched_impl(flats, valid_lens, candidates=_BC4_CANDIDATES,
     """BC4: each candidate scored on its endpoint stream (2 bytes a block)."""
     ns = _blocks(valid_lens)
     keys, index = distinct([split for split, in candidates])
-    ep, h1, h2, h3 = _bc4_lanes(flats)
+    ep, _ = lanes.split_u32(_words(flats, 2)[0])
     rows = _ep_rows(ep, ns, keys)
     scores = _scores(rows, [[2 * n] * len(keys) for n in ns], offsets)[:, index]
-    return ep, h1, h2, h3, torch.argmin(scores, dim=1)
+    return _finish("bc4", flats, ns, candidates, scores)
 
 
 def _bc5_batched_impl(flats, valid_lens, candidates=_BC5_CANDIDATES,
@@ -256,47 +243,48 @@ def _bc5_batched_impl(flats, valid_lens, candidates=_BC5_CANDIDATES,
     """BC5: the red and the green endpoint rows scored apart and summed."""
     ns = _blocks(valid_lens)
     keys, index = distinct([split for split, in candidates])
-    out = _bc5_lanes(flats)
-    rows = torch.cat([_ep_rows(out[0], ns, keys), _ep_rows(out[1], ns, keys)], dim=1)
+    rw0, _, gw0, _ = _words(flats, 4)
+    rows = torch.cat([_ep_rows(lanes.split_u32(w)[0], ns, keys) for w in (rw0, gw0)],
+                     dim=1)
     K = len(keys)
     scores = _scores(rows, [[2 * n] * 2 * K for n in ns], offsets)
-    scores = scores[:, :K] + scores[:, K:]
-    return (*out, torch.argmin(scores[:, index], dim=1))
+    return _finish("bc5", flats, ns, candidates, (scores[:, :K] + scores[:, K:])[:, index])
 
 
 def _single(impl, flat, valid_len, wpb, candidates, offsets):
-    n = flat.shape[0] // wpb
-    valid = [4 * n if valid_len is None else int(valid_len)]
-    return tuple(o[0] for o in impl(flat.view(1, -1), valid, candidates, offsets))
+    n = flat.shape[0] // wpb if valid_len is None else int(valid_len) // 4
+    rows, best = impl(flat.view(1, -1), [4 * n], candidates, offsets)
+    return rows[0, :4 * wpb * n], best[0]
 
 
 def bc1_auto_step_single(flat, valid_len=None, candidates=_BC1_CANDIDATES,
                          offsets=DEFAULT_OFFSETS):
-    """Flat int32[2N] word image -> (c0, c1, indices, best)."""
+    """Flat int32[2N] word image -> (the transformed bytes of the first valid_len / 4
+    blocks, all by default, under the winner: uint8[8n], best)."""
     return _single(_bc1_batched_impl, flat, valid_len, 2, candidates, offsets)
 
 
 def bc2_auto_step_single(flat, valid_len=None, candidates=_BC2_CANDIDATES,
                          offsets=DEFAULT_OFFSETS):
-    """Flat int32[4N] word image -> (alpha_lo, alpha_hi, c0, c1, indices, best)."""
+    """Flat int32[4N] word image -> (transformed bytes uint8[16n], best)."""
     return _single(_bc2_batched_impl, flat, valid_len, 4, candidates, offsets)
 
 
 def bc3_auto_step_single(flat, valid_len=None, candidates=_BC3_CANDIDATES,
                          offsets=DEFAULT_OFFSETS):
-    """Flat int32[4N] word image -> (ep, h1, h2, h3, c0, c1, cidx, best)."""
+    """Flat int32[4N] word image -> (transformed bytes uint8[16n], best)."""
     return _single(_bc3_batched_impl, flat, valid_len, 4, candidates, offsets)
 
 
 def bc4_auto_step_single(flat, valid_len=None, candidates=_BC4_CANDIDATES,
                          offsets=DEFAULT_OFFSETS):
-    """Flat int32[2N] word image -> (ep, h1, h2, h3, best)."""
+    """Flat int32[2N] word image -> (transformed bytes uint8[8n], best)."""
     return _single(_bc4_batched_impl, flat, valid_len, 2, candidates, offsets)
 
 
 def bc5_auto_step_single(flat, valid_len=None, candidates=_BC5_CANDIDATES,
                          offsets=DEFAULT_OFFSETS):
-    """Flat int32[4N] word image -> (r_ep, g_ep, R/G index lanes..., best)."""
+    """Flat int32[4N] word image -> (transformed bytes uint8[16n], best)."""
     return _single(_bc5_batched_impl, flat, valid_len, 4, candidates, offsets)
 
 
@@ -310,14 +298,15 @@ def _per_candidate(rows, index):
 
 
 def _bc1_batched_regions_impl(flats, valid_lens, candidates):
-    (_, indices), rows, index = _colour_rows_batched(
-        flats, _blocks(valid_lens), candidates, 2, cuda_regions.bc1_regions)
-    return indices, _per_candidate(rows, index)
+    rows, index = _colour_rows_batched(flats, _blocks(valid_lens), candidates, 2,
+                                       cuda_regions.bc1_regions)
+    return _words(flats, 2)[1], _per_candidate(rows, index)
 
 
 def _bc2_batched_regions_impl(flats, valid_lens, candidates):
-    (a_lo, a_hi, _, idx), rows, index = _colour_rows_batched(
-        flats, _blocks(valid_lens), candidates, 4, cuda_regions.bc2_regions)
+    rows, index = _colour_rows_batched(flats, _blocks(valid_lens), candidates, 4,
+                                       cuda_regions.bc2_regions)
+    a_lo, a_hi, _, idx = _words(flats, 4)
     return a_lo, a_hi, idx, _per_candidate(rows, index)
 
 
@@ -325,8 +314,8 @@ def _bc3_batched_regions_impl(flats, valid_lens, candidates):
     """-> (h1, h2, h3, cidx, alpha rows of the distinct alpha keys, colour rows of
     the distinct colour keys)."""
     alpha_keys, colour_keys, _, _ = _bc3_keys(candidates)
-    (w0, w1, _, cidx), rows = _bc3_rows(flats, _blocks(valid_lens), alpha_keys,
-                                        colour_keys)
+    rows = _bc3_rows(flats, _blocks(valid_lens), alpha_keys, colour_keys)
+    w0, w1, _, cidx = _words(flats, 4)
     A, bucket = len(alpha_keys), flats.shape[1] // 4
     _, h1 = lanes.split_u32(w0)
     h2, h3 = lanes.split_u32(w1)
@@ -470,11 +459,6 @@ class _Shards:
         self.words = {(f, s): flats[f * self.bl:(f + 1) * self.bl, s * w:(s + 1) * w]
                       .contiguous().to(mesh.devices[f, s]) for f, s in mesh.positions}
 
-    def files_of(self, t: torch.Tensor, pos) -> torch.Tensor:
-        """The rows of ``t`` (B, ...) that position ``pos`` holds, on its device."""
-        f = pos[0]
-        return t[f * self.bl:(f + 1) * self.bl].to(self.mesh.devices[pos])
-
     def gather(self, shards: dict) -> torch.Tensor:
         """(Bl, bc) lanes of every position -> the (B, blocks) lanes on home."""
         return self.mesh.gather(shards, 1)[:, :self.n_blocks]
@@ -599,51 +583,36 @@ def _splits(keys) -> list:
 
 
 def _colour_local(fmt: str, wpb: int):
-    """BC1/BC2 shard: (its lanes, [the colour rows of the distinct keys])."""
-    def local(x, bl, keys):
-        aux = _words(x, wpb)
+    """BC1/BC2 shard: (its lanes when asked, [the colour rows of the distinct keys])."""
+    def local(x, bl, keys, want_lanes):
         region = getattr(cuda_regions, f"{fmt}_regions")(x.view(torch.uint8).reshape(-1),
                                                          keys[0])
-        return aux, [_split_rows(region, _splits(keys[0]), bl, 4)]
+        return (_words(x, wpb) if want_lanes else None,
+                [_split_rows(region, _splits(keys[0]), bl, 4)])
     return local
 
 
-def _bc3_local(x, bl, keys):
+def _bc3_local(x, bl, keys, want_lanes):
     alpha_keys, colour_keys = keys[:2]
     alpha, colour = cuda_regions.bc3_regions(x.view(torch.uint8).reshape(-1), alpha_keys,
                                              colour_keys)
-    return _words(x, 4), [_split_rows(alpha, alpha_keys, bl, 2),
-                          _split_rows(colour, _splits(colour_keys), bl, 4)]
+    return (_words(x, 4) if want_lanes else None,
+            [_split_rows(alpha, alpha_keys, bl, 2),
+             _split_rows(colour, _splits(colour_keys), bl, 4)])
 
 
-def _bc4_local(x, bl, keys):
+def _bc4_local(x, bl, keys, want_lanes):
     out = _bc4_lanes(x)
     return out, [_split_rows(_ep_region(out[0], keys[0]), keys[0], bl, 2)]
 
 
-def _bc5_local(x, bl, keys):
+def _bc5_local(x, bl, keys, want_lanes):
     """The red then the green endpoint rows, in one group: labels K.. are green."""
     out = _bc5_lanes(x)
     red, red_order = _split_rows(_ep_region(out[0], keys[0]), keys[0], bl, 2)
     green, green_order = _split_rows(_ep_region(out[1], keys[0]), keys[0], bl, 2)
     k = len(keys[0])
     return out, [(red + green, red_order + [k + c for c in green_order])]
-
-
-def _with_colours(lead: int):
-    """BC1-BC3 outputs: the lanes with the colours (lane ``lead``) replaced by the
-    winner's d0 and d1."""
-    def finish(out, candidates, best):
-        d0, d1 = _decorrelate(out[lead], candidates, best)
-        return (*out[:lead], d0, d1, *out[lead + 1:])
-    return finish
-
-
-def _bc3_finish(out, candidates, best):
-    w0, w1, colors, cidx = out
-    ep, h1 = lanes.split_u32(w0)
-    h2, h3 = lanes.split_u32(w1)
-    return (ep, h1, h2, h3, *_decorrelate(colors, candidates, best), cidx)
 
 
 def _bc3_aux(out):
@@ -663,37 +632,34 @@ def _distinct_splits(candidates) -> tuple:
 
 
 # per format: words per block, the candidates' keys, a shard's lanes and row groups,
-# the candidate scores from the groups' scores, the outputs of a shard with its files'
-# winners; host-scored: which lanes go back, and the region rows from the groups' rows
+# the candidate scores from the groups' scores; host-scored: which lanes go back, and
+# the region rows from the groups' rows
 _MESH_FORMATS = {
     "bc1": dict(words=2, keys=distinct, local=_colour_local("bc1", 2),
-                pick=lambda sc, keys: sc[0][:, keys[1]], finish=_with_colours(0),
-                aux=lambda out: out[1:],
+                pick=lambda sc, keys: sc[0][:, keys[1]], aux=lambda out: out[1:],
                 rows=lambda rows, keys: [_per_candidate(rows[0], keys[1])]),
     "bc2": dict(words=4, keys=distinct, local=_colour_local("bc2", 4),
-                pick=lambda sc, keys: sc[0][:, keys[1]], finish=_with_colours(2),
+                pick=lambda sc, keys: sc[0][:, keys[1]],
                 aux=lambda out: (out[0], out[1], out[3]),
                 rows=lambda rows, keys: [_per_candidate(rows[0], keys[1])]),
     "bc3": dict(words=4, keys=_bc3_keys, local=_bc3_local,
                 pick=lambda sc, keys: sc[0][:, keys[2]] + sc[1][:, keys[3]],
-                finish=_bc3_finish,
-                aux=_bc3_aux,
-                rows=lambda rows, keys: rows),
+                aux=_bc3_aux, rows=lambda rows, keys: rows),
     "bc4": dict(words=2, keys=_distinct_splits, local=_bc4_local,
-                pick=lambda sc, keys: sc[0][:, keys[1]],
-                finish=lambda out, candidates, best: out, aux=lambda out: out[1:],
+                pick=lambda sc, keys: sc[0][:, keys[1]], aux=lambda out: out[1:],
                 rows=lambda rows, keys: [_per_candidate(rows[0], keys[1])]),
     "bc5": dict(words=4, keys=_distinct_splits, local=_bc5_local, pick=_bc5_pick,
-                finish=lambda out, candidates, best: out, aux=lambda out: out[2:],
+                aux=lambda out: out[2:],
                 rows=lambda rows, keys: [
                     _per_candidate(rows[0][:, :len(keys[0])], keys[1]),
                     _per_candidate(rows[0][:, len(keys[0]):], keys[1])]),
 }
 
 
-def _mesh_local(sh: _Shards, spec, keys) -> tuple:
-    """Each position's lanes, and the row groups: [(row blocks by position, labels)]."""
-    out = {pos: spec["local"](x, sh.bl, keys) for pos, x in sh.words.items()}
+def _mesh_local(sh: _Shards, spec, keys, want_lanes: bool) -> tuple:
+    """Each position's lanes (when asked; BC4/BC5 always), and the row groups:
+    [(row blocks by position, labels)]."""
+    out = {pos: spec["local"](x, sh.bl, keys, want_lanes) for pos, x in sh.words.items()}
     some = next(iter(out.values()))[1]
     return ({pos: o[0] for pos, o in out.items()},
             [({pos: o[1][g][0] for pos, o in out.items()}, labels)
@@ -703,21 +669,19 @@ def _mesh_local(sh: _Shards, spec, keys) -> tuple:
 def auto_step(fmt: str, mesh, candidates, offsets=DEFAULT_OFFSETS):
     """The device-scored batch step ``step(flats, valid_lens)`` of ``fmt`` under a
     mesh: what :func:`auto_step_batched` returns, as tensors on ``mesh.home``. The
-    batch's file count must be a multiple of the files axis."""
+    scores come from the shards; the format's rows kernel then transforms the batch
+    on ``mesh.home`` (each rank holds the whole batch). The batch's file count must
+    be a multiple of the files axis."""
     mesh_lib.require(mesh)
     spec, candidates = _MESH_FORMATS[fmt], tuple(candidates)
 
     def step(flats, valid_lens):
-        sh = _Shards(mesh, flats, _blocks(valid_lens), spec["words"])
+        ns = _blocks(valid_lens)
+        sh = _Shards(mesh, flats, ns, spec["words"])
         keys = spec["keys"](candidates)
-        lanes_of, groups = _mesh_local(sh, spec, keys)
+        _, groups = _mesh_local(sh, spec, keys, False)
         scores = spec["pick"]([sh.scores(group, offsets) for group in groups], keys)
-        best = torch.argmin(scores, dim=1)
-        outs = {pos: spec["finish"](out, candidates, sh.files_of(best, pos))
-                for pos, out in lanes_of.items()}
-        width = len(next(iter(outs.values())))
-        return (*(sh.gather({pos: out[i] for pos, out in outs.items()})
-                  for i in range(width)), best)
+        return _finish(fmt, flats.to(mesh.home), ns, candidates, scores)
 
     return step
 
@@ -731,7 +695,7 @@ def _mesh_regions_step(fmt: str, mesh, candidates):
     def step(flats, valid_lens):
         sh = _Shards(mesh, flats, _blocks(valid_lens), spec["words"])
         keys = spec["keys"](candidates)
-        lanes_of, groups = _mesh_local(sh, spec, keys)
+        lanes_of, groups = _mesh_local(sh, spec, keys, True)
         aux = {pos: spec["aux"](out) for pos, out in lanes_of.items()}
         width = len(next(iter(aux.values())))
         return (*(sh.gather({pos: out[i] for pos, out in aux.items()})
@@ -742,27 +706,27 @@ def _mesh_regions_step(fmt: str, mesh, candidates):
 
 
 def bc1_auto_step(mesh, candidates=_BC1_CANDIDATES, offsets=DEFAULT_OFFSETS):
-    """Batched and sharded BC1 step: (B, 2N) words -> c0, c1, indices, best (B,)."""
+    """Batched and sharded BC1 step: (B, 2N) words -> (B, 8N) rows, best (B,)."""
     return auto_step("bc1", mesh, candidates, offsets)
 
 
 def bc2_auto_step(mesh, candidates=_BC2_CANDIDATES, offsets=DEFAULT_OFFSETS):
-    """Batched and sharded BC2 step: (B, 4N) words -> 5 lanes and best (B,)."""
+    """Batched and sharded BC2 step: (B, 4N) words -> (B, 16N) rows, best (B,)."""
     return auto_step("bc2", mesh, candidates, offsets)
 
 
 def bc3_auto_step(mesh, candidates=_BC3_CANDIDATES, offsets=DEFAULT_OFFSETS):
-    """Batched and sharded BC3 step: (B, 4N) words -> 7 lanes and best (B,)."""
+    """Batched and sharded BC3 step: (B, 4N) words -> (B, 16N) rows, best (B,)."""
     return auto_step("bc3", mesh, candidates, offsets)
 
 
 def bc4_auto_step(mesh, candidates=_BC4_CANDIDATES, offsets=DEFAULT_OFFSETS):
-    """Batched and sharded BC4 step: (B, 2N) words -> 4 lanes and best (B,)."""
+    """Batched and sharded BC4 step: (B, 2N) words -> (B, 8N) rows, best (B,)."""
     return auto_step("bc4", mesh, candidates, offsets)
 
 
 def bc5_auto_step(mesh, candidates=_BC5_CANDIDATES, offsets=DEFAULT_OFFSETS):
-    """Batched and sharded BC5 step: (B, 4N) words -> 8 lanes and best (B,)."""
+    """Batched and sharded BC5 step: (B, 4N) words -> (B, 16N) rows, best (B,)."""
     return auto_step("bc5", mesh, candidates, offsets)
 
 

@@ -18,8 +18,9 @@ runs under the simulation. For each format, settings combination and payload:
      payload slicing all go through the endian layer).
 
 The batch leg runs a few payloads of each of BC1-BC5 through
-:class:`..parallel.BatchProcessor` and :class:`..parallel.UntransformBatchProcessor`
-on both hosts (the pipeline's serializers) and compares the bytes and settings.
+:class:`..parallel.BatchProcessor`, device-scored and host-scored (the pipeline's
+serializers), and :class:`..parallel.UntransformBatchProcessor` on both hosts and
+compares the bytes and settings.
 
 What the simulation cannot reach is listed in :mod:`..endian`: the kernels see
 ``uint8`` bytes on a little-endian card, the plain versions' ``int32`` views of CPU
@@ -166,24 +167,30 @@ BATCH_FORMATS = ("bc1", "bc2", "bc3", "bc4", "bc5")
 
 
 def _batch_roundtrip(fmt: str, payloads: list, report: EndianReport, dev) -> None:
-    """``payloads`` through the batch processors on both hosts: the same bytes and
-    settings, and each host restores the other's."""
+    """``payloads`` through the batch processors on both hosts, device-scored (the
+    card writes the bytes) and host-scored by zstd-1 (the host serializes the
+    winner's lanes): the same bytes and settings, and each host restores the
+    other's."""
+    from ..estimate.zstd import ZstdEstimation
     from ..parallel import BatchProcessor, UntransformBatchProcessor
 
-    le = [(r.transformed, r.settings) for r in BatchProcessor(fmt, device=dev).process(
-        payloads)]
-    with endian.simulate_big_endian():
-        be = [(r.transformed, r.settings)
-              for r in BatchProcessor(fmt, device=dev).process(payloads)]
-    if le != be:
-        raise AssertionError(f"{fmt}: BE-host batch transform differs")
-    with endian.simulate_big_endian():
-        back_be = UntransformBatchProcessor(fmt, device=dev).process(le)
-    if back_be != payloads or UntransformBatchProcessor(fmt, device=dev).process(
-            be) != payloads:
-        raise AssertionError(f"{fmt}: cross-host batch round trip failed")
+    for estimator in (None, ZstdEstimation(1)):
+        def transform():
+            return [(r.transformed, r.settings) for r in BatchProcessor(
+                fmt, device=dev, estimator=estimator).process(payloads)]
+
+        le = transform()
+        with endian.simulate_big_endian():
+            be = transform()
+        if le != be:
+            raise AssertionError(f"{fmt}: BE-host batch transform differs")
+        with endian.simulate_big_endian():
+            back_be = UntransformBatchProcessor(fmt, device=dev).process(le)
+        if back_be != payloads or UntransformBatchProcessor(fmt, device=dev).process(
+                be) != payloads:
+            raise AssertionError(f"{fmt}: cross-host batch round trip failed")
+        report.checks += 3
     report.batches += 1
-    report.checks += 3
 
 
 # reference asset file -> format

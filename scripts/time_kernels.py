@@ -17,7 +17,8 @@ kernels in the setting ``chip_smoke.py`` times, the region kernels for the FAST 
 COMPREHENSIVE candidates, the count kernel (default ladder) on each search's
 candidate rows, the mode-sort kernels in their three launching settings on BC7 and
 BC6H, the RGB kernels in their three non-identity settings of each layout, the word
-deinterleave at the largest batch's N (2,097,152 words a stream), the per-row count
+deinterleave at the largest batch's N (2,097,152 words a stream), the rows
+transform kernels on 16 such files in their bucket, the per-row count
 kernel on the BC1 batch's 16 rows of 2,097,152 bytes and the windowed one on them
 cut into 8 shards, timed as the sum of its 8 launches' medians. ``library`` holds
 the one PyTorch call that moves the same bytes (``.t().contiguous()``) beside the
@@ -193,6 +194,40 @@ def main() -> int:
         rows = torch.stack(list(rows.values()))
         counts(layout, rows, rows.shape[1])
         del xr, tr, rows
+    # the rows kernels (the batch step's end): 16 rows, each the 4096x4096 file's n
+    # blocks in its 2,097,152-block bucket, under the setting the per-file kernel is
+    # timed in (and ``/mixed``: row r under FAST candidate r mod their count), the
+    # block counts already on the card; beside them, 16 launches of the per-file
+    # kernel on the same rows (``/per_file_x16``)
+    from dxt_lossless_transform_tpu_torch.ops import lanes
+
+    bucket, B = lanes.bucket_size(n), 16
+    keys = {"bc1": (1, True), "bc2": (1, True), "bc3": (1, True, True),
+            "bc4": (True,), "bc5": (True,)}
+    fast = {"bc1": auto.colour_keys(BC1_FAST_CANDIDATES)[0],
+            "bc2": auto.colour_keys(BC2_FAST_CANDIDATES)[0],
+            "bc3": [(int(c.decorrelation_mode), c.split_alpha_endpoints,
+                     c.split_colour_endpoints) for c in BC3_FAST_CANDIDATES],
+            "bc4": [(False,), (True,)], "bc5": [(False,), (True,)]}
+    counts_dev = torch.full((B,), n, dtype=torch.int64, device=dev)
+    for fmt, key in keys.items():
+        bs = shuffle._ROWS[fmt][0]
+        rows = torch.zeros((B, bs * bucket), dtype=torch.uint8, device=dev)
+        rows[:, :bs * n] = xs[fmt.upper()][:bs * n]
+        out = torch.empty_like(rows)
+        for label, cands, best in (
+                ("", [key], torch.zeros(B, dtype=torch.int64, device=dev)),
+                ("/mixed", fast[fmt],
+                 torch.arange(B, device=dev) % len(fast[fmt]))):
+            code = shuffle.rows_code(fmt, cands)
+            ms[f"dlt_{fmt}_transform_rows{label}"] = event_ms(
+                lambda: backend.launch(f"dlt_{fmt}_transform_rows", dev, rows.data_ptr(),
+                                       out.data_ptr(), counts_dev.data_ptr(),
+                                       best.data_ptr(), B, bucket, code, len(cands)))
+        per_file = getattr(shuffle, f"{fmt}_transform")
+        ms[f"dlt_{fmt}_transform_rows/per_file_x16"] = event_ms(
+            lambda: [per_file(rows[r, :bs * n], *key) for r in range(B)])
+        del rows, out
     # the word deinterleave at the largest batch's N, k = 2 and 4
     for k in (2, 4):
         xw = torch.zeros(k * LARGEST_BATCH_N, dtype=torch.int32, device=dev).random_()

@@ -7,7 +7,8 @@ Each process joins a gloo group at ``tcp://COORDINATOR`` (``parallel.initialize`
 brings 4 CPU devices to one global ``(files, blocks)`` mesh (``make_mesh``: ``(1, 8)``
 for two processes, the blocks axis across them), runs the sharded BC1 auto-step on a
 batch made from a fixed numpy seed, identical on every process, and writes the
-outputs it got back to ``OUT_PREFIX.<proc_id>.npz``: every rank gets them whole.
+outputs it got back, each file's transformed bytes and its pick, to
+``OUT_PREFIX.<proc_id>.npz``: every rank gets them whole.
 The counterpart of ``scripts/distributed_worker.py``.
 """
 
@@ -40,7 +41,7 @@ def main() -> int:
     valid = [4 * nblocks, 4 * nblocks - 500, 4 * 3000, 4 * 5]
     out = bc1_auto_step(mesh)(torch.from_numpy(flats.view(np.int32)), valid)
     np.savez(f"{out_prefix}.{proc_id}.npz",
-             **{name: t.numpy() for name, t in zip(("c0", "c1", "idx", "best"), out)})
+             **{name: t.numpy() for name, t in zip(("rows", "best"), out)})
     dist.barrier()
     dist.destroy_process_group()
     return 0

@@ -1,4 +1,4 @@
-"""The twenty-one CUDA kernel entry points against their plain versions, on the
+"""The twenty-six CUDA kernel entry points against their plain versions, on the
 card, and the batch pipeline, on one device and under a mesh of the card repeated,
 the decoders, normalization and its search, and the endian harness, on the card
 against the same code on the CPU.
@@ -256,6 +256,9 @@ def test_each_wrapper_counts_its_launches(cuda):
     window = torch.nn.functional.pad(rows, (cuda_ltu.SPAN, cuda_ltu.SPAN))
     cuda_ltu.ltu_counts_windowed(window, torch.tensor([rows.shape[1]]), -cuda_ltu.SPAN,
                                  [1], [24])
+    best = torch.zeros(2, dtype=torch.int64, device=cuda)
+    for fmt, key in ROW_KEYS.items():
+        shuffle.transform_rows(fmt, x.view(2, -1), [1, 2], best, [key])
     torch.cuda.synchronize()
     assert backend.LAUNCHES == {"dlt_bc1_transform": 1, "dlt_bc1_untransform": 1,
                                 "dlt_bc1_regions": 1, "dlt_ltu_counts": 1,
@@ -267,7 +270,75 @@ def test_each_wrapper_counts_its_launches(cuda):
                                 "dlt_bc4_transform": 1, "dlt_bc4_untransform": 1,
                                 "dlt_bc5_transform": 1, "dlt_bc5_untransform": 1,
                                 "dlt_bc7_transform": 1, "dlt_bc7_untransform": 1,
-                                "dlt_rgb_transform": 1, "dlt_rgb_untransform": 1}
+                                "dlt_rgb_transform": 1, "dlt_rgb_untransform": 1,
+                                **{f"dlt_{fmt}_transform_rows": 1 for fmt in ROW_KEYS}}
+
+
+# a candidate key of each format's rows kernel
+ROW_KEYS = {"bc1": (1, True), "bc2": (1, True), "bc3": (1, True, False), "bc4": (True,),
+            "bc5": (False,)}
+ROW_BLOCK_SIZE = {"bc1": 8, "bc2": 16, "bc3": 16, "bc4": 8, "bc5": 16}
+# each format's every FAST candidate (BC4/BC5: both split_endpoints), as keys
+ROW_CANDIDATES = {
+    "bc1": [(int(c.decorrelation_mode), c.split_colour_endpoints) for c in BC1_FAST_CANDIDATES],
+    "bc2": [(int(c.decorrelation_mode), c.split_colour_endpoints) for c in BC2_FAST_CANDIDATES],
+    "bc3": [(int(c.decorrelation_mode), c.split_alpha_endpoints, c.split_colour_endpoints)
+            for c in BC3_FAST_CANDIDATES],
+    "bc4": [(False,), (True,)],
+    "bc5": [(False,), (True,)],
+}
+# per-row block counts of one batch: odd, 1, even, the whole bucket, 0 (a row left
+# out), in a bucket of 4099 blocks
+ROW_COUNTS = [4099, 1, 2, 3, 2049, 4098, 0, 255, 1024]
+
+
+@pytest.mark.parametrize("fmt", list(ROW_KEYS))
+def test_transform_rows_kernels(cuda, fmt):
+    """Every FAST candidate, each on several rows of one batch (mixed winners, block
+    counts odd, 1, several lengths, 0): each row's first block_size·n_r bytes equal
+    the plain version's and the per-file kernel's on the row's blocks; the bytes past
+    them are not written."""
+    bs, cands = ROW_BLOCK_SIZE[fmt], ROW_CANDIDATES[fmt]
+    bucket = max(ROW_COUNTS)
+    rng = np.random.default_rng(len(cands))
+    ns = ROW_COUNTS * len(cands)
+    B = len(ns)
+    x = torch.from_numpy(rng.integers(0, 256, (B, bs * bucket), np.uint8)).to(cuda)
+    best = torch.tensor([c for c in range(len(cands)) for _ in ROW_COUNTS],
+                        dtype=torch.int64)[torch.from_numpy(rng.permutation(B))]
+    best_dev = best.to(cuda)
+    got = shuffle.transform_rows(fmt, x, ns, best_dev, cands)
+    plain = shuffle.transform_rows_plain(fmt, x.cpu(), ns, best, cands)
+    transform = getattr(shuffle, f"{fmt}_transform")
+    for r, (n, k) in enumerate(zip(ns, best.tolist())):
+        assert torch.equal(got[r, :bs * n].cpu(), plain[r, :bs * n]), (r, n, cands[k])
+        if n:
+            assert torch.equal(got[r, :bs * n], transform(x[r, :bs * n], *cands[k]))
+    # the rows' tails are left as they were: the entry point writing into a buffer
+    # filled with a marker leaves the marker past each row's bytes
+    marker = torch.full_like(x, 0xA5)
+    counts = torch.tensor(ns, device=cuda)
+    backend.launch(f"dlt_{fmt}_transform_rows", cuda, x.data_ptr(), marker.data_ptr(),
+                   counts.data_ptr(), best_dev.data_ptr(), B, bucket,
+                   shuffle.rows_code(fmt, cands), len(cands))
+    for r, n in enumerate(ns):
+        assert bool((marker[r, bs * n:] == 0xA5).all()), (r, n)
+        assert torch.equal(marker[r, :bs * n], got[r, :bs * n])
+
+
+def test_transform_rows_of_more_rows_than_grid_y(cuda):
+    """70,000 one-block rows: the entry point launches once per 65,535 of them."""
+    rng = np.random.default_rng(70002)
+    x = torch.from_numpy(rng.integers(0, 256, (70_000, 16), np.uint8)).to(cuda)
+    cands = ROW_CANDIDATES["bc3"]
+    best = torch.from_numpy(rng.integers(0, len(cands), 70_000)).to(cuda)
+    ns = [int(n) for n in rng.integers(0, 2, 70_000)]
+    backend.reset_launch_counts()
+    got = shuffle.transform_rows("bc3", x, ns, best, cands)
+    assert backend.LAUNCHES["dlt_bc3_transform_rows"] == 1
+    want = shuffle.transform_rows_plain("bc3", x.cpu(), ns, best.cpu(), cands)
+    keep = torch.tensor(ns, dtype=torch.bool)
+    assert torch.equal(got.cpu()[keep], want[keep])
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -301,6 +372,17 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):  # out on another device
         channels.rgb_untransform(torch.zeros(12, dtype=torch.uint8, device=cuda), 3, 2, 1,
                                  0, True, True, out=torch.zeros(12, dtype=torch.uint8))
+    best = torch.zeros(2, dtype=torch.int64, device=cuda)
+    rows = torch.zeros((2, 32), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):  # a block count past the bucket
+        shuffle.transform_rows("bc3", rows, [1, 3], best, [(0, False, False)])
+    with pytest.raises(ValueError):  # best on the host
+        shuffle.transform_rows("bc3", rows, [1, 2], best.cpu(), [(0, False, False)])
+    with pytest.raises(ValueError):  # more candidates than the kernel's 16
+        shuffle.transform_rows("bc4", rows, [1, 2], best, [(False,)] * 17)
+    with pytest.raises(ValueError):  # rows of no whole number of blocks
+        shuffle.transform_rows("bc1", torch.zeros((2, 12), dtype=torch.uint8,
+                                                  device=cuda), [1, 1], best, [(0, False)])
 
 
 def test_short_inputs_on_the_card(cuda):
@@ -592,8 +674,11 @@ def test_batch_pipeline_on_the_card(cuda, fmt):
     torch.cuda.synchronize()
     # buckets of 2048 blocks (3 files: 2 batches), 4096, 8192 and 131,072
     assert proc.batches == 5
-    assert backend.LAUNCHES["dlt_deinterleave_words"] == proc.batches
+    # BC1-BC3 score their region kernel's rows, BC4/BC5 rows cut from the words
+    assert backend.LAUNCHES["dlt_deinterleave_words"] == \
+        (proc.batches if fmt in ("bc4", "bc5") else 0)
     assert backend.LAUNCHES["dlt_ltu_counts_rows"] == proc.batches
+    assert backend.LAUNCHES[f"dlt_{fmt}_transform_rows"] == proc.batches
     if fmt in ("bc1", "bc2", "bc3"):
         assert backend.LAUNCHES[f"dlt_{fmt}_regions"] == proc.batches
     want = BatchProcessor(fmt, max_batch=2, device="cpu").process(data)

@@ -1,9 +1,10 @@
 """The port's process group (``parallel/distributed.py``) and a mesh across
 processes: two processes over gloo on the CPU, 4 CPU devices each, one ``(1, 8)``
 mesh whose blocks axis crosses them (halos by ``batch_isend_irecv``, partial counts
-by ``all_reduce``, outputs to every rank by ``broadcast``). The sharded BC1 step's
-outputs, on each rank, must equal the single-process step's and the JAX package's
-(exact). The counterpart of ``tests/test_distributed_multiprocess.py``."""
+by ``all_reduce``, the transformed batch on every rank). The sharded BC1 step's
+outputs, on each rank, must equal the single-process step's, and those the bytes the
+JAX package's pipeline serializes from its step (exact). The counterpart of
+``tests/test_distributed_multiprocess.py``."""
 
 import os
 import socket
@@ -20,6 +21,8 @@ from dxt_lossless_transform_tpu.parallel import bc1_auto_step_single as jax_sing
 from dxt_lossless_transform_tpu_torch.parallel import (
     bc1_auto_step_single, initialize, is_primary,
 )
+
+from jax_batch_bytes import jax_bytes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,12 +61,12 @@ def test_two_processes_one_mesh_match_the_single_process_step():
     flats = np.random.default_rng(17).integers(0, 2**32, (B, 2 * nblocks), dtype=np.uint32)
     valid = [4 * nblocks, 4 * nblocks - 500, 4 * 3000, 4 * 5]
     for b in range(B):
-        want = bc1_auto_step_single(torch.from_numpy(flats[b].view(np.int32)), valid[b])
+        n = valid[b] // 4
+        want, best = bc1_auto_step_single(torch.from_numpy(flats[b].view(np.int32)),
+                                          valid[b])
         jax_want = jax.device_get(jax_single(jnp.asarray(flats[b]), valid[b]))
+        assert int(best) == int(jax_want[-1])
+        assert want.numpy().tobytes() == jax_bytes("bc1", jax_want[:-1], jax_want[-1], n)
         for rank_out in got:
-            for name, w, j in zip(("c0", "c1", "idx", "best"), want, jax_want):
-                np.testing.assert_array_equal(rank_out[name][b], w.numpy())
-                # the port's lanes are int32, JAX's uint32: the same 32 bits
-                np.testing.assert_array_equal(
-                    rank_out[name][b].astype(np.int64) & 0xFFFFFFFF,
-                    np.asarray(j).astype(np.int64) & 0xFFFFFFFF)
+            assert rank_out["best"][b] == int(best)
+            np.testing.assert_array_equal(rank_out["rows"][b, :8 * n], want.numpy())

@@ -135,14 +135,14 @@ def test_dds_parse_is_the_same_on_both_hosts(name):
 def test_matrix_synthetic():
     report = run_matrix(assets_dir=None, n_blocks=64, device="cpu")
     # 10 formats, every settings combination, 4 checks each; 3 synthetic containers;
-    # one batch leg per BC1-BC5 format
+    # one batch leg per BC1-BC5 format, device-scored and host-scored
     assert len(report.per_format) == 10
     assert report.per_format == {
         "bc1": 32, "bc2": 32, "bc3": 64, "bc4": 8, "bc5": 8, "bc7": 16, "bc6h": 16,
         "rgba8888": 16, "bgra8888": 16, "bgr888": 16}
     assert report.containers == 3
     assert report.batches == 5
-    assert report.checks == 224 + 3 * 3 + 5 * 3
+    assert report.checks == 224 + 3 * 3 + 5 * 2 * 3
     assert report.ok()
 
 

@@ -31,6 +31,8 @@ from dxt_lossless_transform_tpu_torch.parallel import (
     Mesh, make_mesh, modesort_transform_step, sharded, untransform_step,
 )
 
+from jax_batch_bytes import jax_bytes
+
 CPU = torch.device("cpu")
 WORDS = {"bc1": 2, "bc2": 4, "bc3": 4, "bc4": 2, "bc5": 4}
 BLOCK_SIZE = {"bc1": 8, "bc2": 16, "bc3": 16, "bc4": 8, "bc5": 16}
@@ -98,15 +100,16 @@ def test_auto_step_matches_jax_single_file_steps(fmt, mesh_name):
             flats[b, :wpb * n] = np.frombuffer(_payload(fmt, n, seed=b + bucket), "<u4")
         valid = [4 * n for n in ns]
         backend.reset_launch_counts()
-        got = sharded.auto_step(fmt, mesh, getattr(sharded, f"_{fmt.upper()}_CANDIDATES"))(
+        rows, best = sharded.auto_step(
+            fmt, mesh, getattr(sharded, f"_{fmt.upper()}_CANDIDATES"))(
             torch.from_numpy(flats.view(np.int32)), valid)
         assert all(v == 0 for v in backend.LAUNCHES.values())
-        for b in range(B):
+        assert rows.device == CPU and best.device == CPU
+        for b, n in enumerate(ns):
             want = jax.device_get(jax_step(jnp.asarray(flats[b]), valid[b]))
-            assert len(got) == len(want)
-            for g, w in zip(got, want):
-                assert g.device == CPU
-                np.testing.assert_array_equal(_u32(g[b].numpy()), _u32(w))
+            assert int(best[b]) == int(want[-1])
+            assert rows[b, :4 * wpb * n].numpy().tobytes() == \
+                jax_bytes(fmt, want[:-1], want[-1], n)
 
 
 def test_bc1_matches_jax_mesh_step():
@@ -121,10 +124,12 @@ def test_bc1_matches_jax_mesh_step():
     valid = [4 * nblocks, 4 * nblocks - 500] * (batch // 2)
     want = jax.device_get(jax_sharded.bc1_auto_step(jax_mesh)(
         jnp.asarray(flats), jnp.asarray(valid, jnp.int32)))
-    got = sharded.bc1_auto_step(make_mesh(devices=[CPU] * 8))(
+    rows, best = sharded.bc1_auto_step(make_mesh(devices=[CPU] * 8))(
         torch.from_numpy(flats.view(np.int32)), valid)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(_u32(g.numpy()), _u32(w))
+    np.testing.assert_array_equal(best.numpy(), np.asarray(want[-1]))
+    for b, v in enumerate(valid):
+        assert rows[b, :8 * (v // 4)].numpy().tobytes() == jax_bytes(
+            "bc1", [w[b] for w in want[:-1]], want[-1][b], v // 4)
 
 
 @pytest.mark.parametrize("mesh_name", ["1x8", "3x2"])

@@ -3,7 +3,9 @@ against the JAX package's (``dxt_lossless_transform_tpu/parallel/sharded.py``): 
 single-file steps, the BC1 batch step against the JAX words path (its Pallas
 deinterleave and region kernels in interpret mode), and the host-scored steps'
 region rows, with ragged files. Inputs are payloads from the generators with numpy
-seeds, or random words; lanes, picks and row bytes must be equal (exact)."""
+seeds, or random words; picks, lanes and row bytes must be equal (exact). The
+device-scored steps return each file's transformed bytes, which must equal what the
+JAX pipeline serializes from its step's lanes."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,8 @@ import torch
 from dxt_lossless_transform_tpu.parallel import sharded as jax_sharded
 from dxt_lossless_transform_tpu.utils import testgen
 from dxt_lossless_transform_tpu_torch.parallel import sharded
+
+from jax_batch_bytes import jax_bytes
 
 
 def payloads(fmt: str, sizes) -> list:
@@ -31,18 +35,17 @@ def test_single_steps_match_jax(fmt, wpb):
     for valid in (None, 4 * (len(flat) // wpb) - 4 * 501):
         want = jax.device_get(getattr(jax_sharded, f"{fmt}_auto_step_single")(
             jnp.asarray(flat), None if valid is None else jnp.int32(valid)))
-        got = getattr(sharded, f"{fmt}_auto_step_single")(
+        got, best = getattr(sharded, f"{fmt}_auto_step_single")(
             torch.from_numpy(flat.view(np.int32).copy()), valid)
-        assert len(got) == len(want)
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g.numpy().astype(np.int64) & 0xFFFFFFFF,
-                                          np.asarray(w).astype(np.int64) & 0xFFFFFFFF)
+        n = len(flat) // wpb if valid is None else valid // 4
+        assert int(best) == int(want[-1])
+        assert got.numpy().tobytes() == jax_bytes(fmt, want[:-1], want[-1], n)
 
 
 def test_bc1_batched_impl_matches_jax_words_path(monkeypatch):
     """The JAX batch step on its Mosaic words path (deinterleave and region kernels in
     interpret mode, as ``tests/test_parallel.py:262`` runs it), one file full and one
-    ragged, against the port's step: every lane and pick equal."""
+    ragged, against the port's step: every pick and each file's bytes equal."""
     monkeypatch.setattr(jax_sharded, "_WORDS_INTERPRET", True)
     rng = np.random.default_rng(12)
     nblocks = 16384
@@ -51,10 +54,11 @@ def test_bc1_batched_impl_matches_jax_words_path(monkeypatch):
     want = jax.device_get(jax_sharded._bc1_batched_impl(
         jnp.asarray(flats), jnp.asarray(valid, jnp.int32), jax_sharded._BC1_CANDIDATES,
         jax_sharded.DEFAULT_OFFSETS, allow_pallas=True))
-    got = sharded._bc1_batched_impl(torch.from_numpy(flats.view(np.int32)), valid)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy().astype(np.int64) & 0xFFFFFFFF,
-                                      np.asarray(w).astype(np.int64))
+    rows, best = sharded._bc1_batched_impl(torch.from_numpy(flats.view(np.int32)), valid)
+    np.testing.assert_array_equal(best.numpy(), np.asarray(want[-1]))
+    for b, v in enumerate(valid):
+        assert rows[b, :8 * (v // 4)].numpy().tobytes() == jax_bytes(
+            "bc1", [w[b] for w in want[:-1]], want[-1][b], v // 4)
 
 
 @pytest.mark.parametrize("fmt", ["bc1", "bc3", "bc4"])
