@@ -118,7 +118,8 @@ LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 #: The program's counters since the last :func:`reset_counters`; read :func:`counters`.
 COUNTS = dict.fromkeys(("batch.blocks_real", "batch.blocks_launched",
-                        "batch.files_device_bytes"), 0)
+                        "batch.files_device_bytes", "zstd.buffers", "zstd.bytes",
+                        "auto.payload_bytes"), 0)
 
 _lib: Optional[ctypes.CDLL] = None
 # held across the check, the build and the load of the library

@@ -16,7 +16,8 @@ is constructed; the ``zstandard`` package is not used. Where the library cannot 
 loaded, the constructor raises :class:`ZstdUnavailableError`. Each estimate creates,
 uses and frees its own compression context, and ctypes releases the interpreter
 lock during the call, so :meth:`ZstdEstimation.estimate_batch` runs its buffers in
-threads.
+threads, inside the span ``dlt.zstd.estimate``, and counts them in the counters
+``zstd.buffers`` and ``zstd.bytes`` (``backend.counters()``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import backend
 from ..errors import ZstdUnavailableError
+from ..utils.profiling import span
 from .base import SizeEstimation
 
 LIBRARY = "libzstd.so.1"
@@ -172,7 +175,11 @@ class ZstdEstimation(SizeEstimation):
 
     def estimate_batch(self, regions: Sequence) -> list:
         """Each buffer's estimate, one thread per buffer up to the CPU count."""
-        if len(regions) < 2:
-            return [self.estimate(r) for r in regions]
-        with ThreadPoolExecutor(min(len(regions), os.cpu_count() or 1)) as pool:
-            return list(pool.map(self.estimate, regions))
+        nbytes = sum(memoryview(r).nbytes for r in regions)
+        backend.count("zstd.buffers", len(regions))
+        backend.count("zstd.bytes", nbytes)
+        with span("dlt.zstd.estimate", f"buffers={len(regions)} bytes={nbytes}"):
+            if len(regions) < 2:
+                return [self.estimate(r) for r in regions]
+            with ThreadPoolExecutor(min(len(regions), os.cpu_count() or 1)) as pool:
+                return list(pool.map(self.estimate, regions))

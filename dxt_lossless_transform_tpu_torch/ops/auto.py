@@ -35,6 +35,7 @@ import torch
 from .. import backend
 from ..errors import AutoTransformError
 from ..estimate.base import SizeEstimation
+from ..utils.profiling import span
 from ..settings import (
     BC1_COMPREHENSIVE_CANDIDATES, BC1_FAST_CANDIDATES, BC2_COMPREHENSIVE_CANDIDATES,
     BC2_FAST_CANDIDATES, BC3_COMPREHENSIVE_CANDIDATES, BC3_FAST_CANDIDATES,
@@ -61,14 +62,17 @@ def score(fmt: str, estimator: SizeEstimation, rows: torch.Tensor,
           valid_len: int) -> np.ndarray:
     """Scores of ``rows``, computed by the estimator (on their device, or on the
     host for a host-only estimator). An estimator's failure is an
-    :class:`AutoTransformError`, as in the reference."""
-    try:
-        scores = estimator.estimate_batch_device(rows, valid_len)
-    except AutoTransformError:
-        raise
-    except Exception as exc:
-        raise AutoTransformError(fmt, f"estimator raised {exc!r}") from exc
-    scores = scores.cpu().numpy()
+    :class:`AutoTransformError`, as in the reference. The span ``dlt.auto.score``
+    holds the estimator's call and the scores' copy to the host (for a host-only
+    estimator, the rows' copy too)."""
+    with span("dlt.auto.score"):
+        try:
+            scores = estimator.estimate_batch_device(rows, valid_len)
+        except AutoTransformError:
+            raise
+        except Exception as exc:
+            raise AutoTransformError(fmt, f"estimator raised {exc!r}") from exc
+        scores = scores.cpu().numpy()
     return scores if scores.dtype.kind == "f" else scores.astype(np.int64)
 
 
@@ -169,9 +173,11 @@ def transform_auto_tensor(fmt: str, x: torch.Tensor, estimator: SizeEstimation,
 
 
 def _auto(fmt: str, data, estimator: SizeEstimation, cand: tuple, device) -> tuple:
-    """:func:`transform_auto_tensor` on ``data`` uploaded once; ``(bytes, settings)``."""
+    """:func:`transform_auto_tensor` on ``data`` uploaded once; ``(bytes, settings)``.
+    Counts the searched payloads' bytes in ``auto.payload_bytes``."""
     dev = start(fmt, data, _SEARCH[fmt][1].BLOCK_SIZE, device)
     if dev is None:
         return b"", cand[-1]
+    backend.count("auto.payload_bytes", len(data))
     out, best = transform_auto_tensor(fmt, backend.upload(data, dev), estimator, cand)
     return backend.download(out), best

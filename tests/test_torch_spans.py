@@ -1,9 +1,11 @@
 """The port's spans and counters (``utils/profiling.span``, ``backend.counters``) on
 the CPU: each batch processor's call is a ``dlt.<prefix>.process`` span holding its
 stages' spans, the wait on the device is ``dlt.backend.wait`` inside a ``d2h``
-stage, the DDS handler's steps are ``dlt.formats.*`` spans, no span opens a
-``record_function`` while no profiler records, and the batch block counters are
-exact."""
+stage, the DDS handler's steps are ``dlt.formats.*`` spans, the zstd-1 scorer is
+``dlt.zstd.estimate`` on both routes of the ``optimal`` preset (inside the batch's
+``score`` stage, or inside the per-file search's ``dlt.auto.score``), no span opens
+a ``record_function`` while no profiler records, and the batch block, zstd and
+auto-search counters are exact."""
 
 import sys
 import threading
@@ -13,7 +15,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dxt_lossless_transform_tpu_torch import api, backend
+from dxt_lossless_transform_tpu_torch.cli.main import make_preset_bundle
 from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+from dxt_lossless_transform_tpu_torch.estimate.zstd import ZstdEstimation
 from dxt_lossless_transform_tpu_torch.formats.bundle import TransformBundle
 from dxt_lossless_transform_tpu_torch.formats.handlers import DdsHandler
 from dxt_lossless_transform_tpu_torch.parallel import (
@@ -198,3 +202,80 @@ def test_counts_lose_no_increment_across_threads():
     finally:
         sys.setswitchinterval(switch)
     assert backend.counters()["batch.blocks_real"] == 16 * 5000 * 3
+
+
+# --- the zstd-1 scorer of the optimal preset --------------------------------------------
+
+ZSTD_COUNTERS = ("zstd.buffers", "zstd.bytes", "auto.payload_bytes")
+
+
+def optimal_route(route: str, dds: bytes):
+    """One BC3 file through a route of the ``optimal`` preset on the CPU: the
+    host-scored batch (its payload) or the per-file DDS handler (the whole file)."""
+    if route == "batch":
+        proc = BatchProcessor("bc3", estimator=ZstdEstimation(1), device="cpu")
+        return lambda: proc.process([dds[0x80:]])
+    handler = DdsHandler("cpu")
+    return lambda: handler.transform_bundle(dds, make_preset_bundle("optimal"))
+
+
+@pytest.mark.parametrize("size, mips", [(64, 7), (32, 1)])
+@pytest.mark.parametrize("route", ["batch", "file"])
+def test_the_zstd_scorer_is_a_span_and_counts_every_region(route, size, mips):
+    dds = testgen.make_dds("BC3", size, size, mips, seed=size)
+    n = (len(dds) - 0x80) // 16
+    backend.reset_counters()
+    _, spans = traced(optimal_route(route, dds))
+    counts = backend.counters()
+    # two alpha sections (2n bytes) and four colour sections (4n bytes), each once
+    assert {k: counts[k] for k in ZSTD_COUNTERS} == {
+        "zstd.buffers": 6, "zstd.bytes": 2 * 2 * n + 4 * 4 * n,
+        "auto.payload_bytes": 16 * n if route == "file" else 0}
+    zstd = [s for s in spans if s[0] == "dlt.zstd.estimate"]
+    outer = [s for s in spans if s[0] == ("dlt.batch.score" if route == "batch"
+                                           else "dlt.auto.score")]
+    # the batch scores its six regions in one call; the per-file search scores its
+    # alpha rows, then its colour rows
+    assert len(zstd) == len(outer) == (1 if route == "batch" else 2)
+    assert all(inside(z, o) for z, o in zip(zstd, outer))
+    if route == "file":
+        transform = [s for s in spans if s[0] == "dlt.formats.transform"]
+        assert len(transform) == 1 and all(inside(o, transform[0]) for o in outer)
+
+
+def test_the_device_scored_search_opens_the_score_span_and_no_zstd_one():
+    bundle = TransformBundle(bc3=api.Bc3AutoTransformBuilder(LtuEstimation()))
+    data = testgen.make_dds("BC3", 32, 32, 6, seed=5)
+    backend.reset_counters()
+    _, spans = traced(lambda: DdsHandler("cpu").transform_bundle(data, bundle))
+    names = [s[0] for s in spans]
+    assert names.count("dlt.auto.score") == 2 and "dlt.zstd.estimate" not in names
+    counts = backend.counters()
+    assert (counts["zstd.buffers"], counts["auto.payload_bytes"]) == (0, len(data) - 0x80)
+
+
+@pytest.mark.parametrize("buffers", [[], [b"abc"], [b"", bytes(100), b"xy" * 50]])
+def test_zstd_counters_take_each_call_whatever_its_size(buffers):
+    backend.reset_counters()
+    ZstdEstimation(1).estimate_batch(buffers)
+    ZstdEstimation(1).estimate_batch(buffers)
+    counts = backend.counters()
+    assert counts["zstd.buffers"] == 2 * len(buffers)
+    assert counts["zstd.bytes"] == 2 * sum(len(b) for b in buffers)
+
+
+@pytest.mark.parametrize("route", ["batch", "file"])
+def test_the_optimal_routes_open_no_record_function_off_the_profiler(route, monkeypatch):
+    opened = []
+    real = torch.profiler.record_function
+
+    def counted(*args, **kwargs):
+        opened.append(args[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    call = optimal_route(route, testgen.make_dds("BC3", 32, 32, 6, seed=2))
+    call()
+    assert opened == []
+    traced(call)
+    assert "dlt.zstd.estimate" in opened
