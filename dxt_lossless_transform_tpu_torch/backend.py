@@ -119,7 +119,7 @@ LAUNCHES = {name: 0 for name in _SIGNATURES}
 #: The program's counters since the last :func:`reset_counters`; read :func:`counters`.
 COUNTS = dict.fromkeys(("batch.blocks_real", "batch.blocks_launched",
                         "batch.files_device_bytes", "zstd.buffers", "zstd.bytes",
-                        "auto.payload_bytes"), 0)
+                        "zstd.contexts", "zstd.worker_us", "auto.payload_bytes"), 0)
 
 _lib: Optional[ctypes.CDLL] = None
 # held across the check, the build and the load of the library

@@ -13,18 +13,30 @@ same system library, so the two give the same frames. Levels 1-22.
 
 The library is ``libzstd.so.1``, loaded with :mod:`ctypes` when the first estimator
 is constructed; the ``zstandard`` package is not used. Where the library cannot be
-loaded, the constructor raises :class:`ZstdUnavailableError`. Each estimate creates,
-uses and frees its own compression context, and ctypes releases the interpreter
-lock during the call, so :meth:`ZstdEstimation.estimate_batch` runs its buffers in
-threads, inside the span ``dlt.zstd.estimate``, and counts them in the counters
-``zstd.buffers`` and ``zstd.bytes`` (``backend.counters()``).
+loaded, the constructor raises :class:`ZstdUnavailableError`.
+
+Estimates run on one process-wide :class:`ScorerPool`, made on first use with a
+worker a CPU the process may run on (:func:`cpu_budget`) and made anew in a child
+after ``fork``. Each worker keeps one compression context a level, its parameters set
+once, and one destination buffer that grows to ``ZSTD_compressBound`` of the largest
+buffer it has taken: the pool holds workers × that bound (8 × 5.6 MB for a 4096²
+BC3 file's colour section). ``ZSTD_compress2`` starts each frame anew on a reused
+context, so every size is that of a fresh context at the same level and parameters.
+ctypes releases the interpreter lock during the call, so the workers compress at
+once. :meth:`ZstdEstimation.estimate_batch` submits all its buffers together, largest
+first, read where they lie, inside the span ``dlt.zstd.estimate``, and counts them
+in the counters ``zstd.buffers`` and ``zstd.bytes``; the pool counts
+``zstd.contexts`` (contexts made) and ``zstd.worker_us`` (microseconds its workers
+spent in ``ZSTD_compress2``) (``backend.counters()``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-from concurrent.futures import ThreadPoolExecutor
+import queue
+import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -61,7 +73,14 @@ _SIGNATURES = {
     "ZSTD_versionNumber": ([], ctypes.c_uint),
 }
 
+# the cgroup (v2) file that caps the process's CPU time: "<quota> <period>" or "max ..."
+CPU_MAX = "/sys/fs/cgroup/cpu.max"
+_PARAMETERS = ((_C_FORMAT, _F_ZSTD1_MAGICLESS), (_C_CONTENT_SIZE_FLAG, 0),
+               (_C_CHECKSUM_FLAG, 0), (_C_DICT_ID_FLAG, 0))
+
 _lib: Optional[ctypes.CDLL] = None
+_pool: Optional["ScorerPool"] = None
+_pool_lock = threading.Lock()
 
 
 def load_library() -> ctypes.CDLL:
@@ -99,6 +118,156 @@ def version() -> int:
     return int(load_library().ZSTD_versionNumber())
 
 
+def _check(lib: ctypes.CDLL, ret: int, what: str) -> int:
+    if lib.ZSTD_isError(ret):
+        raise RuntimeError(f"zstd {what} failed: {lib.ZSTD_getErrorName(ret).decode()}")
+    return ret
+
+
+def new_context(lib: ctypes.CDLL, level: int) -> int:
+    """A compression context with the magicless frame's parameters at ``level``;
+    the caller frees it with ``ZSTD_freeCCtx``."""
+    cctx = lib.ZSTD_createCCtx()
+    if not cctx:
+        raise MemoryError("ZSTD_createCCtx failed")
+    try:
+        for param, value in ((_C_COMPRESSION_LEVEL, level),) + _PARAMETERS:
+            _check(lib, lib.ZSTD_CCtx_setParameter(cctx, param, value),
+                   f"parameter {param}")
+    except RuntimeError:
+        lib.ZSTD_freeCCtx(cctx)
+        raise
+    return cctx
+
+
+def cpu_budget(cpu_max: str = CPU_MAX) -> int:
+    """The CPUs this process may run on: its affinity set, or fewer where the
+    cgroup's ``cpu.max`` quota allows fewer whole CPUs (at least 1)."""
+    n = len(os.sched_getaffinity(0))
+    try:
+        with open(cpu_max) as f:
+            quota, period = f.read().split()[:2]
+        if quota != "max":
+            n = min(n, max(1, int(quota) // int(period)))
+    except (OSError, ValueError):
+        pass
+    return n
+
+
+class _Submission:
+    """One caller's buffers in the pool: their sizes, the workers' time in
+    ``ZSTD_compress2``, the contexts they made, and the first error."""
+
+    def __init__(self, n: int):
+        self.sizes = [0] * n
+        self.left = n
+        self.ns = self.contexts = 0
+        self.error: Optional[BaseException] = None
+        self.lock = threading.Lock()
+        self.done = threading.Event()
+        if not n:
+            self.done.set()
+
+    def finish(self, i: int, size: int, ns: int, made: int,
+               error: Optional[BaseException]) -> None:
+        with self.lock:
+            self.sizes[i] = size
+            self.ns += ns
+            self.contexts += made
+            self.error = self.error or error
+            self.left -= 1
+            if not self.left:
+                self.done.set()
+
+
+class ScorerPool:
+    """``workers`` threads that compress buffers with magicless zstd and return
+    their sizes. Each keeps a context a level and a destination buffer for its
+    life; :meth:`close` ends them and frees their contexts."""
+
+    def __init__(self, workers: int):
+        self.workers = workers
+        self._lib = load_library()
+        self._jobs = queue.SimpleQueue()
+        self._threads = [threading.Thread(target=self._work, name=f"dlt-zstd-{i}",
+                                          daemon=True) for i in range(workers)]
+        for t in self._threads:
+            t.start()
+
+    def _work(self) -> None:
+        lib = self._lib
+        contexts = {}
+        dst = np.empty(0, np.uint8)
+        try:
+            while True:
+                job = self._jobs.get()
+                if job is None:
+                    return
+                sub, i, level, src = job
+                size = ns = made = 0
+                error = None
+                try:
+                    cctx = contexts.get(level)
+                    if cctx is None:
+                        cctx = contexts[level] = new_context(lib, level)
+                        made = 1
+                    bound = lib.ZSTD_compressBound(src.size)
+                    if dst.size < bound:
+                        dst = np.empty(bound, np.uint8)
+                    t = time.perf_counter_ns()
+                    ret = lib.ZSTD_compress2(cctx, dst.ctypes.data, dst.size,
+                                             src.ctypes.data, src.size)
+                    ns = time.perf_counter_ns() - t
+                    size = _check(lib, ret, "compression")
+                except Exception as exc:  # handed to the caller, which raises it
+                    error = exc
+                sub.finish(i, size, ns, made, error)
+        finally:
+            for cctx in contexts.values():
+                lib.ZSTD_freeCCtx(cctx)
+
+    def sizes(self, level: int, buffers: Sequence[np.ndarray]) -> list:
+        """The magicless zstd size of each contiguous uint8 array at ``level``, in
+        their order (0 for an empty one). All are queued at once, largest first; the
+        caller waits for its own."""
+        sub = _Submission(len(buffers))
+        for i in sorted(range(len(buffers)), key=lambda i: -buffers[i].size):
+            if buffers[i].size:
+                self._jobs.put((sub, i, level, buffers[i]))
+            else:
+                sub.finish(i, 0, 0, 0, None)
+        sub.done.wait()
+        backend.count("zstd.contexts", sub.contexts)
+        backend.count("zstd.worker_us", sub.ns // 1000)
+        if sub.error is not None:
+            raise sub.error
+        return sub.sizes
+
+    def close(self) -> None:
+        for _ in self._threads:
+            self._jobs.put(None)
+        for t in self._threads:
+            t.join()
+
+
+def scorer_pool() -> ScorerPool:
+    """The process's pool, made on first use with :func:`cpu_budget` workers."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = ScorerPool(cpu_budget())
+        return _pool
+
+
+def _forget_pool() -> None:
+    """After ``fork``, in the child: its parent's workers do not exist there."""
+    global _pool, _pool_lock
+    _pool, _pool_lock = None, threading.Lock()
+
+
+os.register_at_fork(after_in_child=_forget_pool)
+
+
 class ZstdEstimation(SizeEstimation):
     """Estimate the compressed size by compressing with magicless zstd."""
 
@@ -111,47 +280,26 @@ class ZstdEstimation(SizeEstimation):
     def max_compressed_size(self, len_bytes: int) -> int:
         return len_bytes + (len_bytes >> 8) + 512
 
-    def _check(self, ret: int, what: str) -> int:
-        if self._lib.ZSTD_isError(ret):
-            raise RuntimeError(f"zstd {what} failed: "
-                               f"{self._lib.ZSTD_getErrorName(ret).decode()}")
-        return ret
-
     @staticmethod
     def _bytes(data) -> np.ndarray:
         if isinstance(data, np.ndarray):
             return np.ascontiguousarray(data).view(np.uint8).reshape(-1)
         return np.frombuffer(data, np.uint8)
 
-    def _compress(self, src: np.ndarray) -> tuple:
-        """(destination buffer, compressed length) of ``src`` in the magicless frame."""
-        lib = self._lib
-        dst = np.empty(lib.ZSTD_compressBound(src.size), np.uint8)
-        cctx = lib.ZSTD_createCCtx()
-        if not cctx:
-            raise MemoryError("ZSTD_createCCtx failed")
-        try:
-            for param, value in ((_C_COMPRESSION_LEVEL, self.level),
-                                 (_C_FORMAT, _F_ZSTD1_MAGICLESS),
-                                 (_C_CONTENT_SIZE_FLAG, 0), (_C_CHECKSUM_FLAG, 0),
-                                 (_C_DICT_ID_FLAG, 0)):
-                self._check(lib.ZSTD_CCtx_setParameter(cctx, param, value),
-                            f"parameter {param}")
-            return dst, self._check(lib.ZSTD_compress2(cctx, dst.ctypes.data, dst.size,
-                                                       src.ctypes.data, src.size),
-                                    "compression")
-        finally:
-            lib.ZSTD_freeCCtx(cctx)
-
     def estimate(self, data) -> int:
-        src = self._bytes(data)
-        if src.size == 0:
-            return 0
-        return self._compress(src)[1]
+        return scorer_pool().sizes(self.level, [self._bytes(data)])[0]
 
     def compress(self, data) -> bytes:
         """The magicless zstd frame of ``data`` at this estimator's level."""
-        dst, n = self._compress(self._bytes(data))
+        lib = self._lib
+        src = self._bytes(data)
+        dst = np.empty(lib.ZSTD_compressBound(src.size), np.uint8)
+        cctx = new_context(lib, self.level)
+        try:
+            n = _check(lib, lib.ZSTD_compress2(cctx, dst.ctypes.data, dst.size,
+                                               src.ctypes.data, src.size), "compression")
+        finally:
+            lib.ZSTD_freeCCtx(cctx)
         return dst[:n].tobytes()
 
     def decompress(self, data: bytes, expected_len: int) -> bytes:
@@ -164,22 +312,21 @@ class ZstdEstimation(SizeEstimation):
         if not dctx:
             raise MemoryError("ZSTD_createDCtx failed")
         try:
-            self._check(lib.ZSTD_DCtx_setParameter(dctx, _D_FORMAT, _F_ZSTD1_MAGICLESS),
-                        "parameter format")
-            n = self._check(lib.ZSTD_decompressDCtx(dctx, dst.ctypes.data, expected_len,
+            _check(lib, lib.ZSTD_DCtx_setParameter(dctx, _D_FORMAT, _F_ZSTD1_MAGICLESS),
+                   "parameter format")
+            n = _check(lib, lib.ZSTD_decompressDCtx(dctx, dst.ctypes.data, expected_len,
                                                     src.ctypes.data, src.size),
-                            "decompression")
+                       "decompression")
         finally:
             lib.ZSTD_freeDCtx(dctx)
         return dst[:n].tobytes()
 
     def estimate_batch(self, regions: Sequence) -> list:
-        """Each buffer's estimate, one thread per buffer up to the CPU count."""
-        nbytes = sum(memoryview(r).nbytes for r in regions)
-        backend.count("zstd.buffers", len(regions))
+        """Each buffer's estimate (``bytes``, ``bytearray``, ``memoryview`` or a
+        contiguous numpy array, read in place), all submitted to the pool at once."""
+        srcs = [self._bytes(r) for r in regions]
+        nbytes = sum(s.size for s in srcs)
+        backend.count("zstd.buffers", len(srcs))
         backend.count("zstd.bytes", nbytes)
-        with span("dlt.zstd.estimate", f"buffers={len(regions)} bytes={nbytes}"):
-            if len(regions) < 2:
-                return [self.estimate(r) for r in regions]
-            with ThreadPoolExecutor(min(len(regions), os.cpu_count() or 1)) as pool:
-                return list(pool.map(self.estimate, regions))
+        with span("dlt.zstd.estimate", f"buffers={len(srcs)} bytes={nbytes}"):
+            return scorer_pool().sizes(self.level, srcs)

@@ -22,7 +22,9 @@ those over the reference's one row per candidate, repeated candidates included.
   per distinct ``(variant, split)``.
 - BC3: a candidate's score is the sum of two regions' scores, its alpha-endpoint
   stream (2n bytes) and its colour stream (4n bytes): one alpha row per distinct
-  ``split_alpha`` and one colour row per distinct ``(variant, split_colour)``.
+  ``split_alpha`` and one colour row per distinct ``(variant, split_colour)``, both
+  kinds handed to the estimator in one call (:func:`score_parts`), so that a host
+  estimator compresses all of a file's rows at once.
 """
 
 from __future__ import annotations
@@ -60,20 +62,26 @@ def colour_keys(candidates) -> tuple:
 
 def score(fmt: str, estimator: SizeEstimation, rows: torch.Tensor,
           valid_len: int) -> np.ndarray:
-    """Scores of ``rows``, computed by the estimator (on their device, or on the
-    host for a host-only estimator). An estimator's failure is an
+    """Scores of ``rows``: :func:`score_parts` of one part."""
+    return score_parts(fmt, estimator, [(rows, valid_len)])[0]
+
+
+def score_parts(fmt: str, estimator: SizeEstimation, parts) -> list:
+    """Scores of each ``(rows, valid_len)`` part of one search, computed by the
+    estimator (on their device, or on the host for a host-only estimator, every
+    part's rows in one submission). An estimator's failure is an
     :class:`AutoTransformError`, as in the reference. The span ``dlt.auto.score``
     holds the estimator's call and the scores' copy to the host (for a host-only
     estimator, the rows' copy too)."""
     with span("dlt.auto.score"):
         try:
-            scores = estimator.estimate_batch_device(rows, valid_len)
+            scores = estimator.estimate_parts_device(parts)
         except AutoTransformError:
             raise
         except Exception as exc:
             raise AutoTransformError(fmt, f"estimator raised {exc!r}") from exc
-        scores = scores.cpu().numpy()
-    return scores if scores.dtype.kind == "f" else scores.astype(np.int64)
+        scores = [s.cpu().numpy() for s in scores]
+    return [s if s.dtype.kind == "f" else s.astype(np.int64) for s in scores]
 
 
 def start(fmt: str, data, block_size: int, device) -> Optional[torch.device]:
@@ -142,8 +150,7 @@ def bc3_candidate_scores(x: torch.Tensor, estimator: SizeEstimation,
     alpha_keys, ckeys, ai, ci = bc3_keys(candidates)
     alpha, colour = cuda_regions.bc3_regions(x, alpha_keys, ckeys)
     n = x.numel() // ops_bc3.BLOCK_SIZE
-    a = score("BC3", estimator, alpha, 2 * n)
-    c = score("BC3", estimator, colour, 4 * n)
+    a, c = score_parts("BC3", estimator, [(alpha, 2 * n), (colour, 4 * n)])
     return a[ai] + c[ci]
 
 

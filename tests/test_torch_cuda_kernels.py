@@ -1041,3 +1041,21 @@ def test_endian_matrix_on_the_card(cuda):
     for name in ("dlt_bc1_transform", "dlt_bc3_untransform", "dlt_bc7_transform",
                  "dlt_rgb_untransform", "dlt_deinterleave_words", "dlt_ltu_counts_rows"):
         assert backend.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.parametrize("level", [1, 6])
+def test_host_scores_of_card_rows_are_the_cpu_rows_scores(cuda, level):
+    """The default host scoring copies every part's card rows into one pinned buffer
+    and reads each row's real bytes there: the scores of the same rows on the CPU."""
+    from dxt_lossless_transform_tpu_torch.estimate.zstd import ZstdEstimation
+
+    est = ZstdEstimation(level)
+    x = _blocks(5000, "cpu", 16)
+    alpha, colour = regions.bc3_regions(x, (False, True), ((0, False), (1, True)))
+    valid = torch.tensor([4000, 10000])
+    want = est.estimate_parts_device([(alpha, valid), (colour, 20000)])
+    got = est.estimate_parts_device([(alpha.to(cuda), valid.to(cuda)),
+                                     (colour.to(cuda), 20000)])
+    assert all(g.device == cuda for g in got)
+    assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    assert est.estimate_batch_device(colour.to(cuda), 20000).tolist() == want[1].tolist()

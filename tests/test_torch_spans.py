@@ -234,9 +234,8 @@ def test_the_zstd_scorer_is_a_span_and_counts_every_region(route, size, mips):
     zstd = [s for s in spans if s[0] == "dlt.zstd.estimate"]
     outer = [s for s in spans if s[0] == ("dlt.batch.score" if route == "batch"
                                            else "dlt.auto.score")]
-    # the batch scores its six regions in one call; the per-file search scores its
-    # alpha rows, then its colour rows
-    assert len(zstd) == len(outer) == (1 if route == "batch" else 2)
+    # each route scores its six regions, alpha and colour rows, in one call
+    assert len(zstd) == len(outer) == 1
     assert all(inside(z, o) for z, o in zip(zstd, outer))
     if route == "file":
         transform = [s for s in spans if s[0] == "dlt.formats.transform"]
@@ -249,7 +248,8 @@ def test_the_device_scored_search_opens_the_score_span_and_no_zstd_one():
     backend.reset_counters()
     _, spans = traced(lambda: DdsHandler("cpu").transform_bundle(data, bundle))
     names = [s[0] for s in spans]
-    assert names.count("dlt.auto.score") == 2 and "dlt.zstd.estimate" not in names
+    # one score span a search: the alpha rows' count call, then the colour rows'
+    assert names.count("dlt.auto.score") == 1 and "dlt.zstd.estimate" not in names
     counts = backend.counters()
     assert (counts["zstd.buffers"], counts["auto.payload_bytes"]) == (0, len(data) - 0x80)
 
