@@ -962,7 +962,7 @@ def bc1_batch_rows(corpus_bc1: list, dev) -> tuple:
     for row, d in enumerate(big):
         flats[row, :len(d) // 4] = torch.frombuffer(bytearray(d), dtype=torch.int32)
     n_big = len(big[0]) // 8
-    rows, _ = sharded._colour_rows_batched(
+    rows = sharded._colour_rows_batched(
         flats.to(dev), [n_big] * len(big), sharded._BC1_CANDIDATES, 2, regions.bc1_regions)
     return rows.view(-1, rows.shape[2]), n_big
 
@@ -1805,7 +1805,7 @@ def main() -> int:
     bc1_proc = parallel.BatchProcessor("bc1", max_batch=BATCH_MAX)
     bc1_data = corpus["bc1"]
     for chunk, flats, valid in bc1_proc._prepare_batches(bc1_data, [None] * len(bc1_data)):
-        rows, _ = sharded._colour_rows_batched(
+        rows = sharded._colour_rows_batched(
             backend.to_device(flats, dev), [v // 4 for v in valid], sharded._BC1_CANDIDATES,
             2, regions.bc1_regions)
         keys = rows.shape[1]
@@ -1953,7 +1953,7 @@ def main() -> int:
                 mesh, fmt, parallel.BatchProcessor(
                     fmt, mesh=mesh, max_batch=BATCH_MAX,
                     estimator=zstd.ZstdEstimation(1)).process(corpus[fmt])),
-                ["dlt_deinterleave_words", f"dlt_{fmt}_untransform", *region_kernels(fmt)])
+                [f"dlt_{fmt}_untransform", *region_kernels(fmt)])
         _, ns, words = bc7_batch(mesh)
         checked_path(f"{name}/bc7_modesort", lambda: parallel.modesort_transform_step(
             mesh, "bc7")(words, ns), ["dlt_bc7_transform"])
@@ -2237,7 +2237,8 @@ def main() -> int:
         proc = parallel.BatchProcessor(fmt, max_batch=BATCH_MAX,
                                        estimator=zstd.ZstdEstimation(1))
         results, counts, unproc = batch_path(f"{fmt}_zstd1", fmt, proc)
-        want = {"dlt_deinterleave_words": proc.batches, f"dlt_{fmt}_regions": proc.batches,
+        want = {f"dlt_{fmt}_regions": proc.batches,
+                f"dlt_{fmt}_transform_rows": proc.batches,
                 f"dlt_{fmt}_untransform": unproc.batches}
         if counts != want:
             fail(f"batch {fmt} host-scored: launches {counts}, expected one of each "
@@ -2336,7 +2337,8 @@ def main() -> int:
                 estimator=zstd.ZstdEstimation(1)).process(corpus[fmt]))
             if not same(results, batch_out[f"{fmt}_zstd1"]):
                 fail(f"mesh {label}: results differ from the single-device batch")
-            if not (counts.get("dlt_deinterleave_words") and counts.get(f"dlt_{fmt}_regions")):
+            if not (counts.get(f"dlt_{fmt}_regions")
+                    and counts.get(f"dlt_{fmt}_transform_rows")):
                 fail(f"mesh {label}: launches {counts}")
             back, _ = mesh_path(f"{label}/load", lambda: restore(mesh, fmt, results))
             if back != corpus[fmt]:

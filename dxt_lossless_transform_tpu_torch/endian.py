@@ -6,8 +6,7 @@ header, every multi-byte stream lane and the DDS header fields. Every place wher
 port's host code reads bytes as multi-byte integers or writes integers as bytes goes
 through this module: the DDS header reads (:mod:`.formats.dds`), the transform
 header (:mod:`.formats.embed`), the magic that the handler restores
-(:mod:`.formats.handlers`), the batch pipeline's serializers
-(:mod:`.parallel.pipeline`), the numpy decoders (:mod:`.oracle.decode`) and the
+(:mod:`.formats.handlers`), the numpy decoders (:mod:`.oracle.decode`) and the
 corpus report of ``debug-format-analysis``. :func:`simulate_big_endian` switches each
 of these boundaries to what a correctly ported big-endian host runs: a native
 big-endian view followed by the explicit byteswap of ``from_le``/``to_le``. A

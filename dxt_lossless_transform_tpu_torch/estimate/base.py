@@ -55,9 +55,15 @@ class SizeEstimation:
         estimator that overrides :meth:`estimate_batch_device` scores the parts one
         by one with it; the default copies every part's rows to the host at once
         and scores all their rows in one :meth:`estimate_batch` call."""
-        if type(self).estimate_batch_device is not SizeEstimation.estimate_batch_device:
+        if self.scores_on_device:
             return [self.estimate_batch_device(rows, v) for rows, v in parts]
         return self._host_scores(parts)
+
+    @property
+    def scores_on_device(self) -> bool:
+        """Whether the estimator scores rows where they lie: it overrides
+        :meth:`estimate_batch_device`. Else they are scored on the host."""
+        return type(self).estimate_batch_device is not SizeEstimation.estimate_batch_device
 
     def _host_scores(self, parts) -> List[torch.Tensor]:
         """Each row's real bytes handed to :meth:`estimate_batch` as a numpy view:

@@ -7,12 +7,12 @@ of each kernel per batch (:mod:`.sharded`), and returned in submission order as
 :class:`BatchResult`. The results equal the port's per-file auto-search on the same
 payload and estimator, in settings and bytes, and the JAX package's batch pipeline.
 
-- :class:`BatchProcessor` (BC1-BC5): device-scored under LTU (the CLI's ``medium``
-  preset; the JAX scorer's exact integer twin: the card also writes each file's
-  final transformed bytes, and the host copies each file's slice out), or
-  host-scored with an ``estimator`` (``ZstdEstimation(1)``, the ``optimal``/``max``
-  presets: the device builds every candidate's region row and the host ranks them
-  and serializes the winner).
+- :class:`BatchProcessor` (BC1-BC5): one step (:class:`.sharded.BatchStep`) for
+  every estimator: the device builds every candidate's region row, the estimator
+  scores them (LTU on the device, the CLI's ``medium`` preset, the JAX scorer's exact
+  integer twin; ``ZstdEstimation(1)`` on the host, the ``optimal``/``max`` presets),
+  the device writes each file's final transformed bytes under its winner, and the
+  host copies each file's slice out.
 - :class:`ModeSortBatchProcessor` (BC7/BC6H) and :class:`RgbBatchProcessor`: every
   file's candidate streams scored in one count call per batch.
 - :class:`UntransformBatchProcessor`, the batched load path: BC1-BC5 files grouped
@@ -20,14 +20,14 @@ payload and estimator, in settings and bytes, and the JAX package's batch pipeli
   and the whole batch inverted by one launch of the format's untransform kernel;
   BC7/BC6H and RGB payloads go through the per-file untransform.
 
-In both of the BC1-BC5 processor's modes and in the load path, the next batch's
-upload and kernels are queued before the host serializes (or scores) the current
-one, whose results come back through pinned buffers (:class:`..backend.Download`).
-The device is CUDA unless the caller passes ``device="cpu"``, which runs the
-kernels' plain versions. With a ``mesh`` (:func:`.mesh.make_mesh`) the BC1-BC5
-processor, in both modes, runs the sharded steps on the mesh's devices (its
-``device`` argument gives way to them): a batch is padded to a multiple of the files
-axis by repeating its last file, as in JAX, and the results are the same.
+In the BC1-BC5 processor and in the load path, the next batch's upload and kernels
+are queued before the host serializes (or scores) the current one, whose results come
+back through pinned buffers (:class:`..backend.Download`). The device is CUDA unless
+the caller passes ``device="cpu"``, which runs the kernels' plain versions. With a
+``mesh`` (:func:`.mesh.make_mesh`) the BC1-BC5 processor runs the sharded step on
+the mesh's devices (its ``device`` argument gives way to them): a batch is padded to
+a multiple of the files axis by repeating its last file, as in JAX, and the results
+are the same.
 
 Left out: the TPU tile-grid padding of a batch (``_pad_batch_for_tiles``; there is no
 tile grid, the kernels take any shape) and the routing of small payloads to a native
@@ -48,8 +48,8 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .. import backend, endian
-from ..estimate.ltu import DEFAULT_OFFSETS
+from .. import backend
+from ..estimate.ltu import DEFAULT_OFFSETS, LtuEstimation
 from ..ops import bc45 as ops_bc45, bc6h as ops_bc6h, bc7 as ops_bc7
 from ..ops import hostwrap, lanes, rgb as ops_rgb
 from ..ops.auto import distinct
@@ -70,24 +70,6 @@ class BatchResult:
     index: int
     transformed: bytes
     settings: object
-
-
-def _u32s(arr, n) -> bytes:
-    return endian.to_bytes(arr[:n], "u4")
-
-
-def _alpha_words(a_lo, a_hi, n) -> bytes:
-    alpha = endian.empty((n, 2), "u4")
-    alpha[:, 0] = a_lo[:n]
-    alpha[:, 1] = a_hi[:n]
-    return endian.to_bytes(alpha, "u4")
-
-
-def _idx_u16s(h1, h2, h3, n) -> bytes:
-    """Three u16 index lanes -> the interleaved per-block 6-byte index stream."""
-    idx = endian.empty((n, 3), "u2")
-    idx[:, 0], idx[:, 1], idx[:, 2] = h1[:n], h2[:n], h3[:n]
-    return endian.to_bytes(idx, "u2")
 
 
 # block_size, words per block, the default candidates and the step's candidate key
@@ -142,20 +124,15 @@ class StageTimes:
                                    + time.perf_counter() - start)
 
 
-def _as_unsigned(a: np.ndarray) -> np.ndarray:
-    return a.view({np.dtype(np.int16): np.uint16, np.dtype(np.int32): np.uint32}.get(
-        a.dtype, a.dtype))
-
-
 class BatchProcessor:
     """Pack payloads of one texture format into bucket-sized batches and
     auto-transform them on the device.
 
-    Without an ``estimator`` the device scores every candidate under LTU and keeps
-    the argmin; with one (a host estimator such as ``ZstdEstimation(1)``) the device
-    builds every candidate's region row and the host scores them. With a ``mesh``
-    the steps run sharded over it, each batch uploaded to ``mesh.home``. ``timing``
-    keeps each stage's seconds in :attr:`times` (and serializes the batches)."""
+    The ``estimator`` (LTU with the default offsets when None) scores every
+    candidate's region row: on the device, or on the host for a host estimator such
+    as ``ZstdEstimation(1)``, one batch behind the device. With a ``mesh`` the step
+    runs sharded over it, each batch uploaded to ``mesh.home``. ``timing`` keeps each
+    stage's seconds in :attr:`times` (and serializes the batches)."""
 
     def __init__(self, fmt: str, mesh=None, candidates=None, max_batch: int = 64,
                  estimator=None, device: Union[str, torch.device] = "cuda",
@@ -168,14 +145,9 @@ class BatchProcessor:
                                 else cfg["candidates"])
         self._cand_key = tuple(cfg["key"](c) for c in self.candidates)
         self.max_batch = max_batch
-        self.estimator = estimator
+        self.estimator = LtuEstimation(DEFAULT_OFFSETS) if estimator is None else estimator
         self.device = mesh.home if mesh is not None else backend.resolve_device(device)
-        if estimator is not None:
-            self._step = sharded.auto_step_batched_regions(fmt, self._cand_key, mesh)
-        elif mesh is not None:
-            self._step = sharded.auto_step(fmt, mesh, self._cand_key, DEFAULT_OFFSETS)
-        else:
-            self._step = sharded.auto_step_batched(fmt, self._cand_key, DEFAULT_OFFSETS)
+        self._step = sharded.BatchStep(fmt, self._cand_key, self.estimator, self.mesh)
         self.times = StageTimes(self.device, timing, "batch")
         #: device batches run by the last :meth:`process`
         self.batches = 0
@@ -219,14 +191,18 @@ class BatchProcessor:
                 backend.count("batch.blocks_launched", padded * bucket)
                 yield chunk, flats, valid
 
-    def _launch(self, flats: torch.Tensor, valid: list) -> backend.Download:
+    def _launch(self, flats: torch.Tensor, valid: list):
         """Queue one batch: its upload, its step, and the copies of what the host
-        needs back."""
+        needs back. A host estimator's batch stops at its region rows: -> (the batch
+        on the device, the rows), which :meth:`_serialize` scores and finishes."""
         self.batches += 1
         with self.times("h2d"):
             x = backend.to_device(flats, self.device)
         with self.times("device"):
-            outs = self._step(x, valid)
+            regions = self._step.regions(x, valid)
+            if not self.estimator.scores_on_device:
+                return x, regions
+            outs = self._step.finish(x, regions)
         with self.times("d2h"):
             return backend.Download(outs)
 
@@ -234,88 +210,33 @@ class BatchProcessor:
         """Transform every payload; results returned in submission order."""
         order: List[Optional[BatchResult]] = [None] * len(payloads)
         self.batches = 0
-        finish = self._serialize if self.estimator is None else self._score_and_serialize
         pending = deque()
         with self.times.call(len(payloads)):
             for chunk, flats, valid in self._prepare_batches(payloads, order):
                 pending.append((chunk, self._launch(flats, valid)))
                 if len(pending) >= 2:
-                    finish(payloads, order, *pending.popleft())
+                    self._serialize(payloads, order, *pending.popleft())
             while pending:
-                finish(payloads, order, *pending.popleft())
+                self._serialize(payloads, order, *pending.popleft())
         return [r for r in order if r is not None]
 
-    def _serialize(self, payloads, order, chunk, download) -> None:
+    def _serialize(self, payloads, order, chunk, launched) -> None:
         """The card wrote each file's transformed bytes at the start of its row: one
-        slice copy a file."""
+        slice copy a file. A host estimator scores the batch's rows first, and the
+        rows kernel's launch and the download are queued behind its scores."""
+        if not self.estimator.scores_on_device:
+            with self.times("score"):
+                outs = self._step.finish(*launched)
+            with self.times("d2h"):
+                launched = backend.Download(outs)
         with self.times("d2h"):
-            rows, best = download.wait()
+            rows, best = launched.wait()
         with self.times("serialize"):
             for row, (file_idx, pick) in enumerate(zip(chunk, best.tolist())):
                 order[file_idx] = BatchResult(
                     file_idx, rows[row, :len(payloads[file_idx])].tobytes(),
                     self.candidates[pick])
         backend.count("batch.files_device_bytes", len(chunk))
-
-    # --- host-scored (zstd-preset) mode -------------------------------------------
-
-    def _score_and_serialize(self, payloads, order, chunk, download) -> None:
-        bs = self.cfg["block_size"]
-        with self.times("d2h"):
-            outs = [_as_unsigned(a) for a in download.wait()]
-        ns = [len(payloads[i]) // bs for i in chunk]
-        if self.fmt == "bc3":
-            h1, h2, h3, cidx, a_rows, c_rows = outs
-            alpha_keys, colour_keys, ai, ci = sharded._bc3_keys(self._cand_key)
-            A, K = len(alpha_keys), len(colour_keys)
-            with self.times("score"):
-                bufs = []
-                for row, n in enumerate(ns):
-                    bufs += [a_rows[row, a, :2 * n].tobytes() for a in range(A)]
-                    bufs += [c_rows[row, c, :4 * n].tobytes() for c in range(K)]
-                sizes = np.asarray(self.estimator.estimate_batch(bufs)).reshape(
-                    len(ns), A + K)
-            with self.times("serialize"):
-                for row, (file_idx, n) in enumerate(zip(chunk, ns)):
-                    scores = sizes[row, ai] + sizes[row, [A + c for c in ci]]
-                    best = int(np.argmin(scores))
-                    out = (a_rows[row, ai[best], :2 * n].tobytes()
-                           + _idx_u16s(h1[row], h2[row], h3[row], n)
-                           + c_rows[row, ci[best], :4 * n].tobytes()
-                           + _u32s(cidx[row], n))
-                    order[file_idx] = BatchResult(file_idx, out, self.candidates[best])
-            return
-        C = len(self._cand_key)
-
-        def region(row: int, c: int, n: int) -> bytes:
-            """Candidate c's region of the file in ``row``: its on-disk colour
-            (BC1/BC2) or endpoint section (BC4; BC5 red then green, as the per-file
-            auto scores it)."""
-            if self.fmt == "bc4":
-                return outs[3][row, c, :2 * n].tobytes()
-            if self.fmt == "bc5":
-                return outs[6][row, c, :2 * n].tobytes() + outs[7][row, c, :2 * n].tobytes()
-            return outs[-1][row, c, :4 * n].tobytes()
-
-        with self.times("score"):
-            sizes = np.asarray(self.estimator.estimate_batch(
-                [region(row, c, n) for row, n in enumerate(ns) for c in range(C)])
-            ).reshape(len(ns), C)
-        with self.times("serialize"):
-            for row, (file_idx, n) in enumerate(zip(chunk, ns)):
-                best = int(np.argmin(sizes[row]))
-                head = region(row, best, n)
-                if self.fmt == "bc1":
-                    out = head + _u32s(outs[0][row], n)
-                elif self.fmt == "bc2":
-                    out = (_alpha_words(outs[0][row], outs[1][row], n) + head
-                           + _u32s(outs[2][row], n))
-                elif self.fmt == "bc4":
-                    out = head + _idx_u16s(outs[0][row], outs[1][row], outs[2][row], n)
-                else:
-                    out = head + _idx_u16s(*(o[row] for o in outs[0:3]), n) \
-                        + _idx_u16s(*(o[row] for o in outs[3:6]), n)
-                order[file_idx] = BatchResult(file_idx, out, self.candidates[best])
 
 
 class Bc1BatchProcessor(BatchProcessor):

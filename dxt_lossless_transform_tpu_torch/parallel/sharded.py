@@ -2,33 +2,38 @@
 sharded over a mesh.
 
 Counterpart of ``dxt_lossless_transform_tpu/parallel/sharded.py``: ``auto_step_batched``
-(:855), ``auto_step_batched_regions`` (:833), ``_bc{1..5}_batched_impl`` (:542-687),
-``_bc{1..5}_batched_regions_impl`` (:725-830), ``_colour_rows_batched`` (:500),
+(:855) and the host-scored regions step (:833), ``_bc{1..5}_batched_impl`` (:542-687)
+and their host-scored twins (:725-830), ``_colour_rows_batched`` (:500),
 ``bc{1..5}_auto_step_single`` (:262-415, :689-714), and under a mesh
 ``bc{1..5}_auto_step`` (:871-913), ``_scores_flat_shardmap`` (:427-473),
 ``_mesh_words_call`` (:190-227), ``modesort_transform_step`` (:931) and
 ``untransform_step`` (:949). A batch is a (B, W) int32 tensor of B files' block
 words, each file padded with zeros to the batch's bucket of ``W / words per block``
 blocks, and a (B,) list of valid lengths, ``4 n_b`` for a file of ``n_b`` blocks (its
-colour region's bytes), as in the JAX package. The device-scored steps pick what the
-JAX step picks, and return, as tensors on the batch's device (under a mesh, on
-``mesh.home``), ``(rows, best)``: the winning candidate of each file (``best``) and
-the (B, block_size·bucket) uint8 rows whose row b begins with file b's transformed
-bytes under that candidate, the bytes JAX's pipeline serializes from its step's
-lanes; the host-scored steps return lanes and every candidate's estimation-region
-row, as JAX's do.
+colour region's bytes), as in the JAX package.
 
-On one device each device-scored batch step runs:
+:class:`BatchStep` is the one BC1-BC5 batch step, whatever scores it: it picks what
+the JAX step with the same estimator picks (JAX's device-scored step under LTU, its
+host-scored step under a host estimator such as zstd-1), and returns, as tensors on
+the batch's device (under a mesh, on ``mesh.home``), ``(rows, best)``: the winning
+candidate of each file (``best``) and the (B, block_size·bucket) uint8 rows whose row
+b begins with file b's transformed bytes under that candidate, the bytes JAX's
+pipeline serializes. On one device it runs:
 
 1. the format's region kernel (``dlt_bc{1,2,3}_regions``) on the whole flat batch
    (BC4/BC5: ``deinterleave_words``, ``dlt_deinterleave_words``, and the endpoint
    rows in plain torch);
 2. each file's rows cut out at its own valid length, in plain torch;
-3. one count call (``dlt_ltu_counts_rows``) over every row of the batch, each at its
-   own valid length;
+3. one call of the estimator's ``estimate_parts_device`` over every row of the batch,
+   each at its own valid length (LTU: one ``dlt_ltu_counts_rows``; a host estimator:
+   one copy of the rows to the host and one ``estimate_batch``);
 4. the argmin per file, ties to the first candidate;
 5. the format's rows kernel (``dlt_bc{1..5}_transform_rows``,
-   :func:`..ops.cuda.shuffle.transform_rows`): each file's bytes under its winner.
+   :func:`..ops.cuda.shuffle.transform_rows`) over the candidates' distinct keys:
+   each file's bytes under its winner.
+
+Steps 1-2 are :meth:`BatchStep.regions` and 3-5 :meth:`BatchStep.finish`, so that a
+caller can score a host estimator's rows while the device runs the next batch.
 
 The region kernel writes a split row of the flat batch as ``[c0 of all B·bucket
 blocks | c1 of all]``: file b's c0 is at ``2·b·bucket … 2·(b·bucket + n_b)`` and its
@@ -37,15 +42,17 @@ c1[:2 n_b]``, not the bucket-padded pair (:func:`_put_split`); BC3's split alpha
 is the same with 1-byte lanes. BC4 and BC5 have no region kernel: their endpoint
 rows come from the deinterleaved lanes (``sharded.py:640-687``). The tail of a row
 past its valid length is never read. BC3 scores its alpha rows (``2 n_b`` valid)
-and its colour rows (``4 n_b``) in the one call, BC5 its red and green endpoint rows
-(summed per candidate, as the JAX batch step does).
+and its colour rows (``4 n_b``) in the one call. BC5 scores its red and green
+endpoint rows apart and sums them under an estimator that scores on the device, as
+the JAX batch step does, and joined (red ‖ green, ``4 n_b``) under a host estimator,
+as the per-file search and JAX's host-scored batch do.
 
-Under a mesh (:mod:`.mesh`) the same steps run per shard and the scorer counts each
-shard's chunk of the rows with its halos (``dlt_ltu_counts_windowed``); see the
-section below. JAX's gates that send other shapes to a GSPMD XLA path have no
-counterpart: the kernels take any shape, so a mesh step always runs the windowed
-kernel, also on chunks shorter than its halo and buckets that the blocks axis does
-not divide.
+Under a mesh (:mod:`.mesh`) the same steps run per shard. LTU counts each shard's
+chunk of the rows with its halos (``dlt_ltu_counts_windowed``); see the section
+below. Any other estimator scores the whole rows gathered on ``mesh.home``. JAX's
+gates that send other shapes to a GSPMD XLA path have no counterpart: the kernels
+take any shape, so a mesh step always runs the windowed kernel, also on chunks
+shorter than its halo and buckets that the blocks axis does not divide.
 """
 
 from __future__ import annotations
@@ -57,7 +64,7 @@ import torch
 from ..estimate.cuda_ltu import SPAN, device_lengths, ltu_counts_windowed
 from ..estimate.gtable import ENTROPY_CAP
 from ..estimate.ltu import (
-    DEFAULT_OFFSETS, WEIGHT_SCALE, coverage_scores, entropy_from_histograms,
+    DEFAULT_OFFSETS, WEIGHT_SCALE, LtuEstimation, entropy_from_histograms,
     offset_weight, prefix_histograms, prefix_lengths,
 )
 from ..ops import lanes
@@ -83,6 +90,9 @@ _BC4_CANDIDATES: Tuple[Tuple[bool], ...] = tuple(
 _BC5_CANDIDATES: Tuple[Tuple[bool], ...] = tuple(
     (c.split_endpoints,) for c in Bc5TransformSettings.all_combinations())
 
+# words per block
+_WORDS = {"bc1": 2, "bc2": 4, "bc3": 4, "bc4": 2, "bc5": 4}
+
 
 def _blocks(valid_lens) -> list:
     """Each file's block count from its valid length (4 bytes per block)."""
@@ -105,21 +115,11 @@ def _put_split(dst: torch.Tensor, halves: torch.Tensor, ns: Sequence[int]) -> No
         dst[b, n:2 * n] = halves[1, b, :n]
 
 
-def _scores(rows: torch.Tensor, valid: Sequence[Sequence[int]], offsets) -> torch.Tensor:
-    """(B, R, L) rows, (B, R) valid lengths -> (B, R) exact scores, in one count
-    call."""
-    B, R, L = rows.shape
-    lengths = torch.tensor(valid, dtype=torch.int64).view(B * R)
-    return coverage_scores(rows.view(B * R, L), lengths, offsets).view(B, R)
-
-
-def _colour_rows_batched(flats, ns, candidates, wpb: int, region_fn):
-    """Shared BC1/BC2 batch rows: ((B, K, 4·bucket) colour rows of the K distinct
-    candidate keys, each candidate's key index). Used by the device-scored and the
-    host-scored steps, so that the two cannot diverge."""
+def _colour_rows_batched(flats, ns, keys, wpb: int, region_fn) -> torch.Tensor:
+    """BC1/BC2 batch rows: the (B, K, 4·bucket) colour rows of the K distinct
+    candidate keys ``keys``."""
     B, W = flats.shape
     bucket = W // wpb
-    keys, index = distinct(candidates)
     region = region_fn(flats.view(torch.uint8).reshape(-1), keys)
     rows = torch.empty((B, len(keys), 4 * bucket), dtype=torch.uint8,
                        device=flats.device)
@@ -128,30 +128,7 @@ def _colour_rows_batched(flats, ns, candidates, wpb: int, region_fn):
             _put_split(rows[:, c], region[c].view(2, B, 2 * bucket), [2 * n for n in ns])
         else:
             rows[:, c] = region[c].view(B, 4 * bucket)
-    return rows, index
-
-
-def _finish(fmt: str, flats, ns, candidates, scores) -> tuple:
-    """(B, C) scores -> (rows, best): each file's first best candidate, and the
-    batch's files transformed under theirs by the format's rows kernel."""
-    best = torch.argmin(scores, dim=1)
-    return transform_rows(fmt, flats, ns, best, candidates), best
-
-
-def _bc1_batched_impl(flats, valid_lens, candidates=_BC1_CANDIDATES,
-                      offsets=DEFAULT_OFFSETS):
-    ns = _blocks(valid_lens)
-    rows, index = _colour_rows_batched(flats, ns, candidates, 2, cuda_regions.bc1_regions)
-    scores = _scores(rows, [[4 * n] * rows.shape[1] for n in ns], offsets)[:, index]
-    return _finish("bc1", flats, ns, candidates, scores)
-
-
-def _bc2_batched_impl(flats, valid_lens, candidates=_BC2_CANDIDATES,
-                      offsets=DEFAULT_OFFSETS):
-    ns = _blocks(valid_lens)
-    rows, index = _colour_rows_batched(flats, ns, candidates, 4, cuda_regions.bc2_regions)
-    scores = _scores(rows, [[4 * n] * rows.shape[1] for n in ns], offsets)[:, index]
-    return _finish("bc2", flats, ns, candidates, scores)
+    return rows
 
 
 def _bc3_keys(candidates) -> tuple:
@@ -184,18 +161,6 @@ def _bc3_rows(flats, ns, alpha_keys, colour_keys):
     return rows
 
 
-def _bc3_batched_impl(flats, valid_lens, candidates=_BC3_CANDIDATES,
-                      offsets=DEFAULT_OFFSETS):
-    ns = _blocks(valid_lens)
-    alpha_keys, colour_keys, ai, ci = _bc3_keys(candidates)
-    rows = _bc3_rows(flats, ns, alpha_keys, colour_keys)
-    A = len(alpha_keys)
-    scores = _scores(rows, [[2 * n] * A + [4 * n] * len(colour_keys) for n in ns],
-                     offsets)
-    return _finish("bc3", flats, ns, candidates,
-                   scores[:, ai] + scores[:, [A + c for c in ci]])
-
-
 def _ep_rows(ep: torch.Tensor, ns, keys) -> torch.Tensor:
     """BC4/BC5 endpoint rows (B, K, 2·bucket) of the distinct ``split_endpoints``
     keys from the u16 endpoint lane ``ep`` (B, bucket): split, the a0 bytes then the
@@ -211,49 +176,119 @@ def _ep_rows(ep: torch.Tensor, ns, keys) -> torch.Tensor:
     return rows
 
 
-def _bc4_lanes(flats):
-    w0, w1 = _words(flats, 2)
-    ep, h1 = lanes.split_u32(w0)
-    h2, h3 = lanes.split_u32(w1)
-    return ep, h1, h2, h3
+def _bc5_parts(red: torch.Tensor, green: torch.Tensor, ns, joined: bool) -> list:
+    """BC5's (B, K, 2P) red and green endpoint rows -> the rows to score: joined, one
+    (B, K, 4P) row a key, the file's red row's 2·n_b bytes then its green row's; else
+    the red rows then the green ones."""
+    K = red.shape[1]
+    if not joined:
+        return [(torch.cat([red, green], dim=1), [2] * 2 * K)]
+    rows = torch.empty((red.shape[0], K, 2 * red.shape[2]), dtype=torch.uint8,
+                       device=red.device)
+    for c in range(K):
+        _put_split(rows[:, c], torch.stack([red[:, c], green[:, c]]), [2 * n for n in ns])
+    return [(rows, [4] * K)]
 
 
-def _bc5_lanes(flats):
-    rw0, rw1, gw0, gw1 = _words(flats, 4)
-    r_ep, rh1 = lanes.split_u32(rw0)
-    rh2, rh3 = lanes.split_u32(rw1)
-    g_ep, gh1 = lanes.split_u32(gw0)
-    gh2, gh3 = lanes.split_u32(gw1)
-    return r_ep, g_ep, rh1, rh2, rh3, gh1, gh2, gh3
-
-
-def _bc4_batched_impl(flats, valid_lens, candidates=_BC4_CANDIDATES,
-                      offsets=DEFAULT_OFFSETS):
-    """BC4: each candidate scored on its endpoint stream (2 bytes a block)."""
-    ns = _blocks(valid_lens)
-    keys, index = distinct([split for split, in candidates])
-    ep, _ = lanes.split_u32(_words(flats, 2)[0])
-    rows = _ep_rows(ep, ns, keys)
-    scores = _scores(rows, [[2 * n] * len(keys) for n in ns], offsets)[:, index]
-    return _finish("bc4", flats, ns, candidates, scores)
-
-
-def _bc5_batched_impl(flats, valid_lens, candidates=_BC5_CANDIDATES,
-                      offsets=DEFAULT_OFFSETS):
-    """BC5: the red and the green endpoint rows scored apart and summed."""
-    ns = _blocks(valid_lens)
-    keys, index = distinct([split for split, in candidates])
+def _rows(fmt: str, flats, ns, keys, joined: bool) -> list:
+    """The batch's rows on its device: [(rows (B, X, L), each row's bytes a block)]."""
+    if fmt in ("bc1", "bc2"):
+        rows = _colour_rows_batched(flats, ns, keys[0], _WORDS[fmt],
+                                    getattr(cuda_regions, f"{fmt}_regions"))
+        return [(rows, [4] * len(keys[0]))]
+    if fmt == "bc3":
+        return [(_bc3_rows(flats, ns, *keys), [2] * len(keys[0]) + [4] * len(keys[1]))]
+    if fmt == "bc4":
+        ep, _ = lanes.split_u32(_words(flats, 2)[0])
+        return [(_ep_rows(ep, ns, keys[0]), [2] * len(keys[0]))]
     rw0, _, gw0, _ = _words(flats, 4)
-    rows = torch.cat([_ep_rows(lanes.split_u32(w)[0], ns, keys) for w in (rw0, gw0)],
-                     dim=1)
-    K = len(keys)
-    scores = _scores(rows, [[2 * n] * 2 * K for n in ns], offsets)
-    return _finish("bc5", flats, ns, candidates, (scores[:, :K] + scores[:, K:])[:, index])
+    red, green = (_ep_rows(lanes.split_u32(w)[0], ns, keys[0]) for w in (rw0, gw0))
+    return _bc5_parts(red, green, ns, joined)
 
 
-def _single(impl, flat, valid_len, wpb, candidates, offsets):
+def _score(estimator, parts, ns) -> torch.Tensor:
+    """(B, R) scores of the parts' rows, each at its file's length, in one
+    ``estimate_parts_device`` call; the parts' rows side by side."""
+    scores = [s.view(len(ns), -1) for s in estimator.estimate_parts_device([
+        (rows.reshape(-1, rows.shape[2]),
+         torch.tensor([u * n for n in ns for u in per_block], dtype=torch.int64))
+        for rows, per_block in parts])]
+    return scores[0] if len(scores) == 1 else torch.cat(scores, dim=1)
+
+
+class BatchStep:
+    """The BC1-BC5 batch step of ``fmt``: ``step(flats, valid_lens) -> (rows, best)``
+    over ``candidates`` (the settings' keys: (variant, split) for BC1/BC2, (variant,
+    split_alpha, split_colour) for BC3, (split,) for BC4/BC5), scored by
+    ``estimator``; with a ``mesh``, sharded over it (the batch's file count a multiple
+    of its files axis). The estimator decides the two choices the JAX package makes
+    by step: BC5's rows scored apart under one that scores on the device, joined
+    under a host one; and under a mesh, the windowed scorer for LTU, the gathered
+    rows for any other."""
+
+    def __init__(self, fmt: str, candidates, estimator, mesh=None):
+        self.fmt, self.candidates, self.estimator = fmt, tuple(candidates), estimator
+        self.mesh = None if mesh is None else mesh_lib.require(mesh)
+        self.joined = fmt == "bc5" and not estimator.scores_on_device
+        # the rows' keys, and each candidate's rows whose scores add up to its own
+        if fmt == "bc3":
+            alpha_keys, colour_keys, ai, ci = _bc3_keys(self.candidates)
+            self.keys = (alpha_keys, colour_keys)
+            self.terms = [ai, [len(alpha_keys) + c for c in ci]]
+        else:
+            keys, index = distinct(self.candidates if fmt in ("bc1", "bc2")
+                                   else [split for split, in self.candidates])
+            self.keys = (keys,)
+            self.terms = ([index, [len(keys) + k for k in index]]
+                          if fmt == "bc5" and not self.joined else [index])
+        # the rows kernel takes the distinct candidates; a pick maps to its key
+        self.distinct, index = distinct(self.candidates)
+        self._key_of = None if index == list(range(len(index))) else index
+
+    def regions(self, flats: torch.Tensor, valid_lens) -> tuple:
+        """The rows of the batch on its device -> (each file's block count, a call
+        that scores them: (B, R) scores)."""
+        ns = _blocks(valid_lens)
+        if self.mesh is None:
+            parts = _rows(self.fmt, flats, ns, self.keys, self.joined)
+            return ns, lambda: _score(self.estimator, parts, ns)
+        sh = _Shards(self.mesh, flats, ns, _WORDS[self.fmt])
+        groups = _mesh_local(sh, _LOCALS[self.fmt], self.keys)
+        if isinstance(self.estimator, LtuEstimation):
+            scores = torch.cat([sh.scores(group, self.estimator.offsets)
+                                for group in groups], dim=1)
+            return ns, lambda: scores
+        parts = [sh.rows(group) for group in groups]
+        if self.fmt == "bc5":
+            K = len(self.keys[0])
+            parts = _bc5_parts(parts[0][0][:, :K], parts[0][0][:, K:], ns, self.joined)
+        return ns, lambda: _score(self.estimator, parts, ns)
+
+    def finish(self, flats: torch.Tensor, regions: tuple) -> tuple:
+        """Score the rows of :meth:`regions`, pick each file's first least candidate
+        (``best``), and transform the batch's files under theirs by the format's rows
+        kernel -> (rows, best)."""
+        ns, score = regions
+        scores = score()
+        total = scores[:, self.terms[0]]
+        for term in self.terms[1:]:
+            total = total + scores[:, term]
+        best = torch.argmin(total, dim=1)
+        key = best if self._key_of is None else torch.tensor(
+            self._key_of, device=best.device)[best]
+        if self.mesh is not None:
+            flats = flats.to(self.mesh.home)
+        return transform_rows(self.fmt, flats, ns, key, self.distinct), best
+
+    def __call__(self, flats: torch.Tensor, valid_lens) -> tuple:
+        return self.finish(flats, self.regions(flats, valid_lens))
+
+
+def _single(fmt, flat, valid_len, candidates, offsets):
+    wpb = _WORDS[fmt]
     n = flat.shape[0] // wpb if valid_len is None else int(valid_len) // 4
-    rows, best = impl(flat.view(1, -1), [4 * n], candidates, offsets)
+    rows, best = BatchStep(fmt, candidates, LtuEstimation(offsets))(flat.view(1, -1),
+                                                                    [4 * n])
     return rows[0, :4 * wpb * n], best[0]
 
 
@@ -261,106 +296,37 @@ def bc1_auto_step_single(flat, valid_len=None, candidates=_BC1_CANDIDATES,
                          offsets=DEFAULT_OFFSETS):
     """Flat int32[2N] word image -> (the transformed bytes of the first valid_len / 4
     blocks, all by default, under the winner: uint8[8n], best)."""
-    return _single(_bc1_batched_impl, flat, valid_len, 2, candidates, offsets)
+    return _single("bc1", flat, valid_len, candidates, offsets)
 
 
 def bc2_auto_step_single(flat, valid_len=None, candidates=_BC2_CANDIDATES,
                          offsets=DEFAULT_OFFSETS):
     """Flat int32[4N] word image -> (transformed bytes uint8[16n], best)."""
-    return _single(_bc2_batched_impl, flat, valid_len, 4, candidates, offsets)
+    return _single("bc2", flat, valid_len, candidates, offsets)
 
 
 def bc3_auto_step_single(flat, valid_len=None, candidates=_BC3_CANDIDATES,
                          offsets=DEFAULT_OFFSETS):
     """Flat int32[4N] word image -> (transformed bytes uint8[16n], best)."""
-    return _single(_bc3_batched_impl, flat, valid_len, 4, candidates, offsets)
+    return _single("bc3", flat, valid_len, candidates, offsets)
 
 
 def bc4_auto_step_single(flat, valid_len=None, candidates=_BC4_CANDIDATES,
                          offsets=DEFAULT_OFFSETS):
     """Flat int32[2N] word image -> (transformed bytes uint8[8n], best)."""
-    return _single(_bc4_batched_impl, flat, valid_len, 2, candidates, offsets)
+    return _single("bc4", flat, valid_len, candidates, offsets)
 
 
 def bc5_auto_step_single(flat, valid_len=None, candidates=_BC5_CANDIDATES,
                          offsets=DEFAULT_OFFSETS):
     """Flat int32[4N] word image -> (transformed bytes uint8[16n], best)."""
-    return _single(_bc5_batched_impl, flat, valid_len, 4, candidates, offsets)
+    return _single("bc5", flat, valid_len, candidates, offsets)
 
 
-# --- host-scored batched steps (zstd presets) ----------------------------------------
-# A host estimator scores every candidate's estimation-region row, so these steps
-# return the rows and the lanes the host needs to serialize the winner from its row
-# (a candidate's region bytes are its on-disk colour, alpha or endpoint section).
-
-def _per_candidate(rows, index):
-    return rows if list(index) == list(range(rows.shape[1])) else rows[:, index]
-
-
-def _bc1_batched_regions_impl(flats, valid_lens, candidates):
-    rows, index = _colour_rows_batched(flats, _blocks(valid_lens), candidates, 2,
-                                       cuda_regions.bc1_regions)
-    return _words(flats, 2)[1], _per_candidate(rows, index)
-
-
-def _bc2_batched_regions_impl(flats, valid_lens, candidates):
-    rows, index = _colour_rows_batched(flats, _blocks(valid_lens), candidates, 4,
-                                       cuda_regions.bc2_regions)
-    a_lo, a_hi, _, idx = _words(flats, 4)
-    return a_lo, a_hi, idx, _per_candidate(rows, index)
-
-
-def _bc3_batched_regions_impl(flats, valid_lens, candidates):
-    """-> (h1, h2, h3, cidx, alpha rows of the distinct alpha keys, colour rows of
-    the distinct colour keys)."""
-    alpha_keys, colour_keys, _, _ = _bc3_keys(candidates)
-    rows = _bc3_rows(flats, _blocks(valid_lens), alpha_keys, colour_keys)
-    w0, w1, _, cidx = _words(flats, 4)
-    A, bucket = len(alpha_keys), flats.shape[1] // 4
-    _, h1 = lanes.split_u32(w0)
-    h2, h3 = lanes.split_u32(w1)
-    return h1, h2, h3, cidx, rows[:, :A, :2 * bucket], rows[:, A:]
-
-
-def _bc4_batched_regions_impl(flats, valid_lens, candidates):
-    keys, index = distinct([split for split, in candidates])
-    ep, h1, h2, h3 = _bc4_lanes(flats)
-    return h1, h2, h3, _per_candidate(_ep_rows(ep, _blocks(valid_lens), keys), index)
-
-
-def _bc5_batched_regions_impl(flats, valid_lens, candidates):
-    keys, index = distinct([split for split, in candidates])
-    r_ep, g_ep, *idx = _bc5_lanes(flats)
-    ns = _blocks(valid_lens)
-    return (*idx, _per_candidate(_ep_rows(r_ep, ns, keys), index),
-            _per_candidate(_ep_rows(g_ep, ns, keys), index))
-
-
-_BATCHED_IMPLS = {"bc1": _bc1_batched_impl, "bc2": _bc2_batched_impl,
-                  "bc3": _bc3_batched_impl, "bc4": _bc4_batched_impl,
-                  "bc5": _bc5_batched_impl}
-_BATCHED_REGIONS_IMPLS = {"bc1": _bc1_batched_regions_impl,
-                          "bc2": _bc2_batched_regions_impl,
-                          "bc3": _bc3_batched_regions_impl,
-                          "bc4": _bc4_batched_regions_impl,
-                          "bc5": _bc5_batched_regions_impl}
-
-
-def auto_step_batched(fmt: str, candidates, offsets=DEFAULT_OFFSETS):
-    """The device-scored batch step ``step(flats, valid_lens)`` of ``fmt`` (full and
-    ragged batches alike: the JAX step's ``full`` shortcut has no counterpart)."""
-    impl = _BATCHED_IMPLS[fmt]
-    return lambda flats, valid_lens: impl(flats, valid_lens, tuple(candidates), offsets)
-
-
-def auto_step_batched_regions(fmt: str, candidates, mesh=None):
-    """The host-scored batch step ``step(flats, valid_lens)`` of ``fmt``: lanes and
-    per-candidate region rows, no argmin; under a ``mesh``, the words sharded over
-    it (:func:`_mesh_regions_step`)."""
-    if mesh is not None:
-        return _mesh_regions_step(fmt, mesh, candidates)
-    impl = _BATCHED_REGIONS_IMPLS[fmt]
-    return lambda flats, valid_lens: impl(flats, valid_lens, tuple(candidates))
+def auto_step_batched(fmt: str, candidates, offsets=DEFAULT_OFFSETS) -> BatchStep:
+    """The LTU batch step ``step(flats, valid_lens)`` of ``fmt`` (full and ragged
+    batches alike: the JAX step's ``full`` shortcut has no counterpart)."""
+    return BatchStep(fmt, candidates, LtuEstimation(offsets))
 
 
 def modesort_step_single(flat: torch.Tensor, valid_len=None, fmt: str = "bc7") -> tuple:
@@ -393,8 +359,9 @@ def modesort_step_single(flat: torch.Tensor, valid_len=None, fmt: str = "bc7") -
 # launches ``dlt_ltu_counts_windowed`` once over all its rows of a width, and the
 # partial counts and the partial byte histograms of the rows' first ENTROPY_CAP bytes
 # are summed over the positions onto ``mesh.home`` (one ``all_reduce`` across ranks):
-# JAX's halo ``ppermute`` and ``psum`` (:427-473). Every output is gathered onto
-# ``mesh.home``, whole, as ``jax.device_get`` of the global arrays gives it.
+# JAX's halo ``ppermute`` and ``psum`` (:427-473). For any other estimator the rows
+# are gathered onto ``mesh.home`` whole (:meth:`_Shards.rows`) and scored there. Every
+# output is on ``mesh.home``, whole, as ``jax.device_get`` of the global arrays gives it.
 
 def _pieces(lo: int, hi: int, width: int):
     """[lo, hi) cut at the multiples of ``width``."""
@@ -524,9 +491,9 @@ class _Shards:
                             (f, s), windows, (Ellipsis, slice(at + a, at + b))))
         return moves
 
-    def rows(self, group) -> torch.Tensor:
-        """A row group's whole rows, (B, labels, U·blocks) on home, by label (the
-        host-scored steps' region rows)."""
+    def rows(self, group) -> tuple:
+        """A row group's whole rows on home, by label, for an estimator that scores
+        whole rows: ((B, labels, U·blocks) rows, each row's bytes a block)."""
         blocks, labels = group
         mesh, some = self.mesh, next(iter(blocks.values()))
         per_block = sum(u for _, u in some[0])
@@ -536,7 +503,8 @@ class _Shards:
         for moves in self.chunk_moves(blocks, chunks.__getitem__):
             mesh.run(moves)
         rows = mesh.gather(chunks, 2)[:, :, :per_block * self.n_blocks]
-        return rows[:, [labels.index(c) for c in range(len(labels))]]
+        return (rows[:, [labels.index(c) for c in range(len(labels))]],
+                [per_block] * len(labels))
 
     def scores(self, group, offsets) -> torch.Tensor:
         """A row group's (B, labels) exact scores on home, by label: each position's
@@ -582,127 +550,59 @@ def _splits(keys) -> list:
     return [split for _, split in keys]
 
 
-def _colour_local(fmt: str, wpb: int):
-    """BC1/BC2 shard: (its lanes when asked, [the colour rows of the distinct keys])."""
-    def local(x, bl, keys, want_lanes):
+def _colour_local(fmt: str):
+    """BC1/BC2 shard: [the colour rows of the distinct keys]."""
+    def local(x, bl, keys):
         region = getattr(cuda_regions, f"{fmt}_regions")(x.view(torch.uint8).reshape(-1),
                                                          keys[0])
-        return (_words(x, wpb) if want_lanes else None,
-                [_split_rows(region, _splits(keys[0]), bl, 4)])
+        return [_split_rows(region, _splits(keys[0]), bl, 4)]
     return local
 
 
-def _bc3_local(x, bl, keys, want_lanes):
-    alpha_keys, colour_keys = keys[:2]
+def _bc3_local(x, bl, keys):
+    alpha_keys, colour_keys = keys
     alpha, colour = cuda_regions.bc3_regions(x.view(torch.uint8).reshape(-1), alpha_keys,
                                              colour_keys)
-    return (_words(x, 4) if want_lanes else None,
-            [_split_rows(alpha, alpha_keys, bl, 2),
-             _split_rows(colour, _splits(colour_keys), bl, 4)])
+    return [_split_rows(alpha, alpha_keys, bl, 2),
+            _split_rows(colour, _splits(colour_keys), bl, 4)]
 
 
-def _bc4_local(x, bl, keys, want_lanes):
-    out = _bc4_lanes(x)
-    return out, [_split_rows(_ep_region(out[0], keys[0]), keys[0], bl, 2)]
+def _bc4_local(x, bl, keys):
+    ep, _ = lanes.split_u32(_words(x, 2)[0])
+    return [_split_rows(_ep_region(ep, keys[0]), keys[0], bl, 2)]
 
 
-def _bc5_local(x, bl, keys, want_lanes):
+def _bc5_local(x, bl, keys):
     """The red then the green endpoint rows, in one group: labels K.. are green."""
-    out = _bc5_lanes(x)
-    red, red_order = _split_rows(_ep_region(out[0], keys[0]), keys[0], bl, 2)
-    green, green_order = _split_rows(_ep_region(out[1], keys[0]), keys[0], bl, 2)
+    rw0, _, gw0, _ = _words(x, 4)
+    red, red_order = _split_rows(_ep_region(lanes.split_u32(rw0)[0], keys[0]), keys[0],
+                                 bl, 2)
+    green, green_order = _split_rows(_ep_region(lanes.split_u32(gw0)[0], keys[0]),
+                                     keys[0], bl, 2)
     k = len(keys[0])
-    return out, [(red + green, red_order + [k + c for c in green_order])]
+    return [(red + green, red_order + [k + c for c in green_order])]
 
 
-def _bc3_aux(out):
-    w0, w1, _, cidx = out
-    _, h1 = lanes.split_u32(w0)
-    h2, h3 = lanes.split_u32(w1)
-    return h1, h2, h3, cidx
+# per format: a shard's row groups, in the order of the one-device rows
+_LOCALS = {"bc1": _colour_local("bc1"), "bc2": _colour_local("bc2"), "bc3": _bc3_local,
+           "bc4": _bc4_local, "bc5": _bc5_local}
 
 
-def _bc5_pick(scores, keys):
-    k = len(keys[0])
-    return (scores[0][:, :k] + scores[0][:, k:])[:, keys[1]]
+def _mesh_local(sh: _Shards, local, keys) -> list:
+    """The row groups of every position: [(row blocks by position, labels)]."""
+    out = {pos: local(x, sh.bl, keys) for pos, x in sh.words.items()}
+    some = next(iter(out.values()))
+    return [({pos: o[g][0] for pos, o in out.items()}, labels)
+            for g, (_, labels) in enumerate(some)]
 
 
-def _distinct_splits(candidates) -> tuple:
-    return distinct([split for split, in candidates])
-
-
-# per format: words per block, the candidates' keys, a shard's lanes and row groups,
-# the candidate scores from the groups' scores; host-scored: which lanes go back, and
-# the region rows from the groups' rows
-_MESH_FORMATS = {
-    "bc1": dict(words=2, keys=distinct, local=_colour_local("bc1", 2),
-                pick=lambda sc, keys: sc[0][:, keys[1]], aux=lambda out: out[1:],
-                rows=lambda rows, keys: [_per_candidate(rows[0], keys[1])]),
-    "bc2": dict(words=4, keys=distinct, local=_colour_local("bc2", 4),
-                pick=lambda sc, keys: sc[0][:, keys[1]],
-                aux=lambda out: (out[0], out[1], out[3]),
-                rows=lambda rows, keys: [_per_candidate(rows[0], keys[1])]),
-    "bc3": dict(words=4, keys=_bc3_keys, local=_bc3_local,
-                pick=lambda sc, keys: sc[0][:, keys[2]] + sc[1][:, keys[3]],
-                aux=_bc3_aux, rows=lambda rows, keys: rows),
-    "bc4": dict(words=2, keys=_distinct_splits, local=_bc4_local,
-                pick=lambda sc, keys: sc[0][:, keys[1]], aux=lambda out: out[1:],
-                rows=lambda rows, keys: [_per_candidate(rows[0], keys[1])]),
-    "bc5": dict(words=4, keys=_distinct_splits, local=_bc5_local, pick=_bc5_pick,
-                aux=lambda out: out[2:],
-                rows=lambda rows, keys: [
-                    _per_candidate(rows[0][:, :len(keys[0])], keys[1]),
-                    _per_candidate(rows[0][:, len(keys[0]):], keys[1])]),
-}
-
-
-def _mesh_local(sh: _Shards, spec, keys, want_lanes: bool) -> tuple:
-    """Each position's lanes (when asked; BC4/BC5 always), and the row groups:
-    [(row blocks by position, labels)]."""
-    out = {pos: spec["local"](x, sh.bl, keys, want_lanes) for pos, x in sh.words.items()}
-    some = next(iter(out.values()))[1]
-    return ({pos: o[0] for pos, o in out.items()},
-            [({pos: o[1][g][0] for pos, o in out.items()}, labels)
-             for g, (_, labels) in enumerate(some)])
-
-
-def auto_step(fmt: str, mesh, candidates, offsets=DEFAULT_OFFSETS):
-    """The device-scored batch step ``step(flats, valid_lens)`` of ``fmt`` under a
-    mesh: what :func:`auto_step_batched` returns, as tensors on ``mesh.home``. The
-    scores come from the shards; the format's rows kernel then transforms the batch
-    on ``mesh.home`` (each rank holds the whole batch). The batch's file count must
-    be a multiple of the files axis."""
-    mesh_lib.require(mesh)
-    spec, candidates = _MESH_FORMATS[fmt], tuple(candidates)
-
-    def step(flats, valid_lens):
-        ns = _blocks(valid_lens)
-        sh = _Shards(mesh, flats, ns, spec["words"])
-        keys = spec["keys"](candidates)
-        _, groups = _mesh_local(sh, spec, keys, False)
-        scores = spec["pick"]([sh.scores(group, offsets) for group in groups], keys)
-        return _finish(fmt, flats.to(mesh.home), ns, candidates, scores)
-
-    return step
-
-
-def _mesh_regions_step(fmt: str, mesh, candidates):
-    """The host-scored batch step of ``fmt`` under a mesh: what
-    :func:`auto_step_batched_regions` returns without one, on ``mesh.home``."""
-    mesh_lib.require(mesh)
-    spec, candidates = _MESH_FORMATS[fmt], tuple(candidates)
-
-    def step(flats, valid_lens):
-        sh = _Shards(mesh, flats, _blocks(valid_lens), spec["words"])
-        keys = spec["keys"](candidates)
-        lanes_of, groups = _mesh_local(sh, spec, keys, True)
-        aux = {pos: spec["aux"](out) for pos, out in lanes_of.items()}
-        width = len(next(iter(aux.values())))
-        return (*(sh.gather({pos: out[i] for pos, out in aux.items()})
-                  for i in range(width)),
-                *spec["rows"]([sh.rows(group) for group in groups], keys))
-
-    return step
+def auto_step(fmt: str, mesh, candidates, offsets=DEFAULT_OFFSETS) -> BatchStep:
+    """The LTU batch step ``step(flats, valid_lens)`` of ``fmt`` under a mesh: what
+    :func:`auto_step_batched` returns, as tensors on ``mesh.home``. The scores come
+    from the shards; the format's rows kernel then transforms the batch on
+    ``mesh.home`` (each rank holds the whole batch). The batch's file count must be
+    a multiple of the files axis."""
+    return BatchStep(fmt, candidates, LtuEstimation(offsets), mesh)
 
 
 def bc1_auto_step(mesh, candidates=_BC1_CANDIDATES, offsets=DEFAULT_OFFSETS):

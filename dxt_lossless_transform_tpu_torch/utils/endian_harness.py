@@ -18,9 +18,9 @@ runs under the simulation. For each format, settings combination and payload:
      payload slicing all go through the endian layer).
 
 The batch leg runs a few payloads of each of BC1-BC5 through
-:class:`..parallel.BatchProcessor`, device-scored and host-scored (the pipeline's
-serializers), and :class:`..parallel.UntransformBatchProcessor` on both hosts and
-compares the bytes and settings.
+:class:`..parallel.BatchProcessor`, scored by LTU on the device and by zstd-1 on the
+host, and :class:`..parallel.UntransformBatchProcessor` on both hosts and compares
+the bytes and settings.
 
 What the simulation cannot reach is listed in :mod:`..endian`: the kernels see
 ``uint8`` bytes on a little-endian card, the plain versions' ``int32`` views of CPU
@@ -167,10 +167,9 @@ BATCH_FORMATS = ("bc1", "bc2", "bc3", "bc4", "bc5")
 
 
 def _batch_roundtrip(fmt: str, payloads: list, report: EndianReport, dev) -> None:
-    """``payloads`` through the batch processors on both hosts, device-scored (the
-    card writes the bytes) and host-scored by zstd-1 (the host serializes the
-    winner's lanes): the same bytes and settings, and each host restores the
-    other's."""
+    """``payloads`` through the batch processors on both hosts, scored by LTU on the
+    device and by zstd-1 on the host (the card writes the bytes under either): the
+    same bytes and settings, and each host restores the other's."""
     from ..estimate.zstd import ZstdEstimation
     from ..parallel import BatchProcessor, UntransformBatchProcessor
 

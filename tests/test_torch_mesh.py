@@ -3,10 +3,11 @@
 package: ``make_mesh`` shapes; the sharded BC1-BC5 steps under ``(1, 8)``, ``(1, 4)``
 and ``(3, 2)`` meshes of CPU devices against JAX's single-file steps, file by file,
 with ragged valid lengths and chunks shorter and longer than the scorer's SPAN-byte
-halo; BC1 against JAX's own mesh step under its ``make_mesh(8)``; the host-scored
-steps; the mode-sort and untransform steps against JAX's under ``make_mesh(8)``.
-``BatchProcessor`` under a mesh is in ``test_torch_mesh_pipeline.py``. Inputs come
-from numpy seeds; every comparison is exact."""
+halo; BC1 against JAX's own mesh step under its ``make_mesh(8)``; the zstd-scored
+step against its single-device self; the mode-sort and untransform steps against
+JAX's under ``make_mesh(8)``. ``BatchProcessor`` under a mesh is in
+``test_torch_mesh_pipeline.py``. Inputs come from numpy seeds; every comparison is
+exact."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ from dxt_lossless_transform_tpu.settings import (
 from dxt_lossless_transform_tpu.utils import testgen
 from dxt_lossless_transform_tpu_torch import backend, convert
 from dxt_lossless_transform_tpu_torch.errors import DeviceUnavailableError
+from dxt_lossless_transform_tpu_torch.estimate.zstd import ZstdEstimation
 from dxt_lossless_transform_tpu_torch.parallel import (
     Mesh, make_mesh, modesort_transform_step, sharded, untransform_step,
 )
@@ -135,26 +137,25 @@ def test_bc1_matches_jax_mesh_step():
 @pytest.mark.parametrize("mesh_name", ["1x8", "3x2"])
 @pytest.mark.parametrize("fmt", list(WORDS))
 def test_regions_step_under_a_mesh_matches_one_device(fmt, mesh_name):
-    """Host-scored: the lanes equal, and each region row's valid prefix (the bytes
-    the host reads) equals the single-device step's, itself held to JAX in
-    ``test_torch_pipeline_host.py``."""
+    """zstd-scored: the picks and each file's transformed bytes equal the
+    single-device step's, itself held to JAX in ``test_torch_pipeline_host.py``.
+    Ragged files in a bucket that the blocks axis does not divide."""
     mesh = _mesh(mesh_name)
     wpb, B, bucket = WORDS[fmt], 2 * mesh.shape["files"], 2049
     rng = np.random.default_rng(3)
-    flats = torch.from_numpy(rng.integers(-2**31, 2**31, (B, wpb * bucket), dtype=np.int32))
-    valid = [4 * int(n) for n in rng.integers(1, bucket + 1, B)]
+    ns = [int(n) for n in rng.integers(1, bucket + 1, B)]
+    flats = np.zeros((B, wpb * bucket), np.uint32)
+    for b, n in enumerate(ns):
+        flats[b, :wpb * n] = np.frombuffer(_payload(fmt, n, seed=b + 40), "<u4")
+    flats = torch.from_numpy(flats.view(np.int32))
+    valid = [4 * n for n in ns]
     keys = getattr(sharded, f"_{fmt.upper()}_CANDIDATES")
-    got = sharded.auto_step_batched_regions(fmt, keys, mesh)(flats, valid)
-    want = sharded.auto_step_batched_regions(fmt, keys)(flats, valid)
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and g.dtype == w.dtype
-        if g.dim() == 3:  # rows of (bytes per block) x bucket
-            per_block = g.shape[2] // bucket
-            for b, v in enumerate(valid):
-                assert torch.equal(g[b, :, :per_block * v // 4], w[b, :, :per_block * v // 4])
-        else:
-            assert torch.equal(g, w)
+    got_rows, got_best = sharded.BatchStep(fmt, keys, ZstdEstimation(1), mesh)(flats, valid)
+    want_rows, want_best = sharded.BatchStep(fmt, keys, ZstdEstimation(1))(flats, valid)
+    assert got_rows.shape == want_rows.shape and got_rows.dtype == torch.uint8
+    assert torch.equal(got_best, want_best)
+    for b, n in enumerate(ns):
+        assert torch.equal(got_rows[b, :BLOCK_SIZE[fmt] * n], want_rows[b, :BLOCK_SIZE[fmt] * n])
 
 
 @pytest.mark.parametrize("fmt", ["bc7", "bc6h"])

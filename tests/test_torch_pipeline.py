@@ -4,21 +4,30 @@ against the JAX package's ``BatchProcessor(fmt, mesh=None)``.
 Payloads come from the generators with numpy seeds, at the JAX package's own batch
 test sizes (``tests/test_parallel.py``): 64, 100, 2048, 2049, 3000 and 5000 blocks
 (ragged files in three buckets), ``max_batch`` below the file count, one empty
-payload. Settings and bytes must be equal (exact)."""
+payload. Settings and bytes must be equal (exact). Candidate lists longer than the
+rows kernel's 16, with repeats, are held to JAX under both estimators, on one device
+and under a mesh."""
+
+import itertools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from dxt_lossless_transform_tpu import settings as jax_settings
+from dxt_lossless_transform_tpu.estimate import ZstdEstimation as JaxZstd
 from dxt_lossless_transform_tpu.parallel import pipeline as jax_pipeline
 from dxt_lossless_transform_tpu.parallel import sharded as jax_sharded
 from dxt_lossless_transform_tpu.utils import testgen
 from dxt_lossless_transform_tpu_torch import backend, convert
 from dxt_lossless_transform_tpu_torch.estimate.ltu import LtuEstimation
+from dxt_lossless_transform_tpu_torch.estimate.zstd import ZstdEstimation
 from dxt_lossless_transform_tpu_torch.ops import auto, bc45
+from dxt_lossless_transform_tpu_torch.ops.cuda import shuffle
 from dxt_lossless_transform_tpu_torch.parallel import (
-    BatchProcessor, Bc1BatchProcessor, UntransformBatchProcessor, sharded,
+    BatchProcessor, Bc1BatchProcessor, UntransformBatchProcessor, make_mesh, sharded,
     transform_corpus_bc1,
 )
 from dxt_lossless_transform_tpu_torch.parallel import pipeline
@@ -79,14 +88,52 @@ def test_bc5_sums_red_and_green_scores_as_jax_does():
 @pytest.mark.parametrize("make", [
     lambda: BatchProcessor("bc1", mesh="mesh", device="cpu"),
     lambda: Bc1BatchProcessor(mesh=object(), device="cpu"),
-    lambda: sharded.auto_step_batched_regions("bc2", sharded._BC2_CANDIDATES,
-                                              mesh="mesh"),
+    lambda: sharded.BatchStep("bc2", sharded._BC2_CANDIDATES, ZstdEstimation(1),
+                              mesh="mesh"),
     lambda: transform_corpus_bc1([b""], mesh="mesh", device="cpu"),
 ], ids=["processor", "bc1-processor", "regions-step", "corpus"])
 def test_a_mesh_raises(make):
     """A mesh that is not a ``Mesh`` (``make_mesh``) raises ``TypeError``."""
     with pytest.raises(TypeError, match="expected a Mesh"):
         make()
+
+
+# more candidates than the rows kernel's 16, repeated, and starting off the FAST
+# list's order so that a pick is not its distinct key's index
+MANY = {"bc1": 17, "bc3": 20}
+_JAX_MANY: dict = {}
+
+
+def many(fmt: str) -> tuple:
+    fast = pipeline._FORMATS[fmt]["candidates"]
+    return tuple(itertools.islice(itertools.cycle(fast[1:] + fast), MANY[fmt]))
+
+
+def jax_many(fmt: str, scorer: str, data) -> list:
+    """JAX's ``BatchProcessor`` over :func:`many` on ``data``, once per format and
+    estimator."""
+    if (fmt, scorer) not in _JAX_MANY:
+        _JAX_MANY[fmt, scorer] = jax_pipeline.BatchProcessor(
+            fmt, mesh=None, max_batch=2,
+            candidates=[convert.to_reference(c, jax_settings) for c in many(fmt)],
+            estimator=None if scorer == "ltu" else JaxZstd(1)).process(data)
+    return _JAX_MANY[fmt, scorer]
+
+
+@pytest.mark.parametrize("meshed", [False, True], ids=["one-device", "mesh-3x2"])
+@pytest.mark.parametrize("scorer", ["ltu", "zstd1"])
+@pytest.mark.parametrize("fmt", ["bc1", "bc3"])
+def test_more_candidates_than_the_rows_kernel_takes(fmt, scorer, meshed):
+    """17 or 20 candidates with repeats: the rows kernel gets their distinct keys,
+    and the picks and bytes are JAX's."""
+    data = payloads(fmt, (64, 600, 2049))
+    want = jax_many(fmt, scorer, data)
+    mesh = make_mesh(devices=[torch.device("cpu")] * 6) if meshed else None
+    proc = BatchProcessor(fmt, mesh=mesh, candidates=many(fmt), max_batch=2,
+                          estimator=None if scorer == "ltu" else ZstdEstimation(1),
+                          device="cpu")
+    assert len(proc.candidates) > shuffle.MAX_ROW_CANDIDATES
+    same(want, proc.process(data))
 
 
 def test_unaligned_payload_raises_value_error():

@@ -1,10 +1,10 @@
 """The port's batched steps (``parallel/sharded.py``; plain versions on the CPU)
 against the JAX package's (``dxt_lossless_transform_tpu/parallel/sharded.py``): the
 single-file steps, the BC1 batch step against the JAX words path (its Pallas
-deinterleave and region kernels in interpret mode), and the host-scored steps'
-region rows, with ragged files. Inputs are payloads from the generators with numpy
-seeds, or random words; picks, lanes and row bytes must be equal (exact). The
-device-scored steps return each file's transformed bytes, which must equal what the
+deinterleave and region kernels in interpret mode), and the batch step's region
+rows against the JAX host-scored step's, with ragged files. Inputs are payloads from
+the generators with numpy seeds, or random words; picks and row bytes must be equal
+(exact). The steps return each file's transformed bytes, which must equal what the
 JAX pipeline serializes from its step's lanes."""
 
 import jax
@@ -15,6 +15,7 @@ import torch
 
 from dxt_lossless_transform_tpu.parallel import sharded as jax_sharded
 from dxt_lossless_transform_tpu.utils import testgen
+from dxt_lossless_transform_tpu_torch.estimate.zstd import ZstdEstimation
 from dxt_lossless_transform_tpu_torch.parallel import sharded
 
 from jax_batch_bytes import jax_bytes
@@ -54,7 +55,8 @@ def test_bc1_batched_impl_matches_jax_words_path(monkeypatch):
     want = jax.device_get(jax_sharded._bc1_batched_impl(
         jnp.asarray(flats), jnp.asarray(valid, jnp.int32), jax_sharded._BC1_CANDIDATES,
         jax_sharded.DEFAULT_OFFSETS, allow_pallas=True))
-    rows, best = sharded._bc1_batched_impl(torch.from_numpy(flats.view(np.int32)), valid)
+    rows, best = sharded.auto_step_batched("bc1", sharded._BC1_CANDIDATES)(
+        torch.from_numpy(flats.view(np.int32)), valid)
     np.testing.assert_array_equal(best.numpy(), np.asarray(want[-1]))
     for b, v in enumerate(valid):
         assert rows[b, :8 * (v // 4)].numpy().tobytes() == jax_bytes(
@@ -63,8 +65,9 @@ def test_bc1_batched_impl_matches_jax_words_path(monkeypatch):
 
 @pytest.mark.parametrize("fmt", ["bc1", "bc3", "bc4"])
 def test_region_rows_match_jax(fmt):
-    """The host-scored step's rows: each candidate's region, cut at each file's own
-    length, equals the JAX step's row prefix byte for byte."""
+    """The zstd-scored step's rows: each candidate's region, cut at each file's own
+    length, equals the JAX host-scored step's row prefix byte for byte (JAX's rows
+    are one a candidate for BC1 and BC4, the port's one a distinct key)."""
     wpb = {"bc1": 2, "bc3": 4, "bc4": 2}[fmt]
     data = payloads(fmt, (2048, 100, 1999))
     flats = np.zeros((len(data), wpb * 2048), np.uint32)
@@ -75,19 +78,22 @@ def test_region_rows_match_jax(fmt):
     cand = getattr(jax_sharded, f"_{fmt.upper()}_CANDIDATES")
     want = jax.device_get(jax_sharded._BATCHED_REGIONS_IMPLS[fmt](
         jnp.asarray(flats), jnp.asarray(valid, jnp.int32), cand, allow_pallas=False))
-    got = sharded._BATCHED_REGIONS_IMPLS[fmt](torch.from_numpy(flats.view(np.int32)),
-                                              valid, cand)
-    region_bytes = {"bc1": [4], "bc3": [2, 4], "bc4": [2]}[fmt]
-    rows_at = len(got) - len(region_bytes)
-    for g, w in zip(got[:rows_at], want[:rows_at]):  # the lanes
-        np.testing.assert_array_equal(g.numpy().astype(np.int64) & 0xFFFFFFFF,
-                                      np.asarray(w).astype(np.int64))
-    for bpb, g, w in zip(region_bytes, got[rows_at:], want[rows_at:]):
-        w = np.asarray(w)
-        assert g.shape[:2] == w.shape[:2]
+    step = sharded.BatchStep(fmt, cand, ZstdEstimation(1))
+    (got, per_block), = sharded._rows(fmt, torch.from_numpy(flats.view(np.int32)),
+                                      [v // 4 for v in valid], step.keys, step.joined)
+    if fmt == "bc3":  # JAX's distinct alpha rows, then its distinct colour rows
+        alpha, colour = (np.asarray(w) for w in want[-2:])
+        pairs = [(a, alpha[:, a]) for a in range(alpha.shape[1])] + [
+            (alpha.shape[1] + k, colour[:, k]) for k in range(colour.shape[1])]
+        assert got.shape[1] == alpha.shape[1] + colour.shape[1]
+    else:  # JAX's row of each candidate is the port's row of its key
+        rows = np.asarray(want[-1])
+        pairs = [(r, rows[:, c]) for c, r in enumerate(step.terms[0])]
+        assert rows.shape[1] == len(cand) and got.shape[1] == len(set(step.terms[0]))
+    for r, w in pairs:
         for b, v in enumerate(valid):
-            n = bpb * v // 4
-            np.testing.assert_array_equal(g[b, :, :n].numpy(), w[b, :, :n])
+            n = per_block[r] * v // 4
+            np.testing.assert_array_equal(got[b, r, :n].numpy(), w[b, :n])
 
 
 @pytest.mark.parametrize("fmt", ["bc7", "bc6h"])

@@ -96,15 +96,15 @@ def test_batch_ships_no_padding(fmt, monkeypatch):
 @pytest.mark.parametrize("mode", ["device", "host"])
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_files_device_bytes_counts_the_files_the_rows_form_wrote(fmt, mode):
-    """Device-scored: the call's non-empty files, under a mesh too (its padding
-    copies not counted); host-scored: 0."""
+    """The call's non-empty files, device- and host-scored, under a mesh too (its
+    padding copies not counted)."""
     bs = BLOCK_SIZE[fmt]
     data = [testgen.bc_blocks(n, bs, seed=n) for n in (5, 2049, 1, 700)] + [b"", b""]
     estimator = None if mode == "device" else ZstdEstimation(1)
     backend.reset_counters()
     BatchProcessor(fmt, max_batch=3, device="cpu", estimator=estimator).process(data)
-    assert backend.counters()["batch.files_device_bytes"] == (4 if mode == "device" else 0)
+    assert backend.counters()["batch.files_device_bytes"] == 4
     backend.reset_counters()
     BatchProcessor(fmt, mesh=make_mesh(devices=[torch.device("cpu")] * 6), max_batch=3,
                    estimator=estimator).process(data)
-    assert backend.counters()["batch.files_device_bytes"] == (4 if mode == "device" else 0)
+    assert backend.counters()["batch.files_device_bytes"] == 4
