@@ -24,7 +24,9 @@ Beside it, :func:`count` adds to the program's other counters, always on and und
 the same lock: ``batch.blocks_real`` and ``batch.blocks_launched`` (the payloads'
 blocks and the bucket-padded rows that ``BatchProcessor`` launched), and
 ``batch.files_device_bytes`` (the files whose shipped bytes the card wrote: the
-device-scored ``BatchProcessor``'s non-empty files).
+device-scored ``BatchProcessor``'s non-empty files), and the host copier's
+``batch.copy_bytes_parallel``, ``batch.copy_bytes_serial`` and ``batch.copy_threads``
+(:mod:`.parallel.host_copy`; the last is set, by :func:`set_count`, not summed).
 :func:`counters` snapshots them as plain ints, with ``pinned_pool_growths``, the
 times PyTorch's pinned-memory pool grew (``num_host_alloc`` of its host allocator's
 statistics, read at the snapshot).
@@ -118,8 +120,10 @@ LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 #: The program's counters since the last :func:`reset_counters`; read :func:`counters`.
 COUNTS = dict.fromkeys(("batch.blocks_real", "batch.blocks_launched",
-                        "batch.files_device_bytes", "zstd.buffers", "zstd.bytes",
-                        "zstd.contexts", "zstd.worker_us", "auto.payload_bytes"), 0)
+                        "batch.files_device_bytes", "batch.copy_bytes_parallel",
+                        "batch.copy_bytes_serial", "batch.copy_threads", "zstd.buffers",
+                        "zstd.bytes", "zstd.contexts", "zstd.worker_us",
+                        "auto.payload_bytes"), 0)
 
 _lib: Optional[ctypes.CDLL] = None
 # held across the check, the build and the load of the library
@@ -244,6 +248,12 @@ def count(name: str, n: int) -> None:
     """Add ``n`` to counter ``name``."""
     with _launch_lock:
         COUNTS[name] += n
+
+
+def set_count(name: str, n: int) -> None:
+    """Set counter ``name`` to ``n``: a width, the last value seen."""
+    with _launch_lock:
+        COUNTS[name] = n
 
 
 def counters() -> dict:

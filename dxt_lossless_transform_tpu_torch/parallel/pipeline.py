@@ -12,7 +12,9 @@ payload and estimator, in settings and bytes, and the JAX package's batch pipeli
   scores them (LTU on the device, the CLI's ``medium`` preset, the JAX scorer's exact
   integer twin; ``ZstdEstimation(1)`` on the host, the ``optimal``/``max`` presets),
   the device writes each file's final transformed bytes under its winner, and the
-  host copies each file's slice out.
+  host copies each file's slice out. The host's two copies of a batch, the payloads
+  into their pinned rows and the rows out into each file's ``bytes``, are one call
+  each of the parallel copier (:mod:`.host_copy`).
 - :class:`ModeSortBatchProcessor` (BC7/BC6H) and :class:`RgbBatchProcessor`: every
   file's candidate streams scored in one count call per batch.
 - :class:`UntransformBatchProcessor`, the batched load path: BC1-BC5 files grouped
@@ -60,7 +62,7 @@ from ..settings import (
     BC6H_FAST_CANDIDATES, BC7_FAST_CANDIDATES, RGB_FAST_CANDIDATES,
     Bc4TransformSettings, Bc5TransformSettings,
 )
-from . import mesh as mesh_lib, sharded
+from . import host_copy, mesh as mesh_lib, sharded
 
 
 @dataclass
@@ -153,9 +155,10 @@ class BatchProcessor:
         self.batches = 0
 
     def _prepare_batches(self, payloads: Sequence[bytes], order):
-        """Bucket payloads into (chunk, host flats, valid lengths) batches; under a
-        mesh a batch is padded to a multiple of the files axis with copies of its
-        last file. Counts each batch's real and launched blocks."""
+        """Bucket payloads into (chunk, host flats, valid lengths) batches: the host
+        copier lays each payload into its row and zeroes the row's tail, in one call
+        a batch. Under a mesh a batch is padded to a multiple of the files axis with
+        copies of its last file. Counts each batch's real and launched blocks."""
         bs, wpb = self.cfg["block_size"], self.cfg["words"]
         files = 1 if self.mesh is None else self.mesh.shape["files"]
         by_bucket: dict = {}
@@ -172,20 +175,16 @@ class BatchProcessor:
             for start in range(0, len(indices), self.max_batch):
                 chunk = indices[start:start + self.max_batch]
                 padded = -(-len(chunk) // files) * files
+                laid = chunk + chunk[-1:] * (padded - len(chunk))  # each row's file
                 with self.times("assemble"):
                     flats = backend.host_buffer((padded, wpb * bucket), torch.int32,
                                                 self.device)
                     # the payloads' bytes as they are: the card reads them as
                     # little-endian words, so nothing is reinterpreted on the host
                     host = flats.numpy().view(np.uint8)
-                    valid = []
-                    for row, idx in enumerate(chunk):
-                        size = len(payloads[idx])
-                        host[row, :size] = np.frombuffer(payloads[idx], np.uint8)
-                        host[row, size:] = 0
-                        valid.append(4 * (size // bs))
-                    host[len(chunk):] = host[len(chunk) - 1]
-                    valid += valid[-1:] * (padded - len(chunk))
+                    host_copy.copy([(host[row], payloads[idx], len(payloads[idx]),
+                                     host.shape[1]) for row, idx in enumerate(laid)])
+                    valid = [4 * (len(payloads[idx]) // bs) for idx in laid]
                 backend.count("batch.blocks_real",
                               sum(len(payloads[i]) for i in chunk) // bs)
                 backend.count("batch.blocks_launched", padded * bucket)
@@ -221,9 +220,10 @@ class BatchProcessor:
         return [r for r in order if r is not None]
 
     def _serialize(self, payloads, order, chunk, launched) -> None:
-        """The card wrote each file's transformed bytes at the start of its row: one
-        slice copy a file. A host estimator scores the batch's rows first, and the
-        rows kernel's launch and the download are queued behind its scores."""
+        """The card wrote each file's transformed bytes at the start of its row: the
+        host copier fills a new ``bytes`` a file from them in one call. A host
+        estimator scores the batch's rows first, and the rows kernel's launch and the
+        download are queued behind its scores."""
         if not self.estimator.scores_on_device:
             with self.times("score"):
                 outs = self._step.finish(*launched)
@@ -232,10 +232,11 @@ class BatchProcessor:
         with self.times("d2h"):
             rows, best = launched.wait()
         with self.times("serialize"):
-            for row, (file_idx, pick) in enumerate(zip(chunk, best.tolist())):
-                order[file_idx] = BatchResult(
-                    file_idx, rows[row, :len(payloads[file_idx])].tobytes(),
-                    self.candidates[pick])
+            outs = [host_copy.new_bytes(len(payloads[i])) for i in chunk]
+            host_copy.copy([(out, rows[row], len(out), len(out))
+                            for row, out in enumerate(outs)])
+            for file_idx, out, pick in zip(chunk, outs, best.tolist()):
+                order[file_idx] = BatchResult(file_idx, out, self.candidates[pick])
         backend.count("batch.files_device_bytes", len(chunk))
 
 

@@ -6,7 +6,9 @@ test sizes (``tests/test_parallel.py``): 64, 100, 2048, 2049, 3000 and 5000 bloc
 (ragged files in three buckets), ``max_batch`` below the file count, one empty
 payload. Settings and bytes must be equal (exact). Candidate lists longer than the
 rows kernel's 16, with repeats, are held to JAX under both estimators, on one device
-and under a mesh."""
+and under a mesh. The batch's host copies (``parallel/host_copy.py``), on a pool and on
+the calling thread, are held to the per-file search, to the mesh's repeated rows, to
+their counters, and to results that outlive the next call's staging."""
 
 import itertools
 
@@ -30,7 +32,7 @@ from dxt_lossless_transform_tpu_torch.parallel import (
     BatchProcessor, Bc1BatchProcessor, UntransformBatchProcessor, make_mesh, sharded,
     transform_corpus_bc1,
 )
-from dxt_lossless_transform_tpu_torch.parallel import pipeline
+from dxt_lossless_transform_tpu_torch.parallel import host_copy, pipeline
 
 BLOCK_SIZE = {"bc1": 8, "bc2": 16, "bc3": 16, "bc4": 8, "bc5": 16}
 SIZES = (64, 100, 2048, 2049, 3000, 5000)
@@ -157,3 +159,111 @@ def test_stage_times_are_kept_when_asked():
     proc.process(payloads("bc1", (100,)))
     assert set(proc.times.seconds) == {"assemble", "h2d", "device", "d2h", "serialize"}
     assert BatchProcessor("bc1", device="cpu").times.seconds == {}
+
+
+# --- the host copier's two calls a batch (``parallel/host_copy.py``) --------------------
+
+COPY_SIZES = (64, 100, 700, 2049)
+
+
+@pytest.fixture(scope="module")
+def four():
+    pool = host_copy.CopyPool(4)
+    yield pool
+    pool.close()
+
+
+@pytest.fixture
+def copies_on(monkeypatch, four):
+    """Every copy on a pool of four threads, or every copy on the calling thread."""
+    def on(copies: str) -> None:
+        monkeypatch.setattr(host_copy, "_pool", four)
+        monkeypatch.setattr(host_copy, "SERIAL_BYTES",
+                            0 if copies == "parallel" else 1 << 40)
+    return on
+
+
+def estimator_of(scorer: str):
+    return LtuEstimation() if scorer == "ltu" else ZstdEstimation(1)
+
+
+@pytest.mark.parametrize("copies", ["parallel", "serial"])
+@pytest.mark.parametrize("scorer", ["ltu", "zstd1"])
+@pytest.mark.parametrize("fmt", list(BLOCK_SIZE))
+def test_the_copier_gives_the_per_file_search(fmt, scorer, copies, copies_on):
+    """Batches above and below the copier's serial threshold: each result is a
+    ``bytes``, the per-file search's settings and bytes (BC5 under LTU sums its two
+    endpoint rows' scores, so its bytes are held to the per-file transform under the
+    batch's pick), and the copier's counters add up to the batch's staged rows and
+    its results."""
+    copies_on(copies)
+    data = payloads(fmt, COPY_SIZES)
+    est = estimator_of(scorer)
+    backend.reset_counters()
+    got = BatchProcessor(fmt, max_batch=2, estimator=est, device="cpu").process(data)
+    assert [r.index for r in got] == list(range(len(data)))
+    for r, payload in zip(got, data):
+        assert type(r.transformed) is bytes
+        if not payload:
+            assert r.transformed == b""
+        elif fmt == "bc5" and scorer == "ltu":
+            assert PER_FILE[fmt](payload, est, candidates=[r.settings],
+                                 device="cpu") == (r.transformed, r.settings)
+        else:
+            assert PER_FILE[fmt](payload, est, device="cpu") == (r.transformed,
+                                                                r.settings)
+    c = backend.counters()
+    staged = c["batch.blocks_launched"] * BLOCK_SIZE[fmt]
+    moved = {"parallel": c["batch.copy_bytes_parallel"],
+             "serial": c["batch.copy_bytes_serial"]}
+    assert moved.pop(copies) == staged + sum(map(len, data))
+    assert moved.popitem()[1] == 0
+    assert c["batch.copy_threads"] == (4 if copies == "parallel" else 0)
+
+
+@pytest.mark.parametrize("scorer", ["ltu", "zstd1"])
+def test_a_mesh_batch_repeats_its_last_file_in_the_padding_rows(scorer, copies_on,
+                                                                monkeypatch):
+    """On a 3x2 mesh a batch of 2 files is padded to 3 rows: the copier lays the last
+    file into the third row as well, every row's tail zeroed; the results are the
+    one-device processor's."""
+    copies_on("parallel")
+    data = payloads("bc3", (64, 700, 2049))
+    mesh = make_mesh(devices=[torch.device("cpu")] * 6)
+    proc = BatchProcessor("bc3", mesh=mesh, max_batch=2, estimator=estimator_of(scorer),
+                          device="cpu")
+    staged = []
+    launch = proc._launch
+
+    def keep(flats, valid):
+        staged.append((flats.numpy().view(np.uint8).copy(), list(valid)))
+        return launch(flats, valid)
+
+    monkeypatch.setattr(proc, "_launch", keep)
+    got = proc.process(data)
+    live = [p for p in data if p]  # in one bucket each but the first two
+    assert [len(s[0]) for s in staged] == [3, 3]
+    laid = [[live[0], live[1], live[1]], [live[2]] * 3]
+    for (host, valid), files in zip(staged, laid):
+        for row, payload in zip(host, files):
+            assert row.tobytes() == payload + bytes(row.size - len(payload))
+        assert valid == [len(p) // 4 for p in files]
+    want = BatchProcessor("bc3", max_batch=2, estimator=estimator_of(scorer),
+                          device="cpu").process(data)
+    assert [(r.transformed, r.settings) for r in got] == \
+        [(r.transformed, r.settings) for r in want]
+
+
+@pytest.mark.parametrize("fmt", list(BLOCK_SIZE))
+def test_results_outlive_the_staging_that_a_second_call_reuses(fmt, copies_on):
+    """Each ``transformed`` is a ``bytes`` of its own: a second call, which takes the
+    staging buffers again, leaves the first call's results as they were."""
+    copies_on("parallel")
+    proc = BatchProcessor(fmt, max_batch=2, device="cpu")
+    first = proc.process(payloads(fmt, COPY_SIZES))
+    kept = [bytearray(r.transformed) for r in first]
+    second = proc.process(payloads(fmt, (2049, 700, 100, 64)))
+    assert all(type(r.transformed) is bytes for r in first + second)
+    assert [bytearray(r.transformed) for r in first] == kept
+    assert not any(r.transformed is s.transformed for r in first for s in second
+                   if r.transformed)
