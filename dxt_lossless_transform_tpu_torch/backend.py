@@ -26,7 +26,9 @@ blocks and the bucket-padded rows that ``BatchProcessor`` launched), and
 ``batch.files_device_bytes`` (the files whose shipped bytes the card wrote: the
 device-scored ``BatchProcessor``'s non-empty files), and the host copier's
 ``batch.copy_bytes_parallel``, ``batch.copy_bytes_serial`` and ``batch.copy_threads``
-(:mod:`.parallel.host_copy`; the last is set, by :func:`set_count`, not summed).
+(:mod:`.parallel.host_copy`; the last is set, by :func:`set_count`, not summed),
+``modesort.blocks_real`` and ``modesort.blocks_launched`` (the same of
+``ModeSortBatchProcessor``).
 :func:`counters` snapshots them as plain ints, with ``pinned_pool_growths``, the
 times PyTorch's pinned-memory pool grew (``num_host_alloc`` of its host allocator's
 statistics, read at the snapshot).
@@ -123,7 +125,8 @@ COUNTS = dict.fromkeys(("batch.blocks_real", "batch.blocks_launched",
                         "batch.files_device_bytes", "batch.copy_bytes_parallel",
                         "batch.copy_bytes_serial", "batch.copy_threads", "zstd.buffers",
                         "zstd.bytes", "zstd.contexts", "zstd.worker_us",
-                        "auto.payload_bytes"), 0)
+                        "auto.payload_bytes", "modesort.blocks_real",
+                        "modesort.blocks_launched"), 0)
 
 _lib: Optional[ctypes.CDLL] = None
 # held across the check, the build and the load of the library

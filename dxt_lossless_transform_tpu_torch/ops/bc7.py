@@ -157,7 +157,8 @@ def ltu_identity_guard_batch(datas, outs, settings_list, candidates) -> list:
     """:func:`ltu_identity_guard` for many files (JAX ``ops/bc7.py:530``): every
     (winner, payload) pair that needs the check goes through one
     ``ZstdEstimation(1).estimate_batch`` call. Returns ``[(shipped bytes, shipped
-    settings), ...]``."""
+    settings), ...]``; a reverted file ships its payload object itself where that is
+    ``bytes``, and a copy otherwise."""
     ident = next((s for s in candidates if _is_identity(s)), None)
     results = list(zip(outs, settings_list))
     need = [i for i, (o, s) in enumerate(results)
@@ -168,7 +169,8 @@ def ltu_identity_guard_batch(datas, outs, settings_list, candidates) -> list:
         [buf for i in need for buf in (outs[i], datas[i])])
     for j, i in enumerate(need):
         if not sizes[2 * j] < sizes[2 * j + 1]:
-            results[i] = (bytes(datas[i]), ident)
+            data = datas[i]
+            results[i] = (data if isinstance(data, bytes) else bytes(data), ident)
     return results
 
 

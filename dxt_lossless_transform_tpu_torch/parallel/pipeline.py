@@ -402,8 +402,10 @@ class ModeSortBatchProcessor:
     (:func:`..ops.bc7.ltu_identity_guard_batch`), as the per-file LTU auto-search
     runs it. Each file holds its candidates' whole streams on the device at once, so
     large buckets shrink the batch to ``DLT_MODESORT_HBM_BUDGET`` bytes (1 GiB by
-    default). ``timing`` as in :class:`BatchProcessor`, the guard a stage of its
-    own."""
+    default). The host's two copies of a batch, the payloads into their pinned rows
+    and each winner's bytes into a new ``bytes`` (stage ``winners``), are one call
+    each of the parallel copier. ``timing`` as in :class:`BatchProcessor`, the
+    guard a stage of its own. Counts each batch's real and launched blocks."""
 
     BLOCK_SIZE = 16
 
@@ -453,25 +455,29 @@ class ModeSortBatchProcessor:
                 chunk = indices[start:start + eff_batch]
                 self.batches += 1
                 with self.times("assemble"):
+                    # the rows' tails stay as they are: the kernels read n_valids
                     flats = backend.host_buffer((len(chunk), 16 * bucket), torch.uint8,
                                                 self.device)
                     host = flats.numpy()
-                    for row, idx in enumerate(chunk):
-                        host[row, :len(payloads[idx])] = np.frombuffer(payloads[idx],
-                                                                       np.uint8)
+                    host_copy.copy([(host[row], payloads[idx], len(payloads[idx]),
+                                     len(payloads[idx])) for row, idx in enumerate(chunk)])
+                ns = [len(payloads[i]) // 16 for i in chunk]
+                backend.count("modesort.blocks_real", sum(ns))
+                backend.count("modesort.blocks_launched", len(chunk) * bucket)
                 with self.times("h2d"):
                     x = backend.to_device(flats, self.device)
                 with self.times("device"):
                     out = ops_bc7.auto_step_batched_modesort(
-                        x, [len(payloads[i]) // 16 for i in chunk], self._cand_key,
-                        DEFAULT_OFFSETS, fmt)
+                        x, ns, self._cand_key, DEFAULT_OFFSETS, fmt)
                 with self.times("d2h"):
                     winner, valid, best = backend.Download(out).wait()
+                with self.times("winners"):
+                    outs = [host_copy.new_bytes(int(v)) for v in valid]
+                    host_copy.copy([(o, winner[row], len(o), len(o))
+                                    for row, o in enumerate(outs)])
                 with self.times("guard"):
                     shipped = ops_bc7.ltu_identity_guard_batch(
-                        [payloads[i] for i in chunk],
-                        [winner[row, :int(valid[row])].tobytes()
-                         for row in range(len(chunk))],
+                        [payloads[i] for i in chunk], outs,
                         [self.settings[int(b)] for b in best], self.settings)
                 for row, idx in enumerate(chunk):
                     self.picks[idx] = int(best[row])

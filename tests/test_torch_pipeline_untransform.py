@@ -168,7 +168,8 @@ def test_mode_sort_and_rgb_stage_times_are_kept_when_asked():
     data = [testgen.bc7_realistic(100, seed=1)]
     proc = ModeSortBatchProcessor("bc7", device="cpu", timing=True)
     proc.process(data)
-    assert set(proc.times.seconds) == {"assemble", "h2d", "device", "d2h", "guard"}
+    assert set(proc.times.seconds) == {"assemble", "h2d", "device", "d2h", "winners",
+                                        "guard"}
     rgb = RgbBatchProcessor("bgr888", LtuEstimation(), device="cpu", timing=True)
     rgb.process([testgen.make_uncompressed_dds("bgr888", 8, 8)[0x80:]])
     assert set(rgb.times.seconds) == {"assemble", "h2d", "device", "d2h", "serialize"}

@@ -29,7 +29,7 @@ from dxt_lossless_transform_tpu_torch.utils.profiling import span
 
 STAGES = {"batch": {"assemble", "h2d", "device", "d2h", "serialize"},
           "untransform": {"assemble", "h2d", "device", "d2h", "serialize"},
-          "modesort": {"assemble", "h2d", "device", "d2h", "guard"},
+          "modesort": {"assemble", "h2d", "device", "d2h", "winners", "guard"},
           "rgb": {"assemble", "h2d", "device", "d2h", "serialize"}}
 
 
